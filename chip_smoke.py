@@ -1,5 +1,6 @@
-"""Drive the PyTorch port's PV-RCNN inference once on a CUDA card, check
-its CUDA kernels against their plain PyTorch twins, and time both.
+"""Drive the PyTorch port's PV-RCNN inference and training on a CUDA
+card, check its CUDA kernels against their plain PyTorch twins, and time
+both.
 
 Run from the repository root, with one card visible:
 
@@ -21,7 +22,21 @@ Phases (any failure exits non-zero without printing the result line):
    card (B=4) and with the plain path on the CPU (B=1);
 6. timing with CUDA events — B=1 latency, B=4 frames/s, each kernel
    against its twin;
-7. a JSON line of the kernels, then the result line.
+7. training (``configs/.../pretrain_pvrcnn/split_0.py`` at full width,
+   train mode, B=2 synthetic frames of 18,000 points with the JAX
+   benchmark's 40-slot GT boxes): every kernel of one training step
+   against its twin at training shapes (the sparse conv's backward
+   kernel against autograd through the twin, max relative error
+   <= 1e-5); one step on the kernel path against one on the plain path,
+   both on the kernel path's proposals (losses and BN running statistics
+   within 1e-4), and against one whose sparse convs take the kernel's
+   forward values and the twin's autograd backward (gradients within
+   1e-3 of each tensor's largest magnitude; see ``train_phases``);
+   ``train_pvrcnn`` for 5 steps with all four
+   launch counters moving, and CUDA-event timings of the step, its split,
+   the train proposal NMS and peak memory;
+8. a JSON line of the kernels (times per training step, with their
+   bounds), then the result line.
 """
 from __future__ import annotations
 
@@ -39,15 +54,28 @@ ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs/detmatch/001/pretrain_pvrcnn/split_0.py"
 SEED = 0
 NUM_POINTS = 16384  # the BENCH=infer shape (bench.py:62)
+TRAIN_POINTS = 18000  # data.collate.max_points of the pretrain config
+TRAIN_B = 2           # its batch_size
+TRAIN_STEPS = 5
 CONV_RTOL = 1e-5
 E2E_RTOL = 1e-4
+GRAD_TOL = 1e-3       # of each gradient tensor's largest magnitude
 MATCH_SHARE = 0.99
 DEVICE = "cuda"
+# H100 SXM peaks (NVIDIA datasheet): HBM3 bytes/s and fp32
+# FLOP/s outside the tensor cores; every kernel here computes in fp32
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
 
+FWD_KERNELS = ("window_key_conv_batched", "fps_batched",
+               "ball_query_batched")
 KERNEL_META = {
     "window_key_conv_batched": dict(
         source="detmatch_tpu_torch/csrc/window_key_conv.cu",
         replaces="detmatch_tpu/ops/pallas/window_key_conv.py:142"),
+    "window_key_conv_bwd": dict(
+        source="detmatch_tpu_torch/csrc/window_key_conv_bwd.cu",
+        replaces="detmatch_tpu/ops/pallas/window_key_conv.py:260"),
     "fps_batched": dict(
         source="detmatch_tpu_torch/csrc/fps.cu",
         replaces="detmatch_tpu/ops/pallas/fps.py:94"),
@@ -57,8 +85,11 @@ KERNEL_META = {
 }
 
 
+T0 = time.perf_counter()
+
+
 def phase(name):
-    print(f"== {name}", flush=True)
+    print(f"== {name} (t={time.perf_counter() - T0:.1f}s)", flush=True)
 
 
 def card_line():
@@ -113,12 +144,16 @@ def randomize_(model, seed):
 
 
 def recording(base, calls):
-    """An Ops whose functions log their arguments and call ``base``."""
+    """An Ops whose functions log their arguments (detached; for the
+    sparse conv also whether its input needed a gradient) and call
+    ``base``."""
     from detmatch_tpu_torch.ops.cuda import Ops
 
     def wrap(name, fn):
         def rec(*args, **kwargs):
-            calls.append((name, args, kwargs))
+            calls.append((name, tuple(
+                a.detach() if isinstance(a, torch.Tensor) else a
+                for a in args), kwargs, args[0].requires_grad))
             return fn(*args, **kwargs)
         return rec
 
@@ -140,13 +175,39 @@ def make_batch(spec, b, valid_counts=None):
                 voxel_features=vox["features"], voxel_keys=vox["keys"])
 
 
+def make_train_model(cfg):
+    """The config's PV-RCNN on the card, in train mode, with the model's
+    own (pcdet) initialisers seeded from SEED: the state a pretraining run
+    starts from (the classification prior bias, std-1e-3 box layers).
+    Fully random heads (``randomize_``) put every anchor near p = 0.5; the
+    nearly uniform focal-loss gradient then leaves the train-mode BN
+    backward a difference of near-equal numbers, which turns 1e-7
+    rounding into percent-level gradient noise."""
+    from detmatch_tpu_torch.apis.build import build_detector
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        model = build_detector(cfg)  # the card: build_detector's default
+    return model.train()
+
+
+def make_train_frames(spec):
+    """B=2 collated numpy training frames: 18,000-point synthetic scans and
+    the JAX benchmark's 40-slot GT boxes (20 valid)."""
+    from detmatch_tpu_torch.utils.synth_kitti import gt_boxes, lidar_batch
+    rng = np.random.RandomState(SEED)
+    pts, valid = lidar_batch(rng, TRAIN_B, TRAIN_POINTS,
+                             spec.point_cloud_range)
+    return dict(points=pts, points_valid=valid,
+                gt_boxes=gt_boxes(rng, TRAIN_B))
+
+
 def check_kernels(calls, label, stats):
     """Run each recorded main-path call through kernel and twin."""
     from detmatch_tpu_torch.ops.cuda import KERNELS, PLAIN
     kern = dict(zip(KERNELS._fields, KERNELS))
     plain = dict(zip(PLAIN._fields, PLAIN))
     ok = True
-    for i, (name, args, kwargs) in enumerate(calls):
+    for i, (name, args, kwargs, _) in enumerate(calls):
         k_out = kern[name](*args, **kwargs)
         p_out = plain[name](*args, **kwargs)
         torch.cuda.synchronize()
@@ -293,7 +354,7 @@ def run():
         model.ops = KERNELS
         ok = check_kernels(calls4, "B=4", stats)
         ok &= check_kernels(calls3, "B=3", stats)
-    counts = {n: sum(c[0] == n for c in calls4) for n in KERNEL_META}
+    counts = {n: sum(c[0] == n for c in calls4) for n in FWD_KERNELS}
     print(f"calls per forward: {counts}")
     if not ok:
         raise AssertionError("a kernel disagrees with its plain twin")
@@ -306,7 +367,7 @@ def run():
         torch.cuda.synchronize()
         launches = cuda_ops.launch_counts()
     print(f"launches in detect(): {launches}")
-    if not all(v > 0 for v in launches.values()):
+    if not all(launches[n] > 0 for n in FWD_KERNELS):
         raise AssertionError("a kernel of the path was not launched")
     n_valid = det_k["valid"].sum(1).tolist()
     finite = all(bool(torch.isfinite(det_k[k]).all())
@@ -330,6 +391,7 @@ def run():
     print(f"  detections matched: {share:.4f} of {total}")
     if not ok or share < MATCH_SHARE:
         raise AssertionError("kernel path disagrees with the plain path")
+    del out_k, out_p
 
     phase("end to end (kernel path on the card against plain path on "
           "the CPU, B=1)")
@@ -353,42 +415,381 @@ def run():
           "(information: NMS order under 1e-6 score noise)")
     if not ok:
         raise AssertionError("kernel path disagrees with the CPU reference")
+    del cpu_model, out_c1, out_k1
 
     phase(f"timing (CUDA events) on {card}")
-    timing = {}
     with torch.inference_mode():
         for path, ops in (("kernel", KERNELS), ("plain", PLAIN)):
             model.ops = ops
             for b, bt in ((1, batch1), (4, batch4)):
                 ms = cuda_ms(lambda: detect(model, bt["points"],
                                             bt["points_valid"], spec,
-                                            score_thresh=0.0), reps=5)
-                timing[(path, b)] = ms
+                                            score_thresh=0.0), reps=3)
                 print(f"  {path} path B={b}: {ms:.3f} ms/call "
                       f"({1000.0 * b / ms:.3f} frames/s) [{card}]")
         model.ops = KERNELS
-        kern = dict(zip(KERNELS._fields, KERNELS))
-        plain = dict(zip(PLAIN._fields, PLAIN))
-        per_kernel = {n: dict(ms=0.0, plain_ms=0.0) for n in KERNEL_META}
-        for name, args, kwargs in calls4:
-            k_ms = cuda_ms(lambda: kern[name](*args, **kwargs), reps=10)
-            p_ms = cuda_ms(lambda: plain[name](*args, **kwargs), reps=3)
-            per_kernel[name]["ms"] += k_ms
-            per_kernel[name]["plain_ms"] += p_ms
-        for name, t in per_kernel.items():
-            print(f"  {name}: {t['ms']:.3f} ms per forward "
-                  f"(plain {t['plain_ms']:.3f} ms, {counts[name]} calls, "
-                  f"B=4) [{card}]")
+        per_kernel = time_kernels(calls4, {})
+        for name in FWD_KERNELS:
+            print(f"  {name}: {describe(per_kernel[name])} per B=4 forward, "
+                  f"{counts[name]} calls [{card}]")
+    del model, batch3, batch4, batch1
+
+    train = train_phases(cfg, spec, card, stats)
 
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=meta["source"],
-             replaces=meta["replaces"], launches=launches[name],
+             replaces=meta["replaces"], launches=train[name]["launches"],
              max_abs_err=stats[name]["max_abs_err"],
-             ms=per_kernel[name]["ms"], plain_ms=per_kernel[name]["plain_ms"])
+             ms=train[name]["ms"], plain_ms=train[name]["plain_ms"],
+             bound_ms=train[name]["bound_ms"],
+             bound_by=train[name]["bound_by"], library_ms=None)
         for name, meta in KERNEL_META.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def conv_pairs(args):
+    """Matched (row, tap) pairs of a sparse-conv call: the plain twin's
+    rulebook entries that find an input row."""
+    from detmatch_tpu_torch.ops import spconv
+    _, keys, nkeys = args[:3]
+    b, m, k = nkeys.shape
+    return int((spconv.lookup_batched(keys, nkeys.reshape(b, m * k))
+                >= 0).sum())
+
+
+def work(name, args, kwargs, need_dfeats=True, out=None):
+    """(bytes, flops) of one call: each input read once and each output
+    written once, and the arithmetic these inputs need (for the ball
+    query, ``out`` is its (idx, cnt))."""
+    if name in ("window_key_conv_batched", "window_key_conv_bwd"):
+        feats, _, nkeys, _, w, _ = args
+        b, n, c = feats.shape
+        m, k = nkeys.shape[1], nkeys.shape[2]
+        co = w.shape[-1]
+        flops = 2 * conv_pairs(args) * c * co  # one fma per (pair, c, co)
+        inputs = b * n * c + b * n + b * m * k + k * c * co
+        if name == "window_key_conv_batched":
+            return 4 * (inputs + b * m * co), flops
+        # reads dout too; writes dW and, where wanted, dF
+        out = k * c * co + (b * n * c if need_dfeats else 0)
+        return (4 * (inputs + b * m * co + out),
+                flops * (2 if need_dfeats else 1))
+    if name == "fps_batched":
+        xyz, valid, s = args
+        # per step and valid point: 3 sub, 3 mul, 2 add, a min, a compare
+        return (xyz.numel() * 4 + valid.numel() + xyz.shape[0] * s * 4,
+                10 * s * int(valid.sum()))
+    centers, cvalid, pts, pvalid, _, ns = args
+    idx, cnt = out
+    # per neighbour found, one distance test: 3 sub, 3 mul, 2 add, compare
+    return (centers.numel() * 4 + cvalid.numel() + pts.numel() * 4
+            + pvalid.numel() + kwargs["point_perm"].numel() * 4
+            + (idx.numel() + cnt.numel()) * 4, 9 * int(cnt.sum()))
+
+
+def add_bound(entry, nbytes, flops):
+    """Accumulate a call's bound: the larger of its bytes over the HBM
+    rate and its flops over the fp32 rate."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    tf = flops / FP32_FLOP_PER_S * 1e3
+    entry["bound_ms"] = entry.get("bound_ms", 0.0) + max(tb, tf)
+    entry["bytes_ms"] = entry.get("bytes_ms", 0.0) + tb
+    entry["ops_ms"] = entry.get("ops_ms", 0.0) + tf
+    entry["bound_by"] = ("bytes" if entry["bytes_ms"] >= entry["ops_ms"]
+                         else "operations")
+
+
+def describe(t):
+    return (f"{t['ms']:.3f} ms (plain {t['plain_ms']:.3f} ms, bound "
+            f"{t['bound_ms']:.4f} ms by {t['bound_by']})")
+
+
+def time_kernels(calls, bwd_cases):
+    """Kernel and twin time (CUDA events) and bound of each kernel,
+    summed over the recorded calls; ``bwd_cases`` adds the sparse conv's
+    backward for each (args, need_dfeats, dout)."""
+    from detmatch_tpu_torch.ops.cuda import KERNELS, PLAIN
+    from detmatch_tpu_torch.ops.cuda.window_key_conv import (
+        window_key_conv_bwd, window_key_conv_plain)
+    kern = dict(zip(KERNELS._fields, KERNELS))
+    plain = dict(zip(PLAIN._fields, PLAIN))
+    per = {}
+    for name, args, kwargs, _ in calls:
+        t = per.setdefault(name, dict(ms=0.0, plain_ms=0.0))
+        t["ms"] += cuda_ms(lambda: kern[name](*args, **kwargs), reps=5)
+        t["plain_ms"] += cuda_ms(lambda: plain[name](*args, **kwargs),
+                                 reps=2)
+        add_bound(t, *work(name, args, kwargs, out=kern[name](*args,
+                                                               **kwargs)))
+    for args, need, dout in bwd_cases:
+        feats, keys, nkeys, out_keys, w, band = args
+        t = per.setdefault("window_key_conv_bwd", dict(ms=0.0, plain_ms=0.0))
+        t["ms"] += cuda_ms(lambda: window_key_conv_bwd(
+            dout, feats, keys, nkeys, w, band, need_dfeats=need), reps=5)
+        with torch.enable_grad():
+            f = feats.clone().requires_grad_(need)
+            ww = w.clone().requires_grad_()
+            out = window_key_conv_plain(f, keys, nkeys, out_keys, ww, band)
+            wrt = (f, ww) if need else (ww,)
+            t["plain_ms"] += cuda_ms(lambda: torch.autograd.grad(
+                out, wrt, dout, retain_graph=True), reps=3)
+        add_bound(t, *work("window_key_conv_bwd", args, {}, need))
+    return per
+
+
+def worst_grad(ma, mb):
+    """Largest gradient difference of two models' parameters, over the
+    tensor's largest magnitude, and the parameter it is in."""
+    worst, worst_name = 0.0, ""
+    for (n, pa), (_, pb) in zip(ma.named_parameters(), mb.named_parameters()):
+        ga = pa.grad if pa.grad is not None else torch.zeros_like(pa)
+        gb = pb.grad if pb.grad is not None else torch.zeros_like(pb)
+        err = float((ga - gb).abs().max() / gb.abs().max().clamp(min=1e-12))
+        if err > worst:
+            worst, worst_name = err, n
+    return worst, worst_name
+
+
+def train_phases(cfg, spec, card, stats):
+    """Training at full width on the card; returns, per kernel, the
+    launches of the ``train_pvrcnn`` run and the per-step times and
+    bounds at training shapes."""
+    import copy
+
+    from detmatch_tpu_torch.apis.train_pretrain import (to_device_batch,
+                                                        train_pvrcnn)
+    from detmatch_tpu_torch.models.pvrcnn import pvrcnn as pvrcnn_mod
+    from detmatch_tpu_torch.models.pvrcnn.backbone3d import SparseConv3d
+    from detmatch_tpu_torch.models.pvrcnn.roi_head import proposal_layer
+    from detmatch_tpu_torch.ops import cuda as cuda_ops
+    from detmatch_tpu_torch.ops.cuda import KERNELS, PLAIN
+    from detmatch_tpu_torch.ops.cuda.window_key_conv import (
+        window_key_conv_bwd, window_key_conv_plain)
+    from detmatch_tpu_torch.ops.voxelize import INVALID_KEY
+    from detmatch_tpu_torch.train.optim import (clip_grad_norm_,
+                                                make_optimizer)
+
+    phase("training: model and frames")
+    model = make_train_model(cfg)
+    frames = make_train_frames(spec)
+    batch = to_device_batch(frames, spec, DEVICE)
+    print(f"B={TRAIN_B} frames: valid points "
+          f"{frames['points_valid'].sum(1).tolist()}, "
+          "voxels "
+          f"{(batch['voxel_keys'] != INVALID_KEY).sum(1).tolist()}, "
+          f"gt boxes {(frames['gt_boxes'][..., 7] > 0).sum(1).tolist()}")
+
+    def gen():
+        return torch.Generator(DEVICE).manual_seed(SEED)
+
+    phase("training: kernels against plain twins (training shapes)")
+    calls = []
+    probe = copy.deepcopy(model)
+    probe.ops = recording(KERNELS, calls)
+    out = probe(batch, train=True, generator=gen())
+    box_preds = out["batch_box_preds"].detach()
+    cls_preds = out["batch_cls_preds"].detach()
+    n_fg = int(out["roi_targets"]["reg_valid_mask"].sum())
+    del out, probe
+    with torch.no_grad():
+        ok = check_kernels(calls, "train B=2", stats)
+    counts = {n: sum(c[0] == n for c in calls) for n in FWD_KERNELS}
+    print(f"calls per training forward: {counts}; fg rois {n_fg}")
+    g = gen()
+    bwd_cases = []
+    st = stats.setdefault("window_key_conv_bwd", dict(max_abs_err=0.0,
+                                                      cases=0))
+    for i, (name, args, _, need) in enumerate(calls):
+        if name != "window_key_conv_batched":
+            continue
+        feats, keys, nkeys, out_keys, w, band = args
+        dout = torch.randn(feats.shape[0], nkeys.shape[1], w.shape[-1],
+                           generator=g, device=DEVICE)
+        d_f, d_w = window_key_conv_bwd(dout, feats, keys, nkeys, w, band)
+        f = feats.clone().requires_grad_()
+        ww = w.clone().requires_grad_()
+        p_f, p_w = torch.autograd.grad(window_key_conv_plain(
+            f, keys, nkeys, out_keys, ww, band), (f, ww), dout)
+        torch.cuda.synchronize()
+        err_f, err_w = rel_err(d_f, p_f), rel_err(d_w, p_w)
+        st["cases"] += 1
+        st["max_abs_err"] = max(st["max_abs_err"],
+                                float((d_f - p_f).abs().max()),
+                                float((d_w - p_w).abs().max()))
+        good = err_f <= CONV_RTOL and err_w <= CONV_RTOL
+        ok &= good
+        print(f"  train B=2 window_key_conv_bwd[{i}] dF rel_err={err_f:.3e} "
+              f"dW rel_err={err_w:.3e} feats {tuple(feats.shape)} "
+              f"out {tuple(dout.shape)} taps={nkeys.shape[-1]} "
+              f"pairs={conv_pairs(args)} dF on the main path={need} "
+              f"{'ok' if good else 'FAIL'}")
+        bwd_cases.append((args, need, dout))
+    if not ok:
+        raise AssertionError("a kernel disagrees with its plain twin at "
+                             "training shapes")
+
+    phase("training: one step, kernel path against plain paths")
+    # Every path runs on the kernel path's proposals: the level-4 convs'
+    # sums differ by ~1e-6 between the kernel and cuBLAS's split of the
+    # twin's matmul, and the 211,200 anchor scores of an untrained model
+    # are so densely tied that such noise reorders them at the NMS cut.
+    # "plain" runs every op's twin. Its losses and BN statistics are held
+    # to 1e-4, but not its gradients: the train-mode BN backward turns the
+    # nearly uniform focal-loss gradient into a difference of near-equal
+    # numbers, so its 1e-7 forward noise moves some BEV weight gradients by
+    # ~1e-2 of their largest magnitude. "plain backward" takes the sparse
+    # convs' forward values from the kernel, bit for bit, and their
+    # gradients from autograd through the twin, with every other op's
+    # twin: it holds the backward kernel's gradients, as the whole step
+    # propagates them, to 1e-3 of each tensor's largest magnitude.
+    def conv_plain_backward(feats, keys, nkeys, out_keys, w, band):
+        twin = window_key_conv_plain(feats, keys, nkeys, out_keys, w, band)
+        with torch.no_grad():
+            kern = KERNELS.window_key_conv_batched(feats, keys, nkeys,
+                                                   out_keys, w, band)
+        return kern + (twin - twin.detach())  # kern's values, twin's grad
+
+    res = {}
+    own_layer = pvrcnn_mod.proposal_layer
+    for path, ops in (
+            ("kernel", KERNELS), ("plain", PLAIN),
+            ("plain backward",
+             PLAIN._replace(window_key_conv_batched=conv_plain_backward)),
+            ("kernel again", KERNELS)):
+        m = copy.deepcopy(model)
+        m.ops = ops
+        out = m(batch, train=True, generator=gen())
+        losses = m.loss(out, batch)
+        losses["loss"].backward()
+        res[path] = (m, {k: float(v.detach()) for k, v in losses.items()})
+        if path == "kernel":
+            pinned = {k: v.detach() for k, v in out["proposals"].items()}
+            pvrcnn_mod.proposal_layer = lambda *a, **kw: pinned
+        elif path == "plain":
+            own = own_layer(out["batch_box_preds"], out["batch_cls_preds"],
+                            **m.train_nms)["rois"]
+        del out, losses
+    pvrcnn_mod.proposal_layer = own_layer
+    same = (own - pinned["rois"]).abs().amax(-1) <= E2E_RTOL * pinned[
+        "rois"].abs().max()
+    print(f"  proposal slots the plain path's own NMS would share: "
+          f"{float(same.float().mean()):.4f} (information)")
+    mk, lk = res["kernel"]
+    ok = True
+    for path in ("plain", "plain backward"):
+        mp, lp = res[path]
+        for k in lp:
+            ok &= report(f"{path}: loss {k} ({lk[k]:.6f})",
+                         abs(lk[k] - lp[k]) / max(abs(lp[k]), 1e-12))
+        bufs_p = dict(mp.named_buffers())
+        ok &= report(f"{path}: BN running statistics (worst)", max(
+            rel_err(bk, bufs_p[n]) for n, bk in mk.named_buffers()
+            if n.endswith(("running_mean", "running_var"))))
+    for path, gated in (("plain backward", True), ("plain", False),
+                        ("kernel again", False)):
+        worst, worst_name = worst_grad(mk, res[path][0])
+        good = worst <= GRAD_TOL
+        ok &= good or not gated
+        print(f"  {path}: gradients: worst {worst:.3e} of the tensor's "
+              f"largest magnitude ({worst_name}) "
+              + (("ok" if good else "FAIL") if gated else "(information)"))
+    convs = [mod for mod in mk.backbone_3d.modules()
+             if isinstance(mod, SparseConv3d)]
+    zero = [i for i, c in enumerate(convs)
+            if not bool(c.weight.grad.abs().max() > 0)]
+    print(f"  backbone conv weights with a nonzero gradient on the kernel "
+          f"path: {len(convs) - len(zero)} of {len(convs)}")
+    if not ok or zero:
+        raise AssertionError("kernel path disagrees with the plain path in "
+                             "a training step")
+    del res, mk, mp
+
+    phase("training: train_pvrcnn, kernel path")
+    m = copy.deepcopy(model)
+    before = {n: p.detach().clone() for n, p in m.named_parameters()}
+
+    def batches():
+        while True:
+            yield frames
+
+    cuda_ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    m, _, hist = train_pvrcnn(m, spec, batches(), ROOT / "build" /
+                              "train_smoke", TRAIN_STEPS, log_interval=1,
+                              seed=SEED)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = cuda_ops.launch_counts()
+    expect = dict(counts, window_key_conv_bwd=counts[
+        "window_key_conv_batched"])
+    print(f"launches in train_pvrcnn ({TRAIN_STEPS} steps): {launches}; "
+          f"per step expected {expect}")
+    print(f"  {TRAIN_STEPS} steps in {wall:.3f} s wall; losses "
+          + " ".join(f"{h['loss']:.4f}" for h in hist))
+    moved = sum(not torch.equal(p, before[n])
+                for n, p in m.named_parameters())
+    finite = all(np.isfinite(v) for h in hist for v in h.values())
+    print(f"  finite={finite}; parameters moved: {moved} of {len(before)}")
+    if (any(launches[n] != TRAIN_STEPS * c for n, c in expect.items())
+            or not finite or moved < 0.9 * len(before)):
+        raise AssertionError("train_pvrcnn: a kernel was not launched as "
+                             "expected, a loss is not finite, or the "
+                             "parameters did not move")
+    del m, before
+
+    phase(f"training: timing (CUDA events) on {card}")
+    for path, ops in (("kernel", KERNELS), ("plain", PLAIN)):
+        m = copy.deepcopy(model)
+        m.ops = ops
+        params = list(m.parameters())
+        opt, sched = make_optimizer(params, 0.001, 100)
+        g = gen()
+        split = []
+        torch.cuda.synchronize()
+        if path == "kernel":
+            torch.cuda.reset_peak_memory_stats()
+        for step in range(4):  # the first is a warm-up
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+            out = m(batch, train=True, generator=g)
+            losses = m.loss(out, batch)
+            ev[1].record()
+            opt.zero_grad(set_to_none=True)
+            losses["loss"].backward()
+            ev[2].record()
+            clip_grad_norm_(params)
+            opt.step()
+            sched.step()
+            ev[3].record()
+            torch.cuda.synchronize()
+            del out, losses
+            if step:
+                split.append([ev[i].elapsed_time(ev[i + 1])
+                              for i in range(3)])
+        fwd, bwd, upd = (float(np.mean(x)) for x in zip(*split))
+        step_ms = fwd + bwd + upd
+        peak = (f", peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f}"
+                " GiB" if path == "kernel" else "")
+        print(f"  {path} path B={TRAIN_B}: {step_ms:.3f} ms/step "
+              f"({1000.0 * TRAIN_B / step_ms:.3f} frames/s): forward+loss "
+              f"{fwd:.3f}, backward {bwd:.3f}, clip+optimizer {upd:.3f} ms"
+              f"{peak} [{card}]")
+        del m, opt, sched, params
+    with torch.no_grad():
+        nms_ms = cuda_ms(lambda: proposal_layer(box_preds, cls_preds,
+                                                **model.train_nms), reps=2)
+    print(f"  proposal NMS {model.train_nms['nms_pre']} -> "
+          f"{model.train_nms['nms_post']}, B={TRAIN_B}: {nms_ms:.3f} ms "
+          f"[{card}]")
+    with torch.no_grad():
+        per = time_kernels(calls, bwd_cases)
+    for name in KERNEL_META:
+        per[name]["launches"] = launches[name]
+        print(f"  {name}: {describe(per[name])} per training step, "
+              f"{expect[name]} calls [{card}]")
+    return per
 
 
 def main():

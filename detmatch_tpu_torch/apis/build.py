@@ -10,9 +10,11 @@ from ..models.pvrcnn.pvrcnn import PVRCNN
 from ..ops.voxelize import VoxelizerSpec
 
 
-def build_detector(cfg: Dict[str, Any], device="cpu"):
+def build_detector(cfg: Dict[str, Any], device="cuda"):
     """The PV-RCNN of ``cfg['model']['detector_3d']``, in eval mode on
-    ``device``."""
+    ``device``: the card unless the caller asks for another device (the
+    CPU tests pass ``device="cpu"``); there is no fallback when no card
+    is found."""
     det = dict(cfg["model"]["detector_3d"])
     kind = det.pop("type", "PVRCNN")
     if kind != "PVRCNN":

@@ -14,6 +14,11 @@ bridges:
   BEV rows of the VSA fusion are permuted back;
 * RoI shared-fc input: JAX flattens (G^3, C), pcdet (C, G^3);
 * spconv weights (K, in, out) → (kz, ky, kx, in, out).
+
+Every bridge is linear (a transpose, a reshape, a flip or a row
+permutation), so the same function also maps JAX **gradients** (a
+``jax.grad`` tree shaped like ``params``) onto the port's parameters,
+which is how the training tests compare the two packages' gradients.
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
 """3D box geometry (counterpart of ``detmatch_tpu/core/geometry.py``, the
-parts the inference slice calls).
+parts the PV-RCNN inference and training paths call).
 
 Box convention: (x, y, z, dx, dy, dz, heading) — gravity center in the
 LiDAR frame, full sizes, heading CCW around +z from +x.
@@ -47,3 +47,45 @@ def boxes_to_corners_bev(boxes):
 def boxes_to_bev(boxes):
     """(N, 7) → (N, 5) (cx, cy, dx, dy, heading)."""
     return torch.cat([boxes[:, 0:2], boxes[:, 3:5], boxes[:, 6:7]], dim=-1)
+
+
+# pcdet corner order: 0-3 the bottom face, 4-7 the top face
+_CORNER_TEMPLATE = np.array(
+    [[1, 1, -1], [1, -1, -1], [-1, -1, -1], [-1, 1, -1],
+     [1, 1, 1], [1, -1, 1], [-1, -1, 1], [-1, 1, 1]],
+    dtype=np.float32) / 2.0
+
+
+def boxes_to_corners_3d(boxes):
+    """(N, 7[+]) boxes → (N, 8, 3) corners, pcdet corner order."""
+    template = torch.as_tensor(_CORNER_TEMPLATE, dtype=boxes.dtype,
+                               device=boxes.device)
+    corners = boxes[:, None, 3:6] * template[None]
+    return rotate_points_z(corners, boxes[:, 6]) + boxes[:, None, 0:3]
+
+
+def boxes_to_aligned_bev(boxes):
+    """(N, 7) → (N, 4) axis-aligned BEV xyxy: dx/dy swapped when the
+    heading is nearer the y axis (pcdet
+    ``boxes3d_lidar_to_aligned_bev_boxes``)."""
+    rot = limit_period(boxes[:, 6], offset=0.5, period=np.pi)
+    cond = (torch.abs(rot) > np.pi / 4)[..., None]
+    dxy = torch.where(cond, boxes[:, [4, 3]], boxes[:, [3, 4]])
+    return torch.cat([boxes[:, 0:2] - dxy / 2, boxes[:, 0:2] + dxy / 2],
+                     dim=-1)
+
+
+def points_in_boxes(points, boxes):
+    """(N, 3) points, (M, 7) boxes → (M, N) bool, box-major."""
+    local = points[None, :, :3] - boxes[:, None, 0:3]
+    local = rotate_points_z(local, -boxes[:, 6])
+    half = boxes[:, None, 3:6] / 2.0
+    return (torch.abs(local) <= half).all(dim=-1)
+
+
+def enlarge_boxes(boxes, extra_width):
+    """Grow each box's full sizes by ``2 * extra_width`` per axis (pcdet
+    ``enlarge_box3d``)."""
+    ew = torch.as_tensor(extra_width, dtype=boxes.dtype, device=boxes.device)
+    return torch.cat([boxes[:, 0:3], boxes[:, 3:6] + ew * 2.0, boxes[:, 6:]],
+                     dim=-1)

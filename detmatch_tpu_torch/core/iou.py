@@ -1,4 +1,5 @@
-"""Rotated BEV overlap and IoU (counterpart of ``detmatch_tpu/core/iou.py``).
+"""Axis-aligned 2D IoU, rotated BEV overlap and IoU, and 3D IoU
+(counterpart of ``detmatch_tpu/core/iou.py``).
 
 Convex intersection of two quads: candidate vertices are the 16 edge-pair
 intersections plus the corners of each quad inside the other, sorted by
@@ -19,6 +20,24 @@ def quantize(ious, bits=20):
     whatever the last-ulp noise of the program that computed them."""
     scale = float(2.0 ** bits)
     return torch.round(ious * scale) * (1.0 / scale)
+
+
+def area2d(boxes):
+    """(..., 4) xyxy → (...) area, clamped at 0."""
+    w = torch.clamp(boxes[..., 2] - boxes[..., 0], min=0)
+    h = torch.clamp(boxes[..., 3] - boxes[..., 1], min=0)
+    return w * h
+
+
+def iou2d(boxes1, boxes2, eps=1e-6):
+    """Pairwise axis-aligned IoU of (N, 4) and (M, 4) xyxy boxes → (N, M)."""
+    b1, b2 = boxes1[:, None, :], boxes2[None, :, :]
+    lt = torch.maximum(b1[..., :2], b2[..., :2])
+    rb = torch.minimum(b1[..., 2:], b2[..., 2:])
+    wh = torch.clamp(rb - lt, min=0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = torch.clamp(area2d(b1) + area2d(b2) - inter, min=eps)
+    return inter / union
 
 
 def rotated_overlap_block(c1, c2):
@@ -91,3 +110,28 @@ def rotated_iou_bev(boxes1, boxes2, eps=1e-6):
     a1 = (boxes1[:, 2] * boxes1[:, 3])[:, None]
     a2 = (boxes2[:, 2] * boxes2[:, 3])[None, :]
     return inter / torch.clamp(a1 + a2 - inter, min=eps)
+
+
+def iou3d(boxes1, boxes2, eps=1e-6):
+    """Pairwise 3D IoU of (N, 7) and (M, 7) boxes: rotated BEV overlap
+    times z overlap over the volume union (pcdet ``boxes_iou3d_gpu``)."""
+    inter_bev = rotated_overlap_block(geometry.boxes_to_corners_bev(boxes1),
+                                      geometry.boxes_to_corners_bev(boxes2))
+    zmax1 = boxes1[:, 2] + boxes1[:, 5] / 2
+    zmin1 = boxes1[:, 2] - boxes1[:, 5] / 2
+    zmax2 = boxes2[:, 2] + boxes2[:, 5] / 2
+    zmin2 = boxes2[:, 2] - boxes2[:, 5] / 2
+    z_overlap = torch.clamp(
+        torch.minimum(zmax1[:, None], zmax2[None, :])
+        - torch.maximum(zmin1[:, None], zmin2[None, :]), min=0.0)
+    inter = inter_bev * z_overlap
+    vol1 = torch.prod(boxes1[:, 3:6], dim=-1)[:, None]
+    vol2 = torch.prod(boxes2[:, 3:6], dim=-1)[None, :]
+    return inter / torch.clamp(vol1 + vol2 - inter, min=eps)
+
+
+def nearest_bev_iou(boxes1, boxes2):
+    """Axis-aligned IoU of 7-dof boxes after snapping each heading to the
+    nearest axis (pcdet ``boxes3d_nearest_bev_iou``)."""
+    return iou2d(geometry.boxes_to_aligned_bev(boxes1),
+                 geometry.boxes_to_aligned_bev(boxes2))

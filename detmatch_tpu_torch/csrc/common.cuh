@@ -16,6 +16,22 @@ namespace dm {
 
 constexpr int32_t kInvalidKey = 0x7fffffff;  // ops/voxelize.INVALID_KEY
 
+// First position in the sorted keys[0, n) whose key is >= q.
+__device__ __forceinline__ int lower_bound(const int32_t* keys, int n,
+                                           int32_t q) {
+  int a = 0;
+  int z = n;
+  while (a < z) {
+    const int mid = (a + z) >> 1;
+    if (keys[mid] < q) {
+      a = mid + 1;
+    } else {
+      z = mid;
+    }
+  }
+  return a;
+}
+
 // (a - b)^2 summed over xyz as ((dx*dx + dy*dy) + dz*dz), every step
 // rounded to nearest: no FMA contraction, so the result is bit-identical
 // to the plain PyTorch twin (ops/pointnet.sq_dist) and near-ties break

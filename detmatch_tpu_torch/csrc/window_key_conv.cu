@@ -36,21 +36,6 @@ constexpr int kMaxCout = 128;
 constexpr int kMaxW = 8192;                        // C * Co floats per tap
 constexpr int kAcc = kRows * kMaxCout / kThreads;  // outputs per thread
 
-__device__ __forceinline__ int lower_bound(const int32_t* keys, int n,
-                                           int32_t q) {
-  int a = 0;
-  int z = n;
-  while (a < z) {
-    const int mid = (a + z) >> 1;
-    if (keys[mid] < q) {
-      a = mid + 1;
-    } else {
-      z = mid;
-    }
-  }
-  return a;
-}
-
 __global__ void __launch_bounds__(kThreads)
     window_key_conv_fwd_kernel(const float* __restrict__ feats,
                                const int32_t* __restrict__ keys,
@@ -76,7 +61,7 @@ __global__ void __launch_bounds__(kThreads)
       if (q != dm::kInvalidKey) {
         const int bi = static_cast<int>(row / m);
         const int32_t* tbl = keys + static_cast<size_t>(bi) * n;
-        const int pos = lower_bound(tbl, n, q);
+        const int pos = dm::lower_bound(tbl, n, q);
         if (pos < n && tbl[pos] == q) src = bi * n + pos;
       }
     }

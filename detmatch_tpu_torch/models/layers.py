@@ -1,9 +1,9 @@
 """Shared building blocks (counterpart of ``detmatch_tpu/models/layers.py``).
 
 The port keeps pcdet's own module types (``BatchNorm1d``/``BatchNorm2d``,
-``Linear``, ``Conv1d``/``Conv2d``) so the state dict matches a reference
-checkpoint; these helpers apply them the way the JAX reference does.
-This slice is inference only: batch norm uses its running statistics.
+``Linear``, ``Conv1d``/``Conv2d``, ``Dropout``) so the state dict matches
+a reference checkpoint; these helpers apply them the way the JAX
+reference does.
 """
 from __future__ import annotations
 
@@ -13,17 +13,49 @@ from torch import nn
 
 
 def masked_bn(bn: nn.modules.batchnorm._BatchNorm, x, mask=None):
-    """Batch norm over the LAST axis of ``x`` with running statistics —
-    the JAX ``MaskedBatchNorm`` at eval; rows where ``mask`` is False
-    come out zero."""
+    """Batch norm over the LAST axis of ``x`` — the JAX ``MaskedBatchNorm``.
+
+    Eval (``bn.training`` False): running statistics. Train: statistics
+    over the rows where ``mask`` is True (all rows if None), the count
+    clamped at >= 1; the biased variance normalises and the unbiased one
+    (count / (count - 1)) enters ``running_var``, with ``bn.momentum``
+    (0.01 throughout the model). Padded rows do not move the statistics.
+    Rows where ``mask`` is False come out zero.
+    """
     if bn.training:
-        raise NotImplementedError(
-            "train-mode batch statistics are not ported yet; call .eval()")
-    y = ((x - bn.running_mean) * torch.rsqrt(bn.running_var + bn.eps)
-         * bn.weight + bn.bias)
+        c = x.shape[-1]
+        xf = x.reshape(-1, c)
+        if mask is None:
+            cnt = xf.shape[0]
+            mean = xf.mean(0)
+            var = ((xf - mean) ** 2).mean(0)
+            unbiased = var * (cnt / max(cnt - 1, 1))
+        else:
+            m = mask.reshape(-1, 1).to(x.dtype)
+            cnt = torch.clamp(m.sum(), min=1.0)
+            mean = (xf * m).sum(0) / cnt
+            var = ((xf - mean) ** 2 * m).sum(0) / cnt
+            unbiased = var * cnt / torch.clamp(cnt - 1.0, min=1.0)
+        with torch.no_grad():
+            bn.running_mean.mul_(1 - bn.momentum).add_(bn.momentum * mean)
+            bn.running_var.mul_(1 - bn.momentum).add_(bn.momentum * unbiased)
+            bn.num_batches_tracked.add_(1)
+    else:
+        mean, var = bn.running_mean, bn.running_var
+    y = (x - mean) * torch.rsqrt(var + bn.eps) * bn.weight + bn.bias
     if mask is not None:
         y = torch.where(mask[..., None], y, 0.0)
     return y
+
+
+def dropout(x, p, generator):
+    """Inverted dropout with its mask drawn from ``generator`` (the JAX
+    ``nn.Dropout``: keep with probability 1 - p, scale kept values by
+    1 / (1 - p)); the identity for p = 0."""
+    if p == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), 0.0)
 
 
 def pointwise(layer, x):

@@ -1,7 +1,10 @@
-"""AnchorHeadSingle, inference half (counterpart of
+"""AnchorHeadSingle (counterpart of
 ``detmatch_tpu/models/pvrcnn/anchor_head.py``; pcdet
-``anchor_head_single.py``): dense anchors, 1×1 conv predictions and the
-box decode with the direction-classifier snap.
+``anchor_head_single.py`` and ``axis_aligned_target_assigner.py``): dense
+anchors, 1×1 conv predictions, the box decode with the
+direction-classifier snap, and for training the vectorised
+class-restricted target assignment and the losses (focal cls,
+sin-difference smooth-L1 loc, direction-bin cross entropy).
 
 Per-anchor outputs are flat in (H, W, class, rotation) order, as the JAX
 head and pcdet (conv output permuted to NHWC before the reshape).
@@ -12,8 +15,13 @@ import numpy as np
 import torch
 from torch import nn
 
-from ...core import geometry
+from ...core import geometry, iou as iou_mod, losses
 from ...core.coders import ResidualCoder
+from ...ops.pointnet import gather_rows
+
+# the JAX head's default loss weights (``anchor_head.py:231-233``)
+LOSS_WEIGHTS = dict(cls_weight=1.0, loc_weight=2.0, dir_weight=0.2,
+                    code_weights=(1.0,) * 7)
 
 
 def generate_anchors(point_cloud_range, grid_size, anchor_configs):
@@ -51,6 +59,36 @@ def generate_anchors(point_cloud_range, grid_size, anchor_configs):
     return a.reshape(-1, 7)
 
 
+def assign_targets(anchors, anchor_class, gt_boxes, match_thr, unmatch_thr):
+    """Axis-aligned target assignment, vectorised over the batch.
+
+    Args:
+        anchors: (A, 7); anchor_class: (A,) 0-based class of each anchor;
+        gt_boxes: (B, G, 8) zero-padded, last column the 1-based class;
+        match_thr, unmatch_thr: (A,) per-anchor thresholds.
+    Returns:
+        (fg (B, A) bool, neg (B, A) bool, a2g (B, A) int64). Each anchor
+        sees only its own class's gts; IoUs snap to the 2^-20 grid
+        (``iou.quantize``) so the force-match ties (every anchor equal to
+        a gt's best IoU) and the argmax break as in the JAX package.
+    """
+    gt_cls = gt_boxes[..., 7].to(torch.int64)
+    gt_valid = gt_cls > 0
+    ious = torch.stack([iou_mod.nearest_bev_iou(anchors, g[:, :7])
+                        for g in gt_boxes])  # (B, A, G)
+    ious = iou_mod.quantize(ious)
+    same = (anchor_class[None, :, None] + 1) == gt_cls[:, None, :]
+    ious = torch.where(same & gt_valid[:, None, :], ious, -1.0)
+    a2g_max = ious.amax(dim=2)
+    a2g = torch.argmax(ious, dim=2)  # first maximum, as jnp.argmax
+    g2a_max = ious.amax(dim=1)[:, None, :]  # (B, 1, G)
+    forced = ((ious == g2a_max) & (g2a_max > 0)
+              & gt_valid[:, None, :]).any(dim=2)
+    neg = (a2g_max < unmatch_thr) & ~forced
+    fg = (a2g_max >= match_thr) | forced
+    return fg, neg, a2g
+
+
 class AnchorHeadSingle(nn.Module):
     def __init__(self, input_channels, num_classes=3, anchor_configs=(),
                  point_cloud_range=(0, -40, -3, 70.4, 40, 1),
@@ -58,6 +96,7 @@ class AnchorHeadSingle(nn.Module):
                  dir_offset=0.78539, dir_limit_offset=0.0):
         super().__init__()
         self.num_classes = num_classes
+        num_rot = len(anchor_configs[0]["anchor_rotations"])
         self.num_dir_bins = num_dir_bins
         self.dir_offset = dir_offset
         self.dir_limit_offset = dir_limit_offset
@@ -66,7 +105,18 @@ class AnchorHeadSingle(nn.Module):
                                    list(anchor_configs))
         self.register_buffer("anchors", torch.from_numpy(anchors),
                              persistent=False)
-        na = len(anchor_configs) * len(anchor_configs[0]["anchor_rotations"])
+        # flat (H, W, class, rotation) order → class = (a // R) % C
+        anchor_class = (np.arange(len(anchors)) // num_rot) % len(
+            anchor_configs)
+        self.register_buffer("anchor_class", torch.from_numpy(anchor_class),
+                             persistent=False)
+        for name, key in (("match_thr", "matched_threshold"),
+                          ("unmatch_thr", "unmatched_threshold")):
+            thr = np.asarray([cfg[key] for cfg in anchor_configs],
+                             np.float32)[anchor_class]
+            self.register_buffer(name, torch.from_numpy(thr),
+                                 persistent=False)
+        na = len(anchor_configs) * num_rot
         self.conv_cls = nn.Conv2d(input_channels, na * num_classes, 1)
         self.conv_box = nn.Conv2d(input_channels, na * self.coder.code_size,
                                   1)
@@ -99,3 +149,59 @@ class AnchorHeadSingle(nn.Module):
                    + period * dir_labels.to(boxes.dtype))
         return (torch.cat([boxes[..., :6], heading[..., None]], dim=-1),
                 preds["cls_preds"])
+
+    def targets(self, gt_boxes):
+        """(B, G, 8) gts → (labels (B, A) int64: class / 0 bg / -1 ignore,
+        reg_targets (B, A, 7), fg weights (B, A) float)."""
+        fg, neg, a2g = assign_targets(self.anchors, self.anchor_class,
+                                      gt_boxes, self.match_thr,
+                                      self.unmatch_thr)
+        assigned = gather_rows(gt_boxes, a2g)  # (B, A, 8)
+        labels = torch.where(fg, assigned[..., 7].to(torch.int64),
+                             torch.where(neg, 0, -1))
+        tgt = self.coder.encode(assigned[..., :7], self.anchors[None])
+        reg_targets = torch.where(fg[..., None], tgt, 0.0)
+        return labels, reg_targets, fg.to(torch.float32)
+
+    def loss_per_sample(self, preds, targets):
+        """Per-sample loss terms, each (B,); ``loss`` is their batch
+        mean (pcdet ``anchor_head_template.get_loss``)."""
+        labels, reg_targets, _ = targets
+        lw = LOSS_WEIGHTS
+        cared = labels >= 0
+        positives = labels > 0
+        pos_norm = torch.clamp(
+            positives.sum(dim=1, keepdim=True).to(torch.float32), min=1.0)
+        cls_w = cared.to(torch.float32) / pos_norm
+        onehot = torch.nn.functional.one_hot(
+            torch.where(cared, labels, 0), self.num_classes + 1)[..., 1:]
+        cls_loss = losses.sigmoid_focal_loss(
+            preds["cls_preds"], onehot.to(torch.float32), cls_w
+        ).sum(dim=(1, 2)) * lw["cls_weight"]
+
+        reg_w = positives.to(torch.float32) / pos_norm
+        bp, rt = preds["box_preds"], reg_targets
+        sin_p = torch.sin(bp[..., 6:7]) * torch.cos(rt[..., 6:7])
+        sin_t = torch.cos(bp[..., 6:7]) * torch.sin(rt[..., 6:7])
+        loc_loss = losses.weighted_smooth_l1(
+            torch.cat([bp[..., :6], sin_p], dim=-1),
+            torch.cat([rt[..., :6], sin_t], dim=-1), weights=reg_w,
+            code_weights=lw["code_weights"]).sum(dim=(1, 2)) * lw["loc_weight"]
+
+        rot_gt = reg_targets[..., 6] + self.anchors[None, :, 6]
+        offset_rot = geometry.limit_period(rot_gt - self.dir_offset, 0,
+                                           2 * np.pi)
+        dir_t = torch.clamp(
+            torch.floor(offset_rot / (2 * np.pi / self.num_dir_bins)),
+            0, self.num_dir_bins - 1).to(torch.int64)
+        dir_onehot = torch.nn.functional.one_hot(dir_t, self.num_dir_bins)
+        dir_loss = losses.weighted_cross_entropy(
+            preds["dir_preds"], dir_onehot, reg_w).sum(dim=1) * lw[
+                "dir_weight"]
+        return dict(rpn_loss_cls=cls_loss, rpn_loss_loc=loc_loss,
+                    rpn_loss_dir=dir_loss)
+
+    def loss(self, preds, targets):
+        """Batch mean of :meth:`loss_per_sample`."""
+        return {k: v.mean() for k, v in
+                self.loss_per_sample(preds, targets).items()}

@@ -53,11 +53,10 @@ class BaseBEVBackbone(nn.Module):
         self.num_bev_features = sum(num_upsample_filters)
 
     def forward(self, x):
-        """(B, C, H, W) → (B, sum(num_upsample_filters), H, W)."""
-        if self.training:
-            raise NotImplementedError(
-                "train-mode batch statistics are not ported yet; "
-                "call .eval()")
+        """(B, C, H, W) → (B, sum(num_upsample_filters), H, W). In train
+        mode BatchNorm2d takes batch statistics over (B, H, W): the dense
+        BEV has no padding, so torch's own batch norm is the JAX
+        ``MaskedBatchNorm`` without a mask."""
         ups = []
         for block, deblock in zip(self.blocks, self.deblocks):
             x = block(x)

@@ -1,14 +1,15 @@
-"""PV-RCNN detector, eval forward and post-processing (counterpart of
-``detmatch_tpu/models/pvrcnn/pvrcnn.py``; pcdet ``pv_rcnn.py``):
-VoxelBackbone8x → HeightCompression → BaseBEVBackbone → AnchorHeadSingle
-→ VoxelSetAbstraction → PointHeadSimple → PVRCNNHead, then
-class-agnostic NMS.
+"""PV-RCNN detector: forward (eval and train), training loss and
+post-processing (counterpart of ``detmatch_tpu/models/pvrcnn/pvrcnn.py``;
+pcdet ``pv_rcnn.py``): VoxelBackbone8x → HeightCompression →
+BaseBEVBackbone → AnchorHeadSingle → VoxelSetAbstraction →
+PointHeadSimple → PVRCNNHead, then class-agnostic NMS.
 
 Submodule names are pcdet's (``backbone_3d``, ``backbone_2d``,
 ``dense_head``, ``pfe``, ``point_head``, ``roi_head``), so a reference
 state dict loads with ``load_state_dict``. Batch format as the JAX
 model: points (B, P, 4), points_valid (B, P), voxel_features (B, V, 4),
-voxel_keys (B, V).
+voxel_keys (B, V), and for training gt_boxes (B, G, 8) zero-padded, the
+last column the 1-based class.
 """
 from __future__ import annotations
 
@@ -42,13 +43,13 @@ DEFAULT_ANCHOR_CONFIGS = (
          matched_threshold=0.6, unmatched_threshold=0.45),
 )
 
+TRAIN_NMS = dict(nms_pre=9000, nms_post=512, nms_thresh=0.8)
 TEST_NMS = dict(nms_pre=1024, nms_post=100, nms_thresh=0.7)
 
 
 class PVRCNN(nn.Module):
-    """``train_nms`` and the RoI head's ``target_cfg`` are accepted so the
-    JAX configs load unchanged; they belong to the training slice, which
-    is not ported yet."""
+    """Batch norm follows the module mode (``model.train()`` /
+    ``model.eval()``); the forward's ``train`` must agree with it."""
 
     def __init__(self, num_classes: int = 3,
                  point_cloud_range: Tuple[float, ...] = (0, -40, -3, 70.4,
@@ -67,7 +68,7 @@ class PVRCNN(nn.Module):
         # the three kernel ops the forward calls; a verification run swaps
         # in ``ops.cuda.PLAIN`` to hold the kernels against their twins
         self.ops = KERNELS
-        self.train_nms = train_nms
+        self.train_nms = dict(train_nms or TRAIN_NMS)
         self.test_nms = dict(test_nms or TEST_NMS)
         spatial_shape = (grid_size[2] + 1, grid_size[1], grid_size[0])
         self.backbone_3d = VoxelBackbone8x(
@@ -91,11 +92,31 @@ class PVRCNN(nn.Module):
             self.pfe.vsa_point_feature_fusion[0].out_features,
             num_classes=num_classes, **(roi_head_cfg or {}))
 
-    def forward(self, batch):
-        """Eval forward. Returns the JAX model's eval outputs plus the
-        intermediates ``backbone`` (sparse levels), ``spatial_features``
-        (B, C*Z, H, W), ``bev_features`` (B, C, H, W) and the VSA
-        ``point_features`` / ``point_features_before_fusion``."""
+    def forward(self, batch, train=None, generator=None):
+        """Forward pass.
+
+        Args:
+            batch: the batch dict (``gt_boxes`` needed in train mode).
+            train: train mode (batch statistics, train NMS, RoI sampling,
+                dropout); defaults to ``self.training`` and must agree
+                with it.
+            generator: a ``torch.Generator`` on the model's device, the
+                source of the RoI picks and dropout masks (train only).
+        Returns:
+            The JAX model's outputs plus the intermediates ``backbone``
+            (sparse levels), ``spatial_features`` (B, C*Z, H, W),
+            ``bev_features`` (B, C, H, W) and the VSA ``point_features``
+            / ``point_features_before_fusion``. In train mode ``rois``,
+            ``roi_labels`` and ``roi_scores_full`` are the sampled RoIs'
+            and ``roi_targets`` holds their targets.
+        """
+        train = self.training if train is None else train
+        if train != self.training:
+            raise ValueError(f"forward(train={train}) on a model in "
+                             f"{'train' if self.training else 'eval'} "
+                             "mode: call model.train() or model.eval()")
+        if train and generator is None:
+            raise ValueError("a train forward needs a torch.Generator")
         ms = self.backbone_3d(batch["voxel_features"], batch["voxel_keys"],
                               self.ops)
         spatial = height_compression(ms["out"])
@@ -107,24 +128,52 @@ class PVRCNN(nn.Module):
         point_logits = self.point_head(vsa["point_features_before_fusion"],
                                        vsa["kp_valid"])
         point_scores = torch.sigmoid(point_logits[..., 0])
-        proposals = proposal_layer(box_preds, cls_preds, **self.test_nms)
-        rois = proposals["rois"]
-        rcnn_cls, rcnn_reg = self.roi_head(
-            rois, vsa["keypoints"], vsa["kp_valid"], vsa["point_features"],
-            point_scores, self.ops)
-        return dict(
+        proposals = proposal_layer(
+            box_preds, cls_preds,
+            **(self.train_nms if train else self.test_nms))
+        out = dict(
             backbone=ms, spatial_features=spatial, bev_features=bev,
             head_preds=head_preds, batch_box_preds=box_preds,
             batch_cls_preds=cls_preds, point_logits=point_logits,
             point_scores=point_scores, keypoints=vsa["keypoints"],
             kp_valid=vsa["kp_valid"], point_features=vsa["point_features"],
             point_features_before_fusion=vsa["point_features_before_fusion"],
-            proposals=proposals, rois=rois,
-            roi_labels=proposals["roi_labels"],
-            roi_scores=proposals["roi_scores"],
-            roi_scores_full=proposals["roi_scores_full"],
-            rcnn_cls=rcnn_cls, rcnn_reg=rcnn_reg,
-            batch_box_preds_rcnn=PVRCNNHead.decode_boxes(rois, rcnn_reg))
+            proposals=proposals)
+        if train:
+            targets = self.roi_head.assign_targets(generator, proposals,
+                                                   batch["gt_boxes"])
+            out.update(roi_targets=targets, rois=targets["rois"],
+                       roi_labels=targets["roi_labels"],
+                       roi_scores_full=targets["roi_scores_full"])
+        else:
+            out.update(rois=proposals["rois"],
+                       roi_labels=proposals["roi_labels"],
+                       roi_scores=proposals["roi_scores"],
+                       roi_scores_full=proposals["roi_scores_full"])
+        rois = out["rois"]
+        rcnn_cls, rcnn_reg = self.roi_head(
+            rois, vsa["keypoints"], vsa["kp_valid"], vsa["point_features"],
+            point_scores, self.ops, generator)
+        out.update(rcnn_cls=rcnn_cls, rcnn_reg=rcnn_reg,
+                   batch_box_preds_rcnn=PVRCNNHead.decode_boxes(rois,
+                                                                rcnn_reg))
+        return out
+
+    def loss(self, out, batch):
+        """Training loss = rpn + point + rcnn terms (``pv_rcnn.py:24-31``);
+        ``out`` is a train forward's output. Returns the terms and their
+        sum under ``loss``."""
+        gt = batch["gt_boxes"]
+        rpn = self.dense_head.loss(out["head_preds"],
+                                   self.dense_head.targets(gt))
+        pt_targets = self.point_head.targets(out["keypoints"],
+                                             out["kp_valid"], gt)
+        losses = dict(rpn, point_loss_cls=PointHeadSimple.loss(
+            out["point_logits"], pt_targets))
+        losses.update(PVRCNNHead.loss(out["rcnn_cls"], out["rcnn_reg"],
+                                      out["roi_targets"]))
+        losses["loss"] = sum(losses.values())
+        return losses
 
 
 def post_processing(out, nms_pre=4096, nms_post=500, nms_thresh=0.1,

@@ -1,5 +1,5 @@
 """VoxelSetAbstraction (counterpart of ``detmatch_tpu/models/pvrcnn/vsa.py``;
-pcdet ``voxel_set_abstraction.py``), eval path.
+pcdet ``voxel_set_abstraction.py``).
 
 FPS picks the keypoints from the raw points, then per-keypoint features
 come from bilinear BEV interpolation, set abstraction over the raw points
@@ -69,7 +69,8 @@ def bilinear_interpolate_batched(im, x, y):
 
 
 def group_mlp(layers, centers, xyz, feats, idx, slot_valid):
-    """Shared MLP over grouped neighbours, eval mode.
+    """Shared MLP over grouped neighbours (batch norm over the valid slots
+    only in train mode).
 
     The first (bias-free) layer is linear, so for neighbour n of center
     m: ``W [p_n - c_m | f_n] = W [p_n | f_n] - W [c_m | 0]`` — the table
@@ -82,7 +83,9 @@ def group_mlp(layers, centers, xyz, feats, idx, slot_valid):
             slot_valid (B, M, ns).
     Returns:
         (x (B, M, ns, C'), empty (C',)) — ``empty`` is the MLP stack of a
-        zero input, the eval output of an empty ball.
+        zero input, the eval output of an empty ball; in train mode an
+        empty ball pools to zero and ``empty`` is None (no batch
+        statistics are taken of it).
     """
     conv0 = layers[0][0]
     w0 = conv0.weight.reshape(conv0.weight.shape[0], -1)
@@ -91,20 +94,23 @@ def group_mlp(layers, centers, xyz, feats, idx, slot_valid):
     cen = torch.nn.functional.linear(centers, w0[:, :3])
     z = pointnet.gather_rows(pre, idx) - cen[:, :, None, :]
     x = torch.where(slot_valid[..., None], z, 0.0)
-    e = x.new_zeros(w0.shape[0])
+    train = layers[0][1].training
+    e = None if train else x.new_zeros(w0.shape[0])
     for i, (conv, bn) in enumerate(layers):
         if i > 0:
             x = pointwise(conv, x)
-            e = pointwise(conv, e)
+            if e is not None:
+                e = pointwise(conv, e)
         x = torch.relu(masked_bn(bn, x, slot_valid))
-        e = torch.relu(masked_bn(bn, e))
+        if e is not None:
+            e = torch.relu(masked_bn(bn, e))
     return x, e
 
 
 class StackSAModuleMSG(nn.Module):
     """Multi-radius set abstraction with pcdet's parameter layout
     (``mlps.{g}.{3k}`` 1x1 Conv2d, ``mlps.{g}.{3k+1}`` BatchNorm2d with the
-    torch-default eps 1e-5)."""
+    torch-default eps 1e-5 and the JAX model's momentum 0.01)."""
 
     def __init__(self, radii, nsamples, mlps, in_channels):
         super().__init__()
@@ -115,21 +121,23 @@ class StackSAModuleMSG(nn.Module):
             layers, cin = [], in_channels + 3
             for cout in spec:
                 layers += [nn.Conv2d(cin, cout, 1, bias=False),
-                           nn.BatchNorm2d(cout), nn.ReLU()]
+                           nn.BatchNorm2d(cout, momentum=0.01), nn.ReLU()]
                 cin = cout
             self.mlps.append(nn.Sequential(*layers))
         self.out_channels = sum(spec[-1] for spec in mlps)
 
     def pool(self, g, centers, xyz, feats, idx, cnt, nsample):
-        """One radius group: grouped MLP, masked max-pool, and the eval
-        empty-ball constant → (B, M, C')."""
+        """One radius group: grouped MLP, masked max-pool, and the
+        empty-ball fill (eval: the MLP stack of zero; train: zero)
+        → (B, M, C')."""
         slots = torch.arange(nsample, device=idx.device)
         slot_valid = slots < cnt[..., None]
         x, empty = group_mlp(bn_pairs(self.mlps[g]), centers, xyz, feats,
                              idx, slot_valid)
         x = torch.where(slot_valid[..., None], x, -pointnet.BIG_DIST)
-        pooled = x.max(dim=2).values
-        return torch.where((cnt > 0)[..., None], pooled, empty)
+        pooled = x.amax(dim=2)  # ties share the gradient, as jnp.max
+        return torch.where((cnt > 0)[..., None], pooled,
+                           0.0 if empty is None else empty)
 
     def forward(self, centers, centers_valid, xyz, xyz_valid, feats,
                 ops=KERNELS):
@@ -163,7 +171,7 @@ class VoxelSetAbstraction(nn.Module):
         self.num_point_features_before_fusion = c_in
         self.vsa_point_feature_fusion = nn.Sequential(
             nn.Linear(c_in, num_out_features, bias=False),
-            nn.BatchNorm1d(num_out_features), nn.ReLU())
+            nn.BatchNorm1d(num_out_features, momentum=0.01), nn.ReLU())
 
     def forward(self, points, points_valid, bev_features, ms_features,
                 ops=KERNELS):

@@ -1,11 +1,13 @@
 """Hand-written CUDA kernels for Hopper and their plain PyTorch twins.
 
-``KERNELS`` and ``PLAIN`` bundle the three ops of the PV-RCNN inference
-path with identical signatures. ``KERNELS`` launches the CUDA kernels on
-CUDA tensors and runs the twins on CPU tensors; the model always uses
-it. ``PLAIN`` runs the twins on any device: it exists only for
-verification, where ``chip_smoke.py`` sets ``model.ops = PLAIN`` to check
-the kernels against their twins end to end on the card.
+``KERNELS`` and ``PLAIN`` bundle the three ops of the PV-RCNN path with
+identical signatures. ``KERNELS`` launches the CUDA kernels on CUDA
+tensors and runs the twins on CPU tensors; the model always uses it. Its
+sparse conv carries a gradient whose backward is a kernel too
+(``window_key_conv_bwd``). ``PLAIN`` runs the twins on any device, and
+autograd differentiates them: it exists only for verification, where
+``chip_smoke.py`` sets ``model.ops = PLAIN`` to check the kernels against
+their twins end to end on the card.
 """
 from __future__ import annotations
 
@@ -13,7 +15,8 @@ from typing import Callable, NamedTuple
 
 from .ball_query import ball_query_batched, ball_query_plain
 from .fps import fps_batched, fps_plain
-from .window_key_conv import window_key_conv_batched, window_key_conv_plain
+from .window_key_conv import (window_key_conv_batched, window_key_conv_bwd,
+                              window_key_conv_plain)
 
 
 class Ops(NamedTuple):
@@ -24,12 +27,14 @@ class Ops(NamedTuple):
 
 KERNELS = Ops(window_key_conv_batched, fps_batched, ball_query_batched)
 PLAIN = Ops(window_key_conv_plain, fps_plain, ball_query_plain)
+# every launching wrapper, each with its own ``.launches`` counter
+LAUNCHERS = (*KERNELS, window_key_conv_bwd)
 
 
 def reset_launch_counts():
-    for fn in KERNELS:
+    for fn in LAUNCHERS:
         fn.launches = 0
 
 
 def launch_counts():
-    return {fn.__name__: fn.launches for fn in KERNELS}
+    return {fn.__name__: fn.launches for fn in LAUNCHERS}

@@ -40,6 +40,8 @@ SIGNATURES = {
                       _P),
     "dm_window_key_conv_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _P),
+    "dm_window_key_conv_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                               _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 
@@ -116,8 +118,9 @@ def check(lib, err, name):
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
 
 
-def ptr(t: torch.Tensor):
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t: torch.Tensor | None):
+    """A tensor's device pointer; None passes a null pointer."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def stream(device):

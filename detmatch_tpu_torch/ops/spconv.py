@@ -127,7 +127,10 @@ def gather_conv_batched(feats, rulebook, weights):
     valid = rulebook >= 0
     base = (torch.arange(b, device=feats.device) * n)[:, None, None]
     idx = torch.where(valid, rulebook + base, 0).reshape(-1)
-    gathered = feats.reshape(b * n, cin)[idx].reshape(b, m, k, cin)
+    # index_select, not feats[idx]: its CPU backward (index_add_) is
+    # deterministic, the indexing backward (index_put_) is not
+    gathered = torch.index_select(feats.reshape(b * n, cin), 0, idx
+                                  ).reshape(b, m, k, cin)
     gathered = torch.where(valid[..., None], gathered, 0.0)
     out = gathered.reshape(b * m, k * cin) @ weights.reshape(k * cin, -1)
     return out.reshape(b, m, -1)

@@ -8,8 +8,9 @@ while a real HDL-64 frame puts its voxels on 2D surfaces (ground plane
 and object faces). This module ray-casts the HDL-64 beam geometry
 (64 elevation rings x ~0.18 deg azimuth) against a ground plane and
 randomly placed boxes (cars, pedestrians, walls), so the points lie on
-surfaces as in a real scan. Used by ``chip_smoke.py`` and the port's
-tests; not part of the training path.
+surfaces as in a real scan. :func:`gt_boxes` draws GT boxes as the JAX
+benchmark does. Used by ``chip_smoke.py`` and the port's tests; not part
+of the training path.
 """
 from __future__ import annotations
 
@@ -115,3 +116,19 @@ def lidar_batch(rng, b, num_points, point_cloud_range):
     pts, valid = zip(*[lidar_scene(rng, num_points, point_cloud_range)
                        for _ in range(b)])
     return np.stack(pts), np.stack(valid)
+
+
+def gt_boxes(rng, b, g=40, n=20):
+    """(b, g, 8) float32 GT boxes, the first ``n`` rows valid: car-sized
+    boxes at random x, y and heading with random 1-based classes, rows
+    past ``n`` zero — the JAX benchmark's GT draw
+    (``detmatch_tpu/benchmarks.py:84-93``), the same ``rng`` calls in the
+    same order."""
+    gt = np.zeros((b, g, 8), np.float32)
+    gt[:, :n, 0] = rng.rand(b, n) * 60 + 3
+    gt[:, :n, 1] = rng.rand(b, n) * 70 - 35
+    gt[:, :n, 2] = -1.0
+    gt[:, :n, 3:6] = [3.9, 1.6, 1.56]
+    gt[:, :n, 6] = rng.rand(b, n) - 0.5
+    gt[:, :n, 7] = rng.randint(1, 4, (b, n))
+    return gt

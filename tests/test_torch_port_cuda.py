@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain twins on the card, at edge
-cases the main path does not reach (all-invalid rows, empty balls, the
-size limits, argument checks).
+cases the main path does not reach (all-invalid rows, empty balls, empty
+samples, the size limits, argument checks), and the sparse conv's
+backward kernel against autograd through its twin.
 
 Needs a CUDA card: every test is marked ``cuda`` and skips without one.
 This file imports no JAX, so it runs where JAX is not installed:
@@ -96,6 +97,68 @@ def test_window_key_conv_kernel_matches_twin(dev, k, c, co):
     assert not out[2].any()
 
 
+def _conv_case(dev, kind, c, co):
+    """Keys, neighbour keys and output keys of one conv geometry at B=3
+    with uneven voxel counts (3,000 / 1,200 / 0)."""
+    g = torch.Generator().manual_seed(3)
+    shape = (41, 200, 176)
+    n = 3000
+    keys = []
+    for n_valid in (n, 1200, 0):
+        kk = torch.randperm(41 * 200 * 176, generator=g)[:n_valid]
+        kk = torch.sort(kk).values.to(torch.int32)
+        pad = torch.full((n - n_valid,), voxelize.INVALID_KEY,
+                         dtype=torch.int32)
+        keys.append(torch.cat([kk, pad]))
+    keys = torch.stack(keys).to(dev)
+    if kind == "subm":
+        nk, out_keys = spconv.subm_neighbor_keys(keys, shape), keys
+    else:
+        kernel, stride, pad = (((3, 3, 3), (2, 2, 2), (1, 1, 1))
+                               if kind == "stride2"
+                               else ((3, 1, 1), (2, 1, 1), (0, 0, 0)))
+        shape_out = spconv.output_spatial_shape(shape, kernel, stride, pad)
+        out_keys, _ = spconv.downsample_keys_batched(
+            keys, shape, shape_out, kernel, stride, pad, 2500)
+        nk = spconv.sparse_neighbor_keys(out_keys, shape, shape_out, kernel,
+                                         stride, pad)
+    feats = torch.randn(3, n, c, generator=g).to(dev)
+    w = torch.randn(nk.shape[-1], c, co, generator=g).to(dev)
+    dout = torch.randn(3, nk.shape[1], co, generator=g).to(dev)
+    return feats, keys, nk.contiguous(), out_keys, w, dout, 41 * 200 * 176 + 1
+
+
+def _grads(fn, feats, keys, nk, out_keys, w, dout, band, need_dfeats):
+    feats = feats.clone().requires_grad_(need_dfeats)
+    w = w.clone().requires_grad_(True)
+    out = fn(feats, keys, nk, out_keys, w, band)
+    wrt = (feats, w) if need_dfeats else (w,)
+    return torch.autograd.grad(out, wrt, dout)
+
+
+@pytest.mark.parametrize("kind,c,co,need_dfeats", [
+    ("subm", 16, 16, True), ("subm", 64, 128, True),
+    ("stride2", 32, 64, True), ("stride2", 64, 128, False),
+    ("z3", 64, 128, True), ("z3", 4, 16, False)])
+def test_window_key_conv_backward_matches_twin(dev, kind, c, co,
+                                               need_dfeats):
+    """dF and dW of the kernel path against autograd through the plain
+    twin: submanifold, stride-2 and (3,1,1) convs, C * Co up to the
+    8,192 limit, an empty sample, and the input gradient skipped."""
+    case = _conv_case(dev, kind, c, co)
+    window_key_conv.window_key_conv_bwd.launches = 0
+    got = _grads(window_key_conv.window_key_conv_batched, *case,
+                 need_dfeats)
+    torch.cuda.synchronize()
+    assert window_key_conv.window_key_conv_bwd.launches == 1
+    ref = _grads(window_key_conv.window_key_conv_plain, *case, need_dfeats)
+    for a, r in zip(got, ref):
+        err = float((a - r).abs().max() / r.abs().max())
+        assert err <= 1e-5, err
+    if need_dfeats:
+        assert not got[0][2].any()  # the empty sample
+
+
 def test_wrappers_check_their_arguments(dev):
     xyz = _cloud(dev, 1, 100, 3)
     valid = torch.ones(1, 100, dtype=torch.bool, device=dev)
@@ -113,3 +176,8 @@ def test_wrappers_check_their_arguments(dev):
         window_key_conv.window_key_conv_batched(
             torch.zeros(1, 4, 65, device=dev), keys, nkeys, keys,
             torch.zeros(27, 65, 8, device=dev), 100)
+    with pytest.raises(ValueError):  # dout of the wrong shape
+        window_key_conv.window_key_conv_bwd(
+            torch.zeros(1, 3, 8, device=dev), torch.zeros(1, 4, 4,
+                                                          device=dev),
+            keys, nkeys, torch.zeros(27, 4, 8, device=dev), 100)

@@ -6,7 +6,8 @@
 * the port's config loader and synthetic frames import only the standard
   library and numpy;
 * on CPU tensors each kernel wrapper runs its plain twin and leaves its
-  launch counter at 0; on any other non-CUDA device it raises;
+  launch counter at 0; on any other non-CUDA device it raises, the
+  sparse conv's backward wrapper included;
 * no wrapper wraps a launch in ``try``/``except`` (no silent fallback).
 """
 import ast
@@ -148,12 +149,28 @@ def test_no_try_around_launches(path):
     assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), path
 
 
+def test_backward_wrapper_raises_off_cuda():
+    """The sparse conv's backward kernel has no CPU path: its wrapper
+    raises on any tensor that is not on the card and counts nothing."""
+    args = _cpu_inputs()["window_key_conv_batched"]
+    feats, keys, nkeys, _, weights, band = args
+    dout = torch.zeros(2, 64, 8)
+    cuda_ops.reset_launch_counts()
+    for dev in ("cpu", "meta"):
+        with pytest.raises((ValueError, TypeError, RuntimeError)):
+            cuda_ops.window_key_conv_bwd(
+                dout.to(dev), feats.to(dev), keys.to(dev), nkeys.to(dev),
+                weights.to(dev), band)
+    assert cuda_ops.launch_counts()["window_key_conv_bwd"] == 0
+
+
 def test_build_is_keyed_by_sources_and_fails_loudly(monkeypatch, tmp_path):
     lib = build.library_path()
     assert lib.parent == ROOT / "build" / "kernels"
     assert lib == build.library_path()  # stable for an unchanged tree
     assert {p.name for p in build.CSRC_DIR.glob("*.cu")} >= {
-        "window_key_conv.cu", "fps.cu", "ball_query.cu"}
+        "window_key_conv.cu", "window_key_conv_bwd.cu", "fps.cu",
+        "ball_query.cu"}
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):

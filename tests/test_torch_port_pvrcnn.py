@@ -324,7 +324,7 @@ def test_build_detector_production_layout():
     from detmatch_tpu_torch.config import Config
     cfg = Config.fromfile(os.path.join(
         ROOT, "configs/detmatch/001/pretrain_pvrcnn/split_0.py"))
-    model = build_detector(cfg)
+    model = build_detector(cfg, device="cpu")
     assert not model.training
     assert model.dense_head.anchors.shape == (200 * 176 * 6, 7)
     sd = {k: v.numpy() for k, v in model.state_dict().items()}
