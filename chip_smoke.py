@@ -1,6 +1,6 @@
-"""Drive the PyTorch port's PV-RCNN inference and training on a CUDA
-card, check its CUDA kernels against their plain PyTorch twins, and time
-both.
+"""Drive the PyTorch port's PV-RCNN inference and training and the
+DetMatch teacher phase on a CUDA card, check its CUDA kernels against
+their plain PyTorch twins, and time all three.
 
 Run from the repository root, with one card visible:
 
@@ -35,8 +35,22 @@ Phases (any failure exits non-zero without printing the result line):
    ``train_pvrcnn`` for 5 steps with all four
    launch counters moving, and CUDA-event timings of the step, its split,
    the train proposal NMS and peak memory;
-8. a JSON line of the kernels (times per training step, with their
-   bounds), then the result line.
+8. the DetMatch teacher phase (``configs/detmatch/001/detmatch/
+   split_0.py`` at full width: B=4 unlabeled frames of 18,000 points,
+   a 384 x 1280 canvas, Faster R-CNN R50-FPN, seeded random weights with
+   randomized BN statistics): the JV assignment kernel against its twin
+   on synthetic problems (mixed orientations, ties, padding, an
+   all-invalid and a one-row element; K = 128, 100, 10) and every kernel
+   call of the phase, all exactly; ``teacher_pseudo_labels`` with 12 / 12
+   / 1 / 1 launches (K1 fwd, K2, K3, K4); kernel path against plain path
+   on the same teacher boxes (pseudo-labels: validity exactly, boxes and
+   scores within 1e-4) and on their own (99% of teacher boxes matched);
+   Faster R-CNN on the card against the CPU at B=1 (pre-NMS boxes and
+   scores within 1e-4 on the card's proposals); CUDA-event timings of
+   the phase, its split and K4, and peak memory;
+9. a JSON line of the kernels (per training step for the PV-RCNN
+   kernels, per teacher phase for K4, with their bounds), then the
+   result line.
 """
 from __future__ import annotations
 
@@ -52,6 +66,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs/detmatch/001/pretrain_pvrcnn/split_0.py"
+SSL_CONFIG = ROOT / "configs/detmatch/001/detmatch/split_0.py"
+SSL_B = 4  # the SSL config's batch_size
 SEED = 0
 NUM_POINTS = 16384  # the BENCH=infer shape (bench.py:62)
 TRAIN_POINTS = 18000  # data.collate.max_points of the pretrain config
@@ -69,6 +85,15 @@ FP32_FLOP_PER_S = 67e12
 
 FWD_KERNELS = ("window_key_conv_batched", "fps_batched",
                "ball_query_batched")
+TEACHER_KERNELS = FWD_KERNELS + ("solve_masked_batched",)
+# K1 fwd, K3, K2, K4 launches per teacher phase at B=4
+TEACHER_LAUNCHES = dict(window_key_conv_batched=12, fps_batched=1,
+                        ball_query_batched=12, solve_masked_batched=1)
+# the stages of teacher_pseudo_labels that chip_smoke times
+STAGES = ("3D teacher", "2D teacher", "fusion matching", "K4")
+# fp32 operations per (inner step, column) of the JV solve: two subtracts,
+# a compare, a select, the argmin compare, one potential update
+JV_OPS_PER_STEP_COL = 6
 KERNEL_META = {
     "window_key_conv_batched": dict(
         source="detmatch_tpu_torch/csrc/window_key_conv.cu",
@@ -82,6 +107,9 @@ KERNEL_META = {
     "ball_query_batched": dict(
         source="detmatch_tpu_torch/csrc/ball_query.cu",
         replaces="detmatch_tpu/ops/pallas/ball_query.py:152"),
+    "solve_masked_batched": dict(
+        source="detmatch_tpu_torch/csrc/hungarian_jv.cu",
+        replaces="detmatch_tpu/ops/pallas/hungarian.py:168"),
 }
 
 
@@ -434,15 +462,16 @@ def run():
                   f"{counts[name]} calls [{card}]")
     del model, batch3, batch4, batch1
 
-    train = train_phases(cfg, spec, card, stats)
+    per = train_phases(cfg, spec, card, stats)
+    per.update(teacher_phases(card, stats))
 
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=meta["source"],
-             replaces=meta["replaces"], launches=train[name]["launches"],
+             replaces=meta["replaces"], launches=per[name]["launches"],
              max_abs_err=stats[name]["max_abs_err"],
-             ms=train[name]["ms"], plain_ms=train[name]["plain_ms"],
-             bound_ms=train[name]["bound_ms"],
-             bound_by=train[name]["bound_by"], library_ms=None)
+             ms=per[name]["ms"], plain_ms=per[name]["plain_ms"],
+             bound_ms=per[name]["bound_ms"],
+             bound_by=per[name]["bound_by"], library_ms=None)
         for name, meta in KERNEL_META.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -476,6 +505,12 @@ def work(name, args, kwargs, need_dfeats=True, out=None):
         out = k * c * co + (b * n * c if need_dfeats else 0)
         return (4 * (inputs + b * m * co + out),
                 flops * (2 if need_dfeats else 1))
+    if name == "solve_masked_batched":
+        from detmatch_tpu_torch.ops.cuda.hungarian import inner_steps
+        cost, row_valid = args
+        steps = inner_steps(cost, row_valid)
+        return (cost.numel() * 4 + row_valid.numel() + out.numel() * 4,
+                JV_OPS_PER_STEP_COL * cost.shape[-1] * int(steps.sum()))
     if name == "fps_batched":
         xyz, valid, s = args
         # per step and valid point: 3 sub, 3 mul, 2 add, a min, a compare
@@ -785,11 +820,372 @@ def train_phases(cfg, spec, card, stats):
           f"[{card}]")
     with torch.no_grad():
         per = time_kernels(calls, bwd_cases)
-    for name in KERNEL_META:
+    for name in expect:
         per[name]["launches"] = launches[name]
         print(f"  {name}: {describe(per[name])} per training step, "
               f"{expect[name]} calls [{card}]")
     return per
+
+
+def jv_cases():
+    """Synthetic assignment problems (name, cost, row_valid, col_valid):
+    the SSL shape (B=4, K=128) with one element of each orientation,
+    exact tie rows, tied columns, BIG-padded (invalid) columns, an
+    element with no valid row and one with a single valid row; then
+    K=100 and K=10, which are not multiples of a warp."""
+    g = torch.Generator().manual_seed(SEED)
+    out = []
+    for k, nr, nc in ((128, (128, 40, 0, 1), (60, 128, 128, 90)),
+                      (100, (100, 70, 1), (30, 100, 5)),
+                      (10, (10, 4, 0), (7, 10, 10))):
+        b = len(nr)
+        cost = torch.randn(b, k, k, generator=g) * 2
+        cost[:, 5] = cost[:, 2]
+        cost[:, :, 7] = cost[:, :, 6]
+        cols = torch.arange(k)
+        rv = cols[None] < torch.tensor(nr)[:, None]
+        cv = cols[None] < torch.tensor(nc)[:, None]
+        out.append((f"B={b} K={k} rows {nr} cols {nc}", cost.to(DEVICE),
+                    rv.to(DEVICE), cv.to(DEVICE)))
+    return out
+
+
+def check_jv_synthetic(stats):
+    """K4 against its twin on the oriented problems ``assign_batched``
+    hands the solver, and the assignments through either solver."""
+    from detmatch_tpu_torch.core.hungarian import assign_batched
+    from detmatch_tpu_torch.ops.cuda import KERNELS, PLAIN
+    ok = True
+    for name, cost, rv, cv in jv_cases():
+        handed = []
+
+        def capture(c, r):
+            handed.append((c, r))
+            return PLAIN.solve_masked_batched(c, r)
+
+        c4r_p, m_p = assign_batched(cost, rv, cv, solve=capture)
+        c4r_k, m_k = assign_batched(cost, rv, cv,
+                                    solve=KERNELS.solve_masked_batched)
+        good = check_kernels([("solve_masked_batched", handed[0], {}, False)],
+                             f"synthetic {name}", stats)
+        good &= torch.equal(c4r_k, c4r_p) and torch.equal(m_k, m_p)
+        print(f"  synthetic {name}: matched per element "
+              f"{(c4r_k >= 0).sum(1).tolist()}, assignment equal "
+              f"{'ok' if good else 'FAIL'}")
+        ok &= good
+    return ok
+
+
+def aug_records(rng, b, canvas, ori_shape):
+    """Augmentation records that are not the identity: BEV flips on
+    alternate frames, a rotation, scale and shift in 3D; the canvas
+    resize and horizontal flips on alternate frames in 2D."""
+    from detmatch_tpu_torch.core.transforms import Aug2D, Aug3D
+    sw, sh = canvas[1] / ori_shape[1], canvas[0] / ori_shape[0]
+    flips = (np.arange(b) + rng.randint(2)) % 2
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device=DEVICE)
+
+    a3 = Aug3D(flip_x=t(flips), rot=t(rng.uniform(-0.7, 0.7, b)),
+               scale=t(rng.uniform(0.95, 1.05, b)),
+               trans=t(rng.normal(0.0, 0.2, (b, 3))))
+    a2 = Aug2D(scale=t(np.tile([sw, sh, sw, sh], (b, 1))), flip=t(1 - flips),
+               img_w=t(np.full(b, canvas[1])))
+    return a3, a2
+
+
+def matching_2d_boxes(t3, tea, stu, k2, score_thr):
+    """A 2D teacher BoxSet of ``k2`` slots that the fusion matching pairs
+    with the 3D one: the top ``k2`` of the 3D boxes that pass the score
+    filter, reverse-augmented and projected as the matching projects
+    them, jittered by 2% of their size in the first half of the slots and
+    by 50% in the rest (pairs the cost threshold rejects), with a score of
+    0.6-0.95 at the 3D box's top class; then put in the teacher's image
+    frame."""
+    from detmatch_tpu_torch.ssl import boxset, modules
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    f3 = boxset.topk(boxset.max_score_filter(modules.transform_3d(
+        t3, tea["aug3d"], reverse=True), score_thr), k2)
+    proj = modules.boxes_3d_to_2d(f3, stu["lidar2img"], None)
+    wh = (proj["boxes"][..., 2:] - proj["boxes"][..., :2]).repeat(1, 1, 2)
+    size = torch.where(torch.arange(k2, device=DEVICE) < k2 // 2, 0.02, 0.5)
+    noise = torch.randn(wh.shape, generator=g, device=DEVICE)
+    boxes = proj["boxes"] + noise * wh * size[None, :, None]
+    boxes = torch.cat([torch.minimum(boxes[..., :2], boxes[..., 2:]),
+                       torch.maximum(boxes[..., :2], boxes[..., 2:])], -1)
+    top = torch.rand(f3["valid"].shape, generator=g, device=DEVICE)
+    scores = torch.full_like(f3["scores"], 0.05).scatter_(
+        -1, f3["scores"].argmax(-1, keepdim=True), 0.6 + 0.35 * top[..., None])
+    valid = proj["valid"]
+    return modules.transform_2d(
+        dict(boxes=torch.where(valid[..., None], boxes, 0.0),
+             scores=torch.where(valid[..., None], scores, 0.0), valid=valid),
+        tea["aug2d"], reverse=False)
+
+
+def boxset_share(bk, bp):
+    """Share of valid boxes of a BoxSet with a counterpart in the other
+    (box within 1e-3, score row within 1e-4, same top class)."""
+    matched = total = 0
+    for b in range(bk["valid"].shape[0]):
+        vk, vp = bk["valid"][b], bp["valid"][b]
+        xk, xp = bk["boxes"][b][vk], bp["boxes"][b][vp]
+        sk, sp = bk["scores"][b][vk], bp["scores"][b][vp]
+        total += max(len(xk), len(xp))
+        if len(xk) == 0 or len(xp) == 0:
+            continue
+        close = (((xk[:, None] - xp[None]).abs().amax(-1) <= 1e-3)
+                 & ((sk[:, None] - sp[None]).abs().amax(-1) <= 1e-4)
+                 & (sk.argmax(-1)[:, None] == sp.argmax(-1)[None]))
+        matched += int(close.any(1).sum())
+    return matched / max(total, 1), total
+
+
+def compare_boxsets(name, bk, bp):
+    ok = torch.equal(bk["valid"], bp["valid"])
+    print(f"  {name}: valid equal {ok}, valid per frame "
+          f"{bk['valid'].sum(1).tolist()}")
+    for k in ("boxes", "scores"):
+        if bool(bk["valid"].any()):
+            ok &= report(f"{name}.{k}", rel_err(bk[k], bp[k]))
+    return ok
+
+
+def timed_split(model, batch, reps):
+    """Mean ms per ``teacher_pseudo_labels`` call of the whole phase and
+    of its stages (3D teacher, 2D teacher, fusion matching, and K4 inside
+    the fusion), from CUDA events recorded around each stage inside the
+    same calls; the first call warms up."""
+    from detmatch_tpu_torch.ops.cuda import KERNELS
+    from detmatch_tpu_torch.ssl import modules
+    events = {}
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = fn(*args, **kwargs)
+            ev[1].record()
+            events.setdefault(name, []).append(ev)
+            return out
+        return run
+
+    fusion = modules.fusion_hungarian_matching
+    model._det3d_teacher_boxes = timed("3D teacher",
+                                       model._det3d_teacher_boxes)
+    model._det2d_teacher_boxes = timed("2D teacher",
+                                       model._det2d_teacher_boxes)
+    modules.fusion_hungarian_matching = timed("fusion matching", fusion)
+    model.ops = KERNELS._replace(solve_masked_batched=timed(
+        "K4", KERNELS.solve_masked_batched))
+    whole = timed("teacher phase", model.teacher_pseudo_labels)
+    try:
+        for _ in range(reps + 1):
+            whole(batch)
+        torch.cuda.synchronize()
+    finally:
+        modules.fusion_hungarian_matching = fusion
+        del model._det3d_teacher_boxes, model._det2d_teacher_boxes
+        model.ops = KERNELS
+    return {name: float(np.mean([a.elapsed_time(b) for a, b in evs[1:]]))
+            for name, evs in events.items()}
+
+
+def teacher_phases(card, stats):
+    """The DetMatch teacher phase at full width on the card; returns K4's
+    launches, per-phase time and bound."""
+    import copy
+
+    from detmatch_tpu_torch.apis.build import build_ssl, build_voxelizer
+    from detmatch_tpu_torch.config import Config
+    from detmatch_tpu_torch.models.frcnn.roi_head2d import decode_rcnn
+    from detmatch_tpu_torch.ops import cuda as cuda_ops
+    from detmatch_tpu_torch.ops.cuda import KERNELS, PLAIN
+    from detmatch_tpu_torch.ops.cuda.hungarian import inner_steps
+    from detmatch_tpu_torch.ops.voxelize import INVALID_KEY
+    from detmatch_tpu_torch.ssl import boxset, modules
+    from detmatch_tpu_torch.train.ssl_step import (to_device_views,
+                                                   voxelize_views)
+    from detmatch_tpu_torch.utils.synth_kitti import ssl_view
+
+    phase("teacher phase: K4 against its twin (synthetic problems)")
+    if not check_jv_synthetic(stats):
+        raise AssertionError("the JV kernel disagrees with its twin")
+
+    phase("teacher phase: model and views")
+    cfg = Config.fromfile(str(SSL_CONFIG))
+    spec = build_voxelizer(cfg)
+    model = build_ssl(cfg)  # the card: build_ssl's default
+    randomize_(model.teacher["det3d"], SEED)
+    randomize_(model.teacher["det2d"], SEED + 1)
+    canvas = tuple(cfg["model"]["detector_2d"]["canvas"])
+    points = cfg["data"]["collate"]["max_points"]
+    rng = np.random.RandomState(SEED)
+    batch = voxelize_views(to_device_views(dict(unlab=dict(
+        tea=ssl_view(rng, SSL_B, points, canvas),
+        stu=ssl_view(rng, SSL_B, points, canvas))), DEVICE), spec)
+    tea, stu = batch["unlab"]["tea"], batch["unlab"]["stu"]
+    for view in (tea, stu):
+        view["aug3d"], view["aug2d"] = aug_records(
+            rng, SSL_B, canvas, view["ori_shape"][0].tolist())
+    print(f"B={SSL_B} teacher view: valid points "
+          f"{tea['points_valid'].sum(1).tolist()}, voxels "
+          f"{(tea['voxel_keys'] != INVALID_KEY).sum(1).tolist()}, image "
+          f"{tuple(tea['img'].shape)}; Faster R-CNN stages "
+          f"{cfg['model']['detector_2d'].get('backbone_cfg')}"
+          " (None: the default (3, 4, 6, 3))")
+    scfg = model.cfg
+
+    phase("teacher phase: kernels against plain twins (teacher shapes)")
+    calls = []
+    with torch.inference_mode():
+        model.ops = recording(PLAIN, calls)
+        model.teacher_pseudo_labels(batch)
+        model.ops = KERNELS
+        ok = check_kernels(calls, "teacher B=4", stats)
+    counts = {n: sum(c[0] == n for c in calls) for n in TEACHER_KERNELS}
+    print(f"calls per teacher phase: {counts}")
+    if not ok or counts != TEACHER_LAUNCHES:
+        raise AssertionError("a kernel disagrees with its twin at teacher "
+                             "shapes, or the calls are not 12/12/1/1")
+
+    phase("teacher phase: teacher_pseudo_labels, kernel path")
+    with torch.inference_mode():
+        cuda_ops.reset_launch_counts()
+        out_k = model.teacher_pseudo_labels(batch)
+        torch.cuda.synchronize()
+        launches = cuda_ops.launch_counts()
+    print(f"launches in teacher_pseudo_labels(): {launches}")
+    if any(launches[n] != c for n, c in TEACHER_LAUNCHES.items()):
+        raise AssertionError("the teacher phase did not launch 12/12/1/1")
+    finite = all(bool(torch.isfinite(out_k[k][f]).all())
+                 for k in ("m3d_stu", "m2d_stu", "m2d_clean")
+                 for f in ("boxes", "scores"))
+    with torch.inference_mode():
+        t3 = model._det3d_teacher_boxes(tea)
+        t2 = model._det2d_teacher_boxes(tea, scfg.nms_2d_cfg)
+        f3 = boxset.max_score_filter(modules.transform_3d(
+            t3, tea["aug3d"], reverse=True), scfg.score_filter_3d)
+        f2 = boxset.max_score_filter(modules.transform_2d(
+            t2, tea["aug2d"], reverse=True), scfg.score_filter_2d)
+        assigned, _, _ = modules.fusion_hungarian_matching(
+            f3, f2, stu["lidar2img"], stu["ori_shape"], cost_thr=None)
+    print(f"  teacher boxes per frame: 3D {t3['valid'].sum(1).tolist()}, "
+          f"2D {t2['valid'].sum(1).tolist()}; into the match (score "
+          f"filter, top 128): 3D "
+          f"{f3['valid'].sum(1).clamp(max=128).tolist()}, 2D "
+          f"{f2['valid'].sum(1).clamp(max=128).tolist()}; assigned "
+          f"{assigned['valid'].sum(1).tolist()}; matched under cost_thr "
+          f"{scfg.cost_thr}: {out_k['m3d_stu']['valid'].sum(1).tolist()}; "
+          f"finite={finite}")
+    if not finite or int(assigned["valid"].sum()) == 0:
+        raise AssertionError("non-finite pseudo-labels or no assignment")
+
+    phase("teacher phase: kernel path against plain path")
+    with torch.inference_mode():
+        # the same teacher boxes into both paths, the 2D ones made to
+        # pair with the 3D ones under cost_thr: the pseudo-labels must
+        # agree exactly in their discrete part
+        t2_pin = matching_2d_boxes(t3, tea, stu, t2["valid"].shape[1],
+                                   scfg.score_filter_3d)
+        model._det3d_teacher_boxes = lambda view: t3
+        model._det2d_teacher_boxes = lambda view, nms_cfg: t2_pin
+        res = {}
+        for path, ops in (("kernel", KERNELS), ("plain", PLAIN)):
+            model.ops = ops
+            res[path] = model.teacher_pseudo_labels(batch)
+        del model._det3d_teacher_boxes, model._det2d_teacher_boxes
+        model.ops = PLAIN
+        t3_p = model._det3d_teacher_boxes(tea)
+        model.ops = KERNELS
+    kept = res["kernel"]["m3d_stu"]["valid"].sum(1)
+    print(f"  pinned teacher boxes: 2D {t2_pin['valid'].sum(1).tolist()} "
+          f"made from the 3D ones; pseudo-labels under cost_thr "
+          f"{scfg.cost_thr}: {kept.tolist()}")
+    if int(kept.sum()) == 0:
+        raise AssertionError("no pseudo-label survived the cost threshold "
+                             "on the pinned teacher boxes")
+    ok = True
+    for k in ("m3d_stu", "m2d_stu", "m2d_clean"):
+        ok &= compare_boxsets(f"same teacher boxes: {k}", res["kernel"][k],
+                              res["plain"][k])
+    with torch.inference_mode():
+        # and every pair the assignment makes, before the cost threshold
+        (k3, k2, kc), (p3, p2, pc) = [modules.fusion_hungarian_matching(
+            f3, f2, stu["lidar2img"], stu["ori_shape"], cost_thr=None,
+            solve=solve) for solve in (KERNELS.solve_masked_batched,
+                                       PLAIN.solve_masked_batched)]
+    ok &= compare_boxsets("all assigned pairs: 3D", k3, p3)
+    ok &= compare_boxsets("all assigned pairs: 2D", k2, p2)
+    ok &= torch.equal(kc, pc)
+    share, total = boxset_share(t3, t3_p)
+    print(f"  3D teacher boxes of each path's own forward matched: "
+          f"{share:.4f} of {total}")
+    if not ok or share < MATCH_SHARE:
+        raise AssertionError("kernel path disagrees with the plain path in "
+                             "the teacher phase")
+    del res, t3_p
+
+    phase("teacher phase: Faster R-CNN on the card against the CPU, B=1")
+    fr = model.teacher["det2d"]
+    fr_cpu = copy.deepcopy(fr).cpu()
+    img1, shape1 = tea["img"][:1], tea["img_shape"][:1]
+    with torch.inference_mode():
+        fwd_k = fr(img1, shape1)
+        pre_k = fr.simple_test(img1, shape1, with_nms=False)
+        fwd_c = fr_cpu(img1.cpu(), shape1.cpu())
+        props = fwd_k["proposals"].cpu()
+        cls_c, reg_c = fr_cpu.roi_forward(fwd_c["feats"], props)
+        boxes_c, scores_c = decode_rcnn(props[0], cls_c[0], reg_c[0],
+                                        fr.num_classes, shape1[0].cpu())
+    ok = True
+    for i, (a, b) in enumerate(zip(fwd_k["feats"], fwd_c["feats"])):
+        ok &= report(f"FPN P{i + 2}", rel_err(a.cpu(), b))
+    same = (fwd_k["proposals"].cpu() - fwd_c["proposals"]).abs().amax(-1) \
+        <= E2E_RTOL * fwd_c["proposals"].abs().max()
+    print(f"  proposal slots equal across devices: "
+          f"{float(same.float().mean()):.4f} (information: NMS order under "
+          "1e-6 score noise)")
+    ok &= report("pre-NMS boxes on the card's proposals",
+                 rel_err(pre_k["boxes"][0].cpu(), boxes_c))
+    ok &= report("pre-NMS scores on the card's proposals",
+                 rel_err(pre_k["scores"][0].cpu(), scores_c))
+    if not ok:
+        raise AssertionError("Faster R-CNN on the card disagrees with the "
+                             "CPU")
+    del fr_cpu, fwd_c, fwd_k, pre_k
+
+    phase(f"teacher phase: timing (CUDA events) on {card}")
+    jv_calls = [c for c in calls if c[0] == "solve_masked_batched"]
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        split = timed_split(model, batch, reps=3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        model.ops = PLAIN
+        plain_ms = cuda_ms(lambda: model.teacher_pseudo_labels(batch),
+                           reps=1)
+        model.ops = KERNELS
+        per = time_kernels(jv_calls, {})["solve_masked_batched"]
+    cost, row_valid = jv_calls[0][1]
+    steps = inner_steps(cost, row_valid)
+    phase_ms = split.pop("teacher phase")
+    print(f"  teacher phase B={SSL_B}: {phase_ms:.3f} ms/call "
+          f"({1000.0 * SSL_B / phase_ms:.3f} frames/s), peak memory "
+          f"{peak:.3f} GiB [{card}]")
+    rest = phase_ms - sum(split[k] for k in STAGES if k != "K4")
+    print("  split (events around each stage inside the same calls): "
+          + ", ".join(f"{k} {split[k]:.3f} ms" for k in STAGES)
+          + f" (K4 is inside the fusion matching), the rest {rest:.3f} ms "
+          f"[{card}]")
+    print(f"  plain path: {plain_ms:.3f} ms/call "
+          f"({1000.0 * SSL_B / plain_ms:.3f} frames/s) [{card}]")
+    print(f"  solve_masked_batched alone: {describe(per)} per teacher "
+          f"phase, 1 call, K={cost.shape[-1]}, inner steps per element "
+          f"{steps.tolist()} [{card}]")
+    per["launches"] = launches["solve_masked_batched"]
+    return {"solve_masked_batched": per}
 
 
 def main():

@@ -1,25 +1,92 @@
 """Builders: a config loaded with
-``detmatch_tpu_torch.config.Config.fromfile`` → detector and voxelizer
-(counterpart of ``detmatch_tpu/apis/build.py``; the port has PV-RCNN
-only)."""
+``detmatch_tpu_torch.config.Config.fromfile`` → detectors, the SSL
+detector and the voxelizer (counterpart of ``detmatch_tpu/apis/build.py``;
+the port has PV-RCNN and Faster R-CNN). Every model comes in eval mode on
+``device``: the card unless the caller asks for another device (the CPU
+tests pass ``device="cpu"``); there is no fallback when no card is
+found."""
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List
 
+from ..models.frcnn.faster_rcnn import FasterRCNN
 from ..models.pvrcnn.pvrcnn import PVRCNN
 from ..ops.voxelize import VoxelizerSpec
+from ..ssl.detector import SSLConfig, SSLDetector
+
+DETECTORS = {"PVRCNN": PVRCNN, "FasterRCNN": FasterRCNN}
+DEFAULT_TYPE = {"detector_3d": "PVRCNN", "detector_2d": "FasterRCNN"}
 
 
-def build_detector(cfg: Dict[str, Any], device="cuda"):
-    """The PV-RCNN of ``cfg['model']['detector_3d']``, in eval mode on
-    ``device``: the card unless the caller asks for another device (the
-    CPU tests pass ``device="cpu"``); there is no fallback when no card
-    is found."""
-    det = dict(cfg["model"]["detector_3d"])
-    kind = det.pop("type", "PVRCNN")
-    if kind != "PVRCNN":
+def _make(cfg: Dict[str, Any], key: str):
+    det = dict(cfg["model"].get(key, {}))
+    kind = det.pop("type", DEFAULT_TYPE[key])
+    if kind not in DETECTORS:
         raise NotImplementedError(f"detector type {kind!r} is not ported")
-    return PVRCNN(**det).to(device).eval()
+    return DETECTORS[kind](**det)
+
+
+def build_detector(cfg: Dict[str, Any], device="cuda", key="detector_3d"):
+    """The detector of ``cfg['model'][key]`` (``detector_3d``, a PV-RCNN
+    by default, or ``detector_2d``, a Faster R-CNN), eval mode, on
+    ``device``."""
+    return _make(cfg, key).to(device).eval()
+
+
+def build_models(cfg: Dict[str, Any], device="cuda"):
+    """(PV-RCNN, Faster R-CNN) of ``cfg['model']``."""
+    return (build_detector(cfg, device, "detector_3d"),
+            build_detector(cfg, device, "detector_2d"))
+
+
+def ssl_modules_to_config(modules: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """The reference's SSL module graph (``lab_modules`` /
+    ``unlab_modules`` entries) → :class:`SSLConfig` fields."""
+    out: Dict[str, Any] = {}
+    for m in modules or []:
+        m = dict(m)
+        t = m.pop("type")
+        if t == "MaxScoreFilter":
+            key = "score_filter_3d" if m.get("is_3d", True) \
+                else "score_filter_2d"
+            out[key] = m.get("score_thr", 0.1)
+        elif t == "FusionHungarianMatching":
+            out["fusion"] = True
+            if "cost_thr" in m:
+                out["cost_thr"] = m["cost_thr"]
+        elif t == "HungarianConsistency":
+            out["consistency"] = True
+            out["consistency_weights"] = (m.get("cls_weight", 2.0),
+                                          m.get("l1_weight", 20.0),
+                                          m.get("iou_weight", 2.0))
+        elif t == "HardPseudoLabel_2D":
+            out["enable_2d"] = True
+            out["pseudo_score_thr_2d"] = m.get("score_thr", 0.1)
+            out["hard_pseudo_2d_weight"] = m.get("weight", 4.0)
+        elif t == "Opd_HardPseudoLabel_3D":
+            out["enable_3d"] = True
+            out["pseudo_score_thr_3d"] = m.get("score_thr", 0.1)
+        elif t in ("Opd_SimpleTest_3D", "Opd_Supervised_3D"):
+            out["enable_3d"] = True
+        elif t in ("SimpleTest_2D", "TwoStageSupervised_2D",
+                   "BboxesNMS_2D", "BboxesTransform_2D",
+                   "BboxesTransform_3D", "DetachBboxes", "Bboxes3DTo2D",
+                   "AverageBboxes_2D", "NumPreds", "Vis3D", "Vis2D_Kitti"):
+            pass  # structural steps the fused pipeline always has
+        else:
+            raise KeyError(f"unknown SSL module type: {t}")
+    return out
+
+
+def build_ssl(cfg: Dict[str, Any], device="cuda") -> SSLDetector:
+    """The SSL detector of an SSL config (``model.detector_3d``,
+    ``model.detector_2d``, ``ssl`` and the module lists), student and
+    teacher, eval mode, on ``device``."""
+    pv, fr = (_make(cfg, "detector_3d"), _make(cfg, "detector_2d"))
+    kwargs = dict(cfg.get("ssl", {}))
+    for key in ("lab_modules", "unlab_modules"):
+        kwargs.update(ssl_modules_to_config(cfg["model"].get(key, [])))
+    return SSLDetector(pv, fr, SSLConfig(**kwargs)).to(device).eval()
 
 
 def build_voxelizer(cfg: Dict[str, Any]) -> VoxelizerSpec:

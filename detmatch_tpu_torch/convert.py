@@ -1,4 +1,5 @@
-"""JAX PV-RCNN variables → the port's pcdet-named state dict.
+"""JAX model variables → the port's state dicts: PV-RCNN (pcdet names),
+Faster R-CNN (mmdet names) and the SSL detector's teacher and student.
 
 :func:`from_jax_pvrcnn` is the exact inverse of
 ``tools/model_converters/import_torch_ckpt.py:convert_pvrcnn`` (pcdet
@@ -19,6 +20,12 @@ Every bridge is linear (a transpose, a reshape, a flip or a row
 permutation), so the same function also maps JAX **gradients** (a
 ``jax.grad`` tree shaped like ``params``) onto the port's parameters,
 which is how the training tests compare the two packages' gradients.
+
+:func:`from_jax_frcnn` is the inverse of ``convert_frcnn`` there: flax
+convs (kh, kw, in, out) → (out, in, kh, kw), Dense (in, out) → Linear
+(out, in), FrozenBN's {scale, bias, mean, var} → weight, bias,
+running_mean, running_var, and the first shared FC's input rows from the
+JAX (7, 7, C) flatten back to mmdet's (C, 7, 7).
 """
 from __future__ import annotations
 
@@ -196,4 +203,84 @@ def from_jax_pvrcnn(params, batch_stats, cfg):
                sr[f"{name}_bn{kk}"])
             idx += 4 if kk == 0 else 3  # Dropout after the first layer
         linear(f"roi_head.{ref}.{idx}", pr[f"{name}_out"], (1,))
+    return sd
+
+
+def from_jax_frcnn(params, frozen, cfg=None):
+    """(params, frozen) of the JAX ``FasterRCNN`` → mmdet state dict.
+
+    Args:
+        params, frozen: nested dicts of arrays.
+        cfg: the ``FasterRCNN`` keyword config (``backbone_cfg``'s
+            ``stage_blocks`` sets the depth; (3, 4, 6, 3) by default).
+    Returns:
+        OrderedDict of float32 tensors that ``FasterRCNN(**cfg)`` loads.
+    """
+    sd = OrderedDict()
+
+    def put(key, arr):
+        sd[key] = torch.from_numpy(np.array(arr, np.float32, order="C"))
+
+    def conv(key, p):
+        put(key + ".weight", np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+        if "bias" in p:
+            put(key + ".bias", p["bias"])
+
+    def frozen_bn(key, f):
+        for ours, theirs in (("weight", "scale"), ("bias", "bias"),
+                             ("running_mean", "mean"),
+                             ("running_var", "var")):
+            put(f"{key}.{ours}", f[theirs])
+
+    def linear(key, p, kernel=None):
+        k = np.asarray(p["kernel"]) if kernel is None else kernel
+        put(key + ".weight", k.T)
+        put(key + ".bias", p["bias"])
+
+    pb, fb = params["backbone"], frozen["backbone"]
+    conv("backbone.conv1", pb["conv1"])
+    frozen_bn("backbone.bn1", fb["bn1"])
+    blocks = ((cfg or {}).get("backbone_cfg") or {}).get(
+        "stage_blocks", (3, 4, 6, 3))
+    for stage, n in enumerate(blocks):
+        for b in range(n):
+            key, name = f"backbone.layer{stage + 1}.{b}", \
+                f"layer{stage + 1}_{b}"
+            for c in ("1", "2", "3"):
+                conv(f"{key}.conv{c}", pb[name][f"conv{c}"])
+                frozen_bn(f"{key}.bn{c}", fb[name][f"bn{c}"])
+            if "ds_conv" in pb[name]:
+                conv(f"{key}.downsample.0", pb[name]["ds_conv"])
+                frozen_bn(f"{key}.downsample.1", fb[name]["ds_bn"])
+    for i in range(4):
+        conv(f"neck.lateral_convs.{i}.conv", params["neck"][f"lateral{i}"])
+        conv(f"neck.fpn_convs.{i}.conv", params["neck"][f"fpn_conv{i}"])
+    for name in ("rpn_conv", "rpn_cls", "rpn_reg"):
+        conv(f"rpn_head.{name}", params["rpn_head"][name])
+    ph = params["bbox_head"]
+    fc0 = np.asarray(ph["shared_fc0"]["kernel"])  # rows in (7, 7, C) order
+    c = 256
+    o = int(round(np.sqrt(fc0.shape[0] // c)))
+    fc0 = fc0.reshape(o, o, c, -1).transpose(2, 0, 1, 3).reshape(
+        fc0.shape[0], -1)
+    linear("roi_head.bbox_head.shared_fcs.0", ph["shared_fc0"], fc0)
+    linear("roi_head.bbox_head.shared_fcs.1", ph["shared_fc1"])
+    linear("roi_head.bbox_head.fc_cls", ph["fc_cls"])
+    linear("roi_head.bbox_head.fc_reg", ph["fc_reg"])
+    return sd
+
+
+def from_jax_ssl(state, pv_cfg, fr_cfg):
+    """The JAX SSL state ``{"student"|"teacher": {"det3d": {"params",
+    "batch_stats"}, "det2d": {"params", "frozen"}}}`` → the state dict of
+    the port's ``SSLDetector`` (``{student,teacher}.{det3d,det2d}.*``)."""
+    sd = OrderedDict()
+    for half in ("student", "teacher"):
+        v3, v2 = state[half]["det3d"], state[half]["det2d"]
+        for k, t in from_jax_pvrcnn(v3["params"], v3["batch_stats"],
+                                    pv_cfg).items():
+            sd[f"{half}.det3d.{k}"] = t
+        for k, t in from_jax_frcnn(v2["params"], v2["frozen"],
+                                   fr_cfg).items():
+            sd[f"{half}.det2d.{k}"] = t
     return sd

@@ -1,7 +1,9 @@
-"""Box coders (counterpart of ``detmatch_tpu/core/coders.py``: the 7-dof
-residual coder that PV-RCNN uses)."""
+"""Box coders (counterpart of ``detmatch_tpu/core/coders.py``): the 7-dof
+residual coder that PV-RCNN uses, the 2D delta coder of Faster R-CNN
+(decode only) and the xyxy / cxcywh conversions."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -38,3 +40,55 @@ class ResidualCoder:
         dzg = torch.exp(encodings[..., 5]) * anchors[..., 5]
         rg = encodings[..., 6] + anchors[..., 6]
         return torch.stack([xg, yg, zg, dxg, dyg, dzg, rg], dim=-1)
+
+
+class DeltaXYWHCoder:
+    """mmdet ``DeltaXYWHBBoxCoder`` decode: xyxy boxes + (dx, dy, dw, dh)
+    deltas, de-normalised by ``target_stds``/``target_means``, the log
+    sizes clamped at ``|log(wh_ratio_clip)|``."""
+
+    def __init__(self, target_means=(0., 0., 0., 0.),
+                 target_stds=(1., 1., 1., 1.), wh_ratio_clip=16 / 1000):
+        self.means = np.asarray(target_means, np.float32)
+        self.stds = np.asarray(target_stds, np.float32)
+        self.wh_ratio_clip = wh_ratio_clip
+
+    def decode(self, proposals, deltas, max_shape=None):
+        """proposals, deltas (..., 4) → (..., 4) xyxy, clipped to
+        ``[0, (w, h, w, h)]`` if ``max_shape``, an (h, w) tensor, is
+        given."""
+        stds = torch.as_tensor(self.stds, device=deltas.device)
+        means = torch.as_tensor(self.means, device=deltas.device)
+        deltas = deltas * stds + means
+        max_ratio = abs(float(np.log(self.wh_ratio_clip)))
+        dx, dy = deltas[..., 0], deltas[..., 1]
+        dw = torch.clamp(deltas[..., 2], -max_ratio, max_ratio)
+        dh = torch.clamp(deltas[..., 3], -max_ratio, max_ratio)
+        px = (proposals[..., 0] + proposals[..., 2]) * 0.5
+        py = (proposals[..., 1] + proposals[..., 3]) * 0.5
+        pw = proposals[..., 2] - proposals[..., 0]
+        ph = proposals[..., 3] - proposals[..., 1]
+        gx = px + pw * dx
+        gy = py + ph * dy
+        gw = pw * torch.exp(dw)
+        gh = ph * torch.exp(dh)
+        out = torch.stack([gx - gw * 0.5, gy - gh * 0.5, gx + gw * 0.5,
+                           gy + gh * 0.5], dim=-1)
+        if max_shape is not None:
+            h, w = max_shape[0], max_shape[1]
+            lim = torch.stack([w, h, w, h]).to(out.dtype)
+            out = torch.minimum(torch.clamp(out, min=0), lim)
+        return out
+
+
+def xyxy_to_cxcywh(boxes):
+    return torch.stack([(boxes[..., 0] + boxes[..., 2]) * 0.5,
+                        (boxes[..., 1] + boxes[..., 3]) * 0.5,
+                        boxes[..., 2] - boxes[..., 0],
+                        boxes[..., 3] - boxes[..., 1]], dim=-1)
+
+
+def cxcywh_to_xyxy(boxes):
+    cx, cy, w, h = boxes[..., 0], boxes[..., 1], boxes[..., 2], boxes[..., 3]
+    return torch.stack([cx - w * 0.5, cy - h * 0.5, cx + w * 0.5,
+                        cy + h * 0.5], dim=-1)

@@ -1,5 +1,6 @@
 """3D box geometry (counterpart of ``detmatch_tpu/core/geometry.py``, the
-parts the PV-RCNN inference and training paths call).
+parts the PV-RCNN inference and training paths and the DetMatch teacher
+phase call).
 
 Box convention: (x, y, z, dx, dy, dz, heading) — gravity center in the
 LiDAR frame, full sizes, heading CCW around +z from +x.
@@ -89,3 +90,37 @@ def enlarge_boxes(boxes, extra_width):
     ew = torch.as_tensor(extra_width, dtype=boxes.dtype, device=boxes.device)
     return torch.cat([boxes[:, 0:3], boxes[:, 3:6] + ew * 2.0, boxes[:, 6:]],
                      dim=-1)
+
+
+def project_to_image(pts_3d, proj_mat):
+    """(..., 3) LiDAR points through the (4, 4) ``lidar2img`` matrix →
+    (pixels (..., 2), camera depth (...)); a depth within 1e-6 of zero
+    divides by 1e-6."""
+    ones = torch.ones_like(pts_3d[..., :1])
+    hom = torch.cat([pts_3d, ones], dim=-1) @ proj_mat.T
+    depth = hom[..., 2]
+    denom = torch.where(depth.abs() < 1e-6, 1e-6, depth)
+    return hom[..., 0:2] / denom[..., None], depth
+
+
+def boxes_3d_to_2d(boxes, proj_mat, img_shape=None, min_depth=0.5,
+                   min_corners=3):
+    """(N, 7) boxes → (xyxy (N, 4), valid (N,)): the bounding rectangle of
+    the 8 projected corners; valid where the center's depth is >=
+    ``min_depth`` and, given ``img_shape`` (an (h, w) tensor), at least
+    ``min_corners`` corners land inside the image, the boxes then clipped
+    to it; ``img_shape=None`` skips the inside test and the clip."""
+    corners = boxes_to_corners_3d(boxes)
+    pts2d, depth = project_to_image(corners, proj_mat)
+    _, cdepth = project_to_image(boxes[:, 0:3], proj_mat)
+    bboxes = torch.cat([pts2d.amin(1), pts2d.amax(1)], dim=-1)
+    valid = cdepth >= min_depth
+    if img_shape is not None:
+        h, w = img_shape[0], img_shape[1]
+        inside = ((pts2d[..., 0] >= 0) & (pts2d[..., 0] < w)
+                  & (pts2d[..., 1] >= 0) & (pts2d[..., 1] < h)
+                  & (depth > 0))
+        valid = valid & (inside.to(bboxes.dtype).sum(1) >= min_corners)
+        hi = torch.stack([w, h, w, h]).to(bboxes.dtype)
+        bboxes = torch.minimum(torch.clamp(bboxes, min=0), hi)
+    return bboxes, valid

@@ -1,4 +1,4 @@
-"""Axis-aligned 2D IoU, rotated BEV overlap and IoU, and 3D IoU
+"""Axis-aligned 2D IoU / IoF / GIoU, rotated BEV overlap and IoU, and 3D IoU
 (counterpart of ``detmatch_tpu/core/iou.py``).
 
 Convex intersection of two quads: candidate vertices are the 16 edge-pair
@@ -29,15 +29,34 @@ def area2d(boxes):
     return w * h
 
 
-def iou2d(boxes1, boxes2, eps=1e-6):
-    """Pairwise axis-aligned IoU of (N, 4) and (M, 4) xyxy boxes → (N, M)."""
-    b1, b2 = boxes1[:, None, :], boxes2[None, :, :]
+def iou2d(boxes1, boxes2, mode="iou", aligned=False, eps=1e-6):
+    """Axis-aligned IoU / IoF / GIoU between xyxy boxes.
+
+    Args:
+        boxes1: (N, 4); boxes2: (M, 4) (or (N, 4) each if ``aligned``).
+        mode: "iou" | "iof" | "giou".
+    Returns:
+        (N, M), or (N,) if ``aligned``.
+    """
+    if aligned:
+        b1, b2 = boxes1, boxes2
+    else:
+        b1, b2 = boxes1[:, None, :], boxes2[None, :, :]
     lt = torch.maximum(b1[..., :2], b2[..., :2])
     rb = torch.minimum(b1[..., 2:], b2[..., 2:])
     wh = torch.clamp(rb - lt, min=0)
     inter = wh[..., 0] * wh[..., 1]
-    union = torch.clamp(area2d(b1) + area2d(b2) - inter, min=eps)
-    return inter / union
+    a1 = area2d(b1)
+    union = a1 if mode == "iof" else a1 + area2d(b2) - inter
+    union = torch.clamp(union, min=eps)
+    iou = inter / union
+    if mode != "giou":
+        return iou
+    elt = torch.minimum(b1[..., :2], b2[..., :2])
+    erb = torch.maximum(b1[..., 2:], b2[..., 2:])
+    ewh = torch.clamp(erb - elt, min=0)
+    earea = torch.clamp(ewh[..., 0] * ewh[..., 1], min=eps)
+    return iou - (earea - union) / earea
 
 
 def rotated_overlap_block(c1, c2):

@@ -1,5 +1,6 @@
-"""PV-RCNN loss functions (counterpart of ``detmatch_tpu/core/losses.py``,
-the 3D losses; pcdet ``loss_utils.py``). Nothing is reduced here: the
+"""PV-RCNN loss functions and the DETR-style match costs of the fusion
+matching (counterpart of ``detmatch_tpu/core/losses.py``; pcdet
+``loss_utils.py``, mmdet ``match_cost.py``). Nothing is reduced here: the
 callers mask and normalise, as the JAX package does.
 """
 from __future__ import annotations
@@ -7,7 +8,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import geometry
+from . import geometry, iou as iou_mod
+from .coders import cxcywh_to_xyxy
 
 
 def sigmoid_ce_with_logits(logits, targets):
@@ -70,3 +72,39 @@ def corner_loss_lidar(pred_boxes, gt_boxes):
     d = torch.linalg.norm(pred_c - gt_c, dim=2)
     d_flip = torch.linalg.norm(pred_c - gt_c_flip, dim=2)
     return smooth_l1(torch.minimum(d, d_flip), 1.0).mean(dim=1)
+
+
+# ---- match costs (FusionHungarianMatching) ----
+
+def focal_loss_cost(logits, labels, weight=1.0, alpha=0.25, gamma=2.0,
+                    eps=1e-12):
+    """mmdet ``FocalLossCost``: (N, C) logits × (M,) labels → (N, M)."""
+    p = torch.sigmoid(logits)
+    neg = -torch.log(1 - p + eps) * (1 - alpha) * p ** gamma
+    pos = -torch.log(p + eps) * alpha * (1 - p) ** gamma
+    return (pos[:, labels] - neg[:, labels]) * weight
+
+
+def double_sided_focal_cost(logits1, logits2, weight=1.0, alpha=0.25,
+                            gamma=2.0):
+    """(FL(p1, argmax p2) + FL(p2, argmax p1)^T) / 2 → (N1, N2)
+    (DetMatch ``modified_match_cost.py``); argmax takes the first
+    maximum."""
+    lbl1 = torch.argmax(torch.sigmoid(logits1), dim=1)
+    lbl2 = torch.argmax(torch.sigmoid(logits2), dim=1)
+    c12 = focal_loss_cost(logits1, lbl2, weight, alpha, gamma)
+    c21 = focal_loss_cost(logits2, lbl1, weight, alpha, gamma)
+    return (c12 + c21.T) / 2.0
+
+
+def bbox_l1_cost(pred_cxcywh_norm, gt_xyxy_norm, weight=1.0):
+    """mmdet ``BBoxL1Cost`` (box_format xyxy): L1 distance of the
+    normalised predictions, as xyxy, to the normalised targets → (N, M)."""
+    pred = cxcywh_to_xyxy(pred_cxcywh_norm)
+    return (pred[:, None, :] - gt_xyxy_norm[None, :, :]).abs().sum(-1) \
+        * weight
+
+
+def giou_cost(pred_xyxy, gt_xyxy, weight=1.0):
+    """mmdet ``IoUCost(iou_mode="giou")``: -GIoU → (N, M)."""
+    return -iou_mod.iou2d(pred_xyxy, gt_xyxy, mode="giou") * weight

@@ -1,5 +1,5 @@
-"""Greedy rotated-BEV NMS with fixed-size outputs (counterpart of
-``detmatch_tpu/core/nms.py``).
+"""Greedy rotated-BEV and axis-aligned 2D NMS with fixed-size outputs
+(counterpart of ``detmatch_tpu/core/nms.py``).
 
 The pairwise IoU matrix is built in row chunks; the greedy keep vector is
 the fixed point of ``keep = valid & ~any(sup & keep[:, None])`` where
@@ -66,3 +66,19 @@ def nms_bev(boxes, scores, iou_thr, max_out):
     bev = geometry.boxes_to_bev(boxes) if boxes.shape[-1] >= 7 else boxes
     return _greedy_from_matrix(iou_matrix_bev(bev), scores, iou_thr,
                                max_out)
+
+
+def nms_2d(boxes, scores, iou_thr, max_out):
+    """Axis-aligned 2D NMS (mmcv ``nms`` semantics) on (N, 4) xyxy boxes
+    with NEG_INF-padded scores → (idx (max_out,), valid (max_out,))."""
+    return _greedy_from_matrix(iou.iou2d(boxes, boxes), scores, iou_thr,
+                               max_out)
+
+
+def batched_nms_2d(boxes, scores, labels, iou_thr, max_out):
+    """Class-aware 2D NMS by the coordinate-offset trick (mmcv
+    ``batched_nms``): each class is shifted by ``4 * (max |coord| + 1)``
+    per label, so boxes of different classes never overlap."""
+    max_coord = boxes.abs().max() + 1.0
+    offsets = labels.to(boxes.dtype)[:, None] * (4.0 * max_coord)
+    return nms_2d(boxes + offsets, scores, iou_thr, max_out)

@@ -1,8 +1,9 @@
 """Hand-written CUDA kernels for Hopper and their plain PyTorch twins.
 
-``KERNELS`` and ``PLAIN`` bundle the three ops of the PV-RCNN path with
-identical signatures. ``KERNELS`` launches the CUDA kernels on CUDA
-tensors and runs the twins on CPU tensors; the model always uses it. Its
+``KERNELS`` and ``PLAIN`` bundle the four ops of the DetMatch teacher
+path (the three of PV-RCNN and the JV assignment of the fusion matching)
+with identical signatures. ``KERNELS`` launches the CUDA kernels on CUDA
+tensors and runs the twins on CPU tensors; the models always use it. Its
 sparse conv carries a gradient whose backward is a kernel too
 (``window_key_conv_bwd``). ``PLAIN`` runs the twins on any device, and
 autograd differentiates them: it exists only for verification, where
@@ -15,6 +16,7 @@ from typing import Callable, NamedTuple
 
 from .ball_query import ball_query_batched, ball_query_plain
 from .fps import fps_batched, fps_plain
+from .hungarian import solve_masked_batched, solve_masked_plain
 from .window_key_conv import (window_key_conv_batched, window_key_conv_bwd,
                               window_key_conv_plain)
 
@@ -23,10 +25,13 @@ class Ops(NamedTuple):
     window_key_conv_batched: Callable
     fps_batched: Callable
     ball_query_batched: Callable
+    solve_masked_batched: Callable
 
 
-KERNELS = Ops(window_key_conv_batched, fps_batched, ball_query_batched)
-PLAIN = Ops(window_key_conv_plain, fps_plain, ball_query_plain)
+KERNELS = Ops(window_key_conv_batched, fps_batched, ball_query_batched,
+              solve_masked_batched)
+PLAIN = Ops(window_key_conv_plain, fps_plain, ball_query_plain,
+            solve_masked_plain)
 # every launching wrapper, each with its own ``.launches`` counter
 LAUNCHERS = (*KERNELS, window_key_conv_bwd)
 

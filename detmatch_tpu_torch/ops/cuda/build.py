@@ -42,6 +42,7 @@ SIGNATURES = {
                                _P),
     "dm_window_key_conv_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                _I, _I, _I, _I, _I, _I, _I, _P),
+    "dm_hungarian_jv": (_P, _P, _P, _I, _I, _P),
 }
 
 

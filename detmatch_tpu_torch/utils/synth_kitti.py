@@ -9,8 +9,9 @@ and object faces). This module ray-casts the HDL-64 beam geometry
 (64 elevation rings x ~0.18 deg azimuth) against a ground plane and
 randomly placed boxes (cars, pedestrians, walls), so the points lie on
 surfaces as in a real scan. :func:`gt_boxes` draws GT boxes as the JAX
-benchmark does. Used by ``chip_smoke.py`` and the port's tests; not part
-of the training path.
+benchmark does, and :func:`ssl_view` a whole multimodal SSL view (the
+JAX benchmark's ``make_view``). Used by ``chip_smoke.py`` and the port's
+tests; not part of the training path.
 """
 from __future__ import annotations
 
@@ -132,3 +133,37 @@ def gt_boxes(rng, b, g=40, n=20):
     gt[:, :n, 6] = rng.rand(b, n) - 0.5
     gt[:, :n, 7] = rng.randint(1, 4, (b, n))
     return gt
+
+
+# the JAX benchmark's KITTI range, image and calibration
+# (``detmatch_tpu/benchmarks.py:47, 56-80``)
+SSL_PCR = (0.0, -40.0, -3.0, 70.4, 40.0, 1.0)
+SSL_LIDAR2IMG = np.array([[0, -700, 0, 6200], [0, 0, -700, 1800],
+                          [1, 0, 0, 0], [0, 0, 0, 1]], np.float32)
+
+
+def ssl_view(rng, b, p, canvas):
+    """One unlabeled multimodal view of ``b`` frames as numpy arrays:
+    ``p``-point synthetic scans, a random (B, H, W, 3) image on the
+    ``canvas`` (h, w), KITTI's 375 x 1242 original shape, a fixed
+    lidar-to-image matrix and identity augmentation records (``aug3d`` /
+    ``aug2d`` dicts of the ``Aug3D`` / ``Aug2D`` fields): the JAX
+    benchmark's ``make_view`` without ground truth, the same ``rng``
+    calls in the same order."""
+    pts, pvalid = lidar_batch(rng, b, p, SSL_PCR)
+    return dict(
+        points=pts,
+        points_valid=pvalid,
+        img=rng.randn(b, *canvas, 3).astype(np.float32),
+        img_shape=np.tile([[canvas[0], canvas[1]]], (b, 1)
+                          ).astype(np.float32),
+        ori_shape=np.tile([[375.0, 1242.0]], (b, 1)).astype(np.float32),
+        lidar2img=np.tile(SSL_LIDAR2IMG[None], (b, 1, 1)),
+        aug3d=dict(flip_x=np.zeros((b,), np.float32),
+                   rot=np.zeros((b,), np.float32),
+                   scale=np.ones((b,), np.float32),
+                   trans=np.zeros((b, 3), np.float32)),
+        aug2d=dict(scale=np.ones((b, 4), np.float32),
+                   flip=np.zeros((b,), np.float32),
+                   img_w=np.full((b,), canvas[1], np.float32)),
+    )

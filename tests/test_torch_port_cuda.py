@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain twins on the card, at edge
 cases the main path does not reach (all-invalid rows, empty balls, empty
-samples, the size limits, argument checks), and the sparse conv's
-backward kernel against autograd through its twin.
+samples, the size limits, argument checks), the sparse conv's backward
+kernel against autograd through its twin, and the JV assignment kernel
+(K4) at sizes and validity patterns the teacher phase does not give it.
 
 Needs a CUDA card: every test is marked ``cuda`` and skips without one.
 This file imports no JAX, so it runs where JAX is not installed:
@@ -18,6 +19,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from detmatch_tpu_torch.ops import spconv, voxelize  # noqa: E402
 from detmatch_tpu_torch.ops.cuda import ball_query, fps  # noqa: E402
+from detmatch_tpu_torch.ops.cuda import hungarian  # noqa: E402
 from detmatch_tpu_torch.ops.cuda import window_key_conv  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -181,3 +183,60 @@ def test_wrappers_check_their_arguments(dev):
             torch.zeros(1, 3, 8, device=dev), torch.zeros(1, 4, 4,
                                                           device=dev),
             keys, nkeys, torch.zeros(27, 4, 8, device=dev), 100)
+
+
+def _jv_problem(b, k, n_rows, n_cols, seed):
+    """(B, K, K) costs with BIG-padded columns past ``n_cols`` and the
+    first ``n_rows`` rows valid, per element; tie rows where K allows."""
+    g = torch.Generator().manual_seed(seed)
+    cost = torch.randn(b, k, k, generator=g) * 2
+    if k > 4:
+        cost[:, 3] = cost[:, 1]
+    cols = torch.arange(k)
+    cost = torch.where(cols[None, None, :] < torch.tensor(n_cols)[:, None,
+                                                                  None],
+                       cost, hungarian.BIG).contiguous()
+    rv = cols[None, :] < torch.tensor(n_rows)[:, None]
+    return cost, rv
+
+
+@pytest.mark.parametrize("b,k,n_rows,n_cols", [
+    (1, 1, [1], [1]),                       # K = 1
+    (1, hungarian.MAX_K, [700], [1000]),    # the largest K, padded cols
+    (1, 128, [128], [128]),                 # B = 1, full
+    (3, 128, [0, 0, 0], [128, 5, 0]),       # every row invalid
+    (4, 100, [100, 40, 1, 0], [100, 70, 3, 100]),  # K not a warp multiple
+    (2, 33, [33, 20], [33, 33]),            # one column past a warp
+])
+def test_hungarian_kernel_matches_twin(dev, b, k, n_rows, n_cols):
+    """Exact equality with the plain twin (run on the CPU: the same fp32
+    operations, fewer launches)."""
+    cost, rv = _jv_problem(b, k, n_rows, n_cols, seed=k)
+    hungarian.solve_masked_batched.launches = 0
+    got = hungarian.solve_masked_batched(cost.to(dev), rv.to(dev))
+    torch.cuda.synchronize()
+    assert hungarian.solve_masked_batched.launches == 1
+    want = hungarian.solve_masked_plain(cost, rv)
+    assert torch.equal(got.cpu(), want)
+    matched = (want >= 0).sum(1)
+    assert matched.tolist() == [min(r, c) for r, c in zip(n_rows, n_cols)]
+
+
+def test_hungarian_kernel_checks_its_arguments(dev):
+    cost, rv = _jv_problem(2, 16, [16, 8], [16, 16], seed=0)
+    cost, rv = cost.to(dev), rv.to(dev)
+    k = hungarian.MAX_K + 1
+    with pytest.raises(ValueError, match="K <= 1024"):
+        hungarian.solve_masked_batched(
+            torch.zeros(1, k, k, device=dev),
+            torch.ones(1, k, dtype=torch.bool, device=dev))
+    with pytest.raises(TypeError):
+        hungarian.solve_masked_batched(cost.double(), rv)
+    with pytest.raises(TypeError):
+        hungarian.solve_masked_batched(cost, rv.int())
+    with pytest.raises(ValueError):  # devices differ
+        hungarian.solve_masked_batched(cost, rv.cpu())
+    with pytest.raises(ValueError):  # not contiguous
+        hungarian.solve_masked_batched(cost.transpose(1, 2), rv)
+    with pytest.raises(ValueError):  # not square
+        hungarian.solve_masked_batched(cost[:, :, :8].contiguous(), rv)

@@ -115,6 +115,8 @@ def _cpu_inputs():
         "ball_query_batched": (xyz[:, :8].contiguous(),
                                torch.ones(2, 8, dtype=torch.bool), xyz, valid,
                                1.0, 4),
+        "solve_masked_batched": (torch.rand(2, 6, 6, generator=g),
+                                 torch.arange(6).expand(2, -1) < 4),
     }
 
 
