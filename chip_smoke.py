@@ -1,6 +1,7 @@
-"""Drive the PyTorch port's PV-RCNN inference and training and the
-DetMatch teacher phase on a CUDA card, check its CUDA kernels against
-their plain PyTorch twins, and time all three.
+"""Drive the PyTorch port's PV-RCNN inference and training, the
+DetMatch teacher phase and one whole DetMatch SSL iteration on a CUDA
+card, check its CUDA kernels against their plain PyTorch twins, and time
+them.
 
 Run from the repository root, with one card visible:
 
@@ -48,9 +49,26 @@ Phases (any failure exits non-zero without printing the result line):
    Faster R-CNN on the card against the CPU at B=1 (pre-NMS boxes and
    scores within 1e-4 on the card's proposals); CUDA-event timings of
    the phase, its split and K4, and peak memory;
-9. a JSON line of the kernels (per training step for the PV-RCNN
-   kernels, per teacher phase for K4, with their bounds), then the
-   result line.
+9. one whole SSL iteration (``configs/detmatch/001/detmatch/split_0.py``
+   at full width: B=4 labeled frames with the JAX benchmark's GT draw +
+   B=4 unlabeled ones, the models' own seeded initialisers): every kernel
+   call of the iteration against its twin (K1 forward and backward at the
+   student's B=8, K2, K3, K4 on the fusion's and the consistency
+   branch's own problems, exactly); the student 3D step on the kernel path
+   against the plain paths on pinned teacher boxes, pinned proposals and
+   clean 2D boxes made from the student's own (losses and BN statistics
+   within 1e-4, gradients within 1e-3 with the kernel's forward values and
+   the twin's backward; the consistency branch must pair boxes and a 2D
+   pseudo-label must be kept); the four step functions with the EMA
+   teacher equal to its formula; ``train_ssl`` for 3 iterations with
+   24 / 12 / 24 / 2 / 2 launches per iteration (K1 fwd, K1 bwd, K2, K3,
+   K4); the same iteration with ``conv_impl="key"`` (K5 forward within
+   1e-5 of its twin and S exactly on the step's 12 shapes, 24 / 12 / 0
+   launches of K5 fwd, K5 bwd, K1, losses within 1e-4 of the plain path);
+   CUDA-event timings of the iteration and its split on both conv paths,
+   peak memory, and each kernel per iteration;
+10. a JSON line of the kernels (per SSL iteration, with their bounds),
+   then the result line.
 """
 from __future__ import annotations
 
@@ -78,10 +96,12 @@ E2E_RTOL = 1e-4
 GRAD_TOL = 1e-3       # of each gradient tensor's largest magnitude
 MATCH_SHARE = 0.99
 DEVICE = "cuda"
-# H100 SXM peaks (NVIDIA datasheet): HBM3 bytes/s and fp32
-# FLOP/s outside the tensor cores; every kernel here computes in fp32
+# H100 SXM peaks (NVIDIA datasheet): HBM3 bytes/s, fp32 FLOP/s outside
+# the tensor cores (K1-K4 compute in fp32) and dense bf16 tensor-core
+# FLOP/s (K5's operands are bf16)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 
 FWD_KERNELS = ("window_key_conv_batched", "fps_batched",
                "ball_query_batched")
@@ -94,6 +114,17 @@ STAGES = ("3D teacher", "2D teacher", "fusion matching", "K4")
 # fp32 operations per (inner step, column) of the JV solve: two subtracts,
 # a compare, a select, the argmin compare, one potential update
 JV_OPS_PER_STEP_COL = 6
+SSL_ITERS = 3
+# launches per SSL iteration (teacher B=4 + student B=8): K1 fwd, K1 bwd,
+# K2, K3, K4 on the window path; K5 fwd / bwd on the key path
+SSL_LAUNCHES = dict(window_key_conv_batched=24, window_key_conv_bwd=12,
+                    ball_query_batched=24, fps_batched=2,
+                    solve_masked_batched=2)
+KEY_LAUNCHES = dict(key_conv_batched=24, key_conv_bwd=12,
+                    window_key_conv_batched=0, window_key_conv_bwd=0)
+# the stages of one SSL iteration that chip_smoke times
+ITER_STAGES = ("data", "teacher", "3D fwd+loss", "3D bwd", "3D opt",
+               "2D fwd+loss", "2D bwd", "2D opt", "EMA")
 KERNEL_META = {
     "window_key_conv_batched": dict(
         source="detmatch_tpu_torch/csrc/window_key_conv.cu",
@@ -110,6 +141,12 @@ KERNEL_META = {
     "solve_masked_batched": dict(
         source="detmatch_tpu_torch/csrc/hungarian_jv.cu",
         replaces="detmatch_tpu/ops/pallas/hungarian.py:168"),
+    "key_conv_batched": dict(
+        source="detmatch_tpu_torch/csrc/key_conv.cu",
+        replaces="detmatch_tpu/ops/pallas/onehot_key_conv.py:84"),
+    "key_conv_bwd": dict(
+        source="detmatch_tpu_torch/csrc/key_conv.cu",
+        replaces="detmatch_tpu/ops/pallas/onehot_key_conv.py:150"),
 }
 
 
@@ -241,7 +278,7 @@ def check_kernels(calls, label, stats):
         torch.cuda.synchronize()
         st = stats.setdefault(name, dict(max_abs_err=0.0, cases=0))
         st["cases"] += 1
-        if name == "window_key_conv_batched":
+        if name in ("window_key_conv_batched", "key_conv_batched"):
             err = rel_err(k_out, p_out)
             st["max_abs_err"] = max(st["max_abs_err"],
                                     float((k_out - p_out).abs().max()))
@@ -452,7 +489,7 @@ def run():
             for b, bt in ((1, batch1), (4, batch4)):
                 ms = cuda_ms(lambda: detect(model, bt["points"],
                                             bt["points_valid"], spec,
-                                            score_thresh=0.0), reps=3)
+                                            score_thresh=0.0), reps=2)
                 print(f"  {path} path B={b}: {ms:.3f} ms/call "
                       f"({1000.0 * b / ms:.3f} frames/s) [{card}]")
         model.ops = KERNELS
@@ -462,8 +499,9 @@ def run():
                   f"{counts[name]} calls [{card}]")
     del model, batch3, batch4, batch1
 
-    per = train_phases(cfg, spec, card, stats)
-    per.update(teacher_phases(card, stats))
+    train_phases(cfg, spec, card, stats)
+    teacher_phases(card, stats)
+    per = ssl_phases(card, stats)
 
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=meta["source"],
@@ -492,6 +530,21 @@ def work(name, args, kwargs, need_dfeats=True, out=None):
     """(bytes, flops) of one call: each input read once and each output
     written once, and the arithmetic these inputs need (for the ball
     query, ``out`` is its (idx, cnt))."""
+    if name == "key_conv_batched":
+        feats, _, nkeys, w, _ = args
+        b, n, c = feats.shape
+        m, k = nkeys.shape[1], nkeys.shape[2]
+        co = w.shape[-1]
+        inputs = b * n * c + b * n + b * m * k + k * c * co
+        # bf16 multiply-adds, one per (matched pair, c, co)
+        return 4 * (inputs + b * m * co), 2 * conv_pairs(args) * c * co
+    if name == "key_conv_bwd":
+        dout, keys, nkeys = args
+        b, n = keys.shape
+        k, co = nkeys.shape[2], dout.shape[-1]
+        # reads dout, keys, nkeys; writes S (K, B * N, Co); no arithmetic
+        return 4 * (dout.numel() + keys.numel() + nkeys.numel()
+                    + k * b * n * co), 0
     if name in ("window_key_conv_batched", "window_key_conv_bwd"):
         feats, _, nkeys, _, w, _ = args
         b, n, c = feats.shape
@@ -524,11 +577,11 @@ def work(name, args, kwargs, need_dfeats=True, out=None):
             + (idx.numel() + cnt.numel()) * 4, 9 * int(cnt.sum()))
 
 
-def add_bound(entry, nbytes, flops):
+def add_bound(entry, nbytes, flops, flop_rate=FP32_FLOP_PER_S):
     """Accumulate a call's bound: the larger of its bytes over the HBM
-    rate and its flops over the fp32 rate."""
+    rate and its flops over ``flop_rate`` (fp32 unless bf16)."""
     tb = nbytes / HBM_BYTES_PER_S * 1e3
-    tf = flops / FP32_FLOP_PER_S * 1e3
+    tf = flops / flop_rate * 1e3
     entry["bound_ms"] = entry.get("bound_ms", 0.0) + max(tb, tf)
     entry["bytes_ms"] = entry.get("bytes_ms", 0.0) + tb
     entry["ops_ms"] = entry.get("ops_ms", 0.0) + tf
@@ -557,7 +610,9 @@ def time_kernels(calls, bwd_cases):
         t["plain_ms"] += cuda_ms(lambda: plain[name](*args, **kwargs),
                                  reps=2)
         add_bound(t, *work(name, args, kwargs, out=kern[name](*args,
-                                                               **kwargs)))
+                                                               **kwargs)),
+                  BF16_FLOP_PER_S if name == "key_conv_batched"
+                  else FP32_FLOP_PER_S)
     for args, need, dout in bwd_cases:
         feats, keys, nkeys, out_keys, w, band = args
         t = per.setdefault("window_key_conv_bwd", dict(ms=0.0, plain_ms=0.0))
@@ -785,7 +840,7 @@ def train_phases(cfg, spec, card, stats):
         torch.cuda.synchronize()
         if path == "kernel":
             torch.cuda.reset_peak_memory_stats()
-        for step in range(4):  # the first is a warm-up
+        for step in range(3):  # the first is a warm-up
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
             ev[0].record()
             out = m(batch, train=True, generator=g)
@@ -1161,7 +1216,7 @@ def teacher_phases(card, stats):
     with torch.inference_mode():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        split = timed_split(model, batch, reps=3)
+        split = timed_split(model, batch, reps=2)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         model.ops = PLAIN
         plain_ms = cuda_ms(lambda: model.teacher_pseudo_labels(batch),
@@ -1186,6 +1241,511 @@ def teacher_phases(card, stats):
           f"{steps.tolist()} [{card}]")
     per["launches"] = launches["solve_masked_batched"]
     return {"solve_masked_batched": per}
+
+
+def ssl_model(cfg):
+    """The SSL detector of ``cfg`` on the card with the models' own
+    initialisers seeded from SEED (student = teacher, the state an SSL
+    run starts from after pretraining), the class biases of the PV-RCNN
+    anchor head and the Faster R-CNN box head spread around zero so that
+    the teacher's boxes pass the 0.1 score filters."""
+    from detmatch_tpu_torch.apis.build import build_ssl
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        model = build_ssl(cfg)  # the card: build_ssl's default
+    g = torch.Generator().manual_seed(SEED)
+    with torch.no_grad():
+        for bias in (model.student["det3d"].dense_head.conv_cls.bias,
+                     model.student["det2d"].roi_head.bbox_head.fc_cls.bias):
+            bias.copy_(0.5 * torch.randn(bias.shape, generator=g))
+    model.teacher.load_state_dict(model.student.state_dict())
+    return model
+
+
+def ssl_batch_np(cfg, rng):
+    """One collated numpy SSL batch at full width: B=4 labeled frames
+    (the JAX benchmark's GT draw) and B=4 unlabeled ones, each with a
+    student and a teacher view."""
+    from detmatch_tpu_torch.utils.synth_kitti import ssl_view
+    canvas = tuple(cfg["model"]["detector_2d"]["canvas"])
+    points = cfg["data"]["collate"]["max_points"]
+    return dict(
+        lab=dict(stu=ssl_view(rng, SSL_B, points, canvas, with_gt=True),
+                 tea=ssl_view(rng, SSL_B, points, canvas)),
+        unlab=dict(stu=ssl_view(rng, SSL_B, points, canvas),
+                   tea=ssl_view(rng, SSL_B, points, canvas)))
+
+
+def student_2d_pins(m, batch, pseudo, gen):
+    """A clean-frame 2D BoxSet that the consistency branch pairs with the
+    student's own boxes under cost_thr: the student's train forward (on
+    ``pseudo``'s 3D labels), its boxes de-augmented, projected and 2D-NMS'd
+    as the branch does, jittered by 2% of their size, with a 0.9 score at
+    the box's top class. Returns (that set, the forward's proposals)."""
+    from detmatch_tpu_torch.ssl import modules
+    cat, bl = m._concat_student_batch(batch, pseudo)
+    with torch.no_grad():
+        out = m.student["det3d"](cat, train=True, generator=gen)
+        sub = {k: out[k][bl:] for k in ("batch_box_preds_rcnn", "rcnn_cls",
+                                        "roi_labels", "roi_scores_full")}
+        u = batch["unlab"]["stu"]
+        stu3d = modules.transform_3d(m._det3d_student_boxes(sub),
+                                     u["aug3d"], reverse=True)
+        proj = modules.nms_2d_boxset(
+            modules.boxes_3d_to_2d(stu3d, u["lidar2img"], u["ori_shape"]),
+            *m.cfg.proj_nms_2d_cfg)
+        g = torch.Generator(device=DEVICE).manual_seed(SEED)
+        wh = (proj["boxes"][..., 2:] - proj["boxes"][..., :2]).repeat(1, 1, 2)
+        boxes = proj["boxes"] + 0.02 * wh * torch.randn(
+            wh.shape, generator=g, device=DEVICE)
+        scores = torch.full_like(proj["scores"], 0.05).scatter_(
+            -1, proj["scores"].argmax(-1, keepdim=True), 0.9)
+        valid = proj["valid"]
+        clean = dict(boxes=torch.where(valid[..., None], boxes, 0.0),
+                     scores=torch.where(valid[..., None], scores, 0.0),
+                     valid=valid)
+    return clean, {k: v.detach() for k, v in out["proposals"].items()}
+
+
+def grads_of(module):
+    return {n: (p.grad.detach().clone() if p.grad is not None
+                else torch.zeros_like(p)) for n, p in module.named_parameters()}
+
+
+def worst_rel(ga, gb):
+    """Largest difference over each tensor's largest magnitude, and where."""
+    worst, where = 0.0, ""
+    for n in gb:
+        err = float((ga[n] - gb[n]).abs().max()
+                    / gb[n].abs().max().clamp(min=1e-12))
+        if err > worst:
+            worst, where = err, n
+    return worst, where
+
+
+def iteration_split(m, batch_np, spec, opts, gen, reps):
+    """Mean ms of one SSL iteration and of its stages (CUDA events
+    inside the same iterations; the first iteration warms up)."""
+    from detmatch_tpu_torch.train.ssl_step import (ema_step, teacher_step,
+                                                   to_device_views,
+                                                   voxelize_views)
+    opt3d, opt2d = opts
+    rows = []
+    for it in range(reps + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(10)]
+        ev[0].record()
+        batch = voxelize_views(to_device_views(batch_np, DEVICE), spec)
+        ev[1].record()
+        pseudo = teacher_step(m, batch)
+        ev[2].record()
+        for j, (loss_fn, opt) in enumerate((
+                (m.student_losses_3d_concat, opt3d),
+                (m.student_losses_2d, opt2d))):
+            opt.zero_grad()
+            total, _ = loss_fn(batch, pseudo, it, gen)
+            ev[3 + 3 * j].record()
+            total.backward()
+            ev[4 + 3 * j].record()
+            opt.step()
+            ev[5 + 3 * j].record()
+            del total
+        ema_step(m, it)
+        ev[9].record()
+        torch.cuda.synchronize()
+        if it:
+            rows.append([ev[i].elapsed_time(ev[i + 1]) for i in range(9)])
+    split = dict(zip(ITER_STAGES, (float(np.mean(c)) for c in zip(*rows))))
+    split["iteration"] = sum(split[k] for k in ITER_STAGES)
+    return split
+
+
+def ssl_phases(card, stats):
+    """One whole DetMatch SSL iteration at full width on the card (B=4
+    labeled + 4 unlabeled frames); returns, per kernel, the launches of
+    the main path's run and the per-iteration times and bounds."""
+    import copy
+
+    from detmatch_tpu_torch.apis.build import build_ssl, build_voxelizer
+    from detmatch_tpu_torch.apis.train_ssl import train_ssl
+    from detmatch_tpu_torch.config import Config
+    from detmatch_tpu_torch.models.pvrcnn import pvrcnn as pvrcnn_mod
+    from detmatch_tpu_torch.ops import cuda as cuda_ops
+    from detmatch_tpu_torch.ops.cuda import KERNELS, PLAIN
+    from detmatch_tpu_torch.ops.cuda import key_conv as kc
+    from detmatch_tpu_torch.ops.cuda.window_key_conv import (
+        window_key_conv_bwd, window_key_conv_plain)
+    from detmatch_tpu_torch.ops.voxelize import INVALID_KEY
+    from detmatch_tpu_torch.ssl.detector import ema_decay_at
+    from detmatch_tpu_torch.train.optim import detmatch_branch_optimizers
+    from detmatch_tpu_torch.train.ssl_step import (ema_step, student_2d_step,
+                                                   student_3d_step,
+                                                   teacher_step,
+                                                   to_device_views,
+                                                   voxelize_views)
+
+    def gen():
+        return torch.Generator(DEVICE).manual_seed(SEED)
+
+    phase("SSL iteration: model and views")
+    cfg = Config.fromfile(str(SSL_CONFIG))
+    spec = build_voxelizer(cfg)
+    model = ssl_model(cfg)
+    rng = np.random.RandomState(SEED)
+    batch_np = ssl_batch_np(cfg, rng)
+    batch = voxelize_views(to_device_views(batch_np, DEVICE), spec)
+    canvas = tuple(cfg["model"]["detector_2d"]["canvas"])
+    for view in (batch["unlab"]["tea"], batch["unlab"]["stu"]):
+        view["aug3d"], view["aug2d"] = aug_records(
+            rng, SSL_B, canvas, view["ori_shape"][0].tolist())
+    lab, u = batch["lab"]["stu"], batch["unlab"]["stu"]
+    print(f"B={SSL_B}+{SSL_B}: voxels lab "
+          f"{(lab['voxel_keys'] != INVALID_KEY).sum(1).tolist()}, unlab "
+          f"{(u['voxel_keys'] != INVALID_KEY).sum(1).tolist()}; gt boxes "
+          f"{(lab['gt_boxes'][..., 7] > 0).sum(1).tolist()}; image "
+          f"{tuple(lab['img'].shape)}")
+
+    phase("SSL iteration: kernels against plain twins (SSL step shapes)")
+    m = copy.deepcopy(model).train()
+    calls = []
+    m.ops = recording(KERNELS, calls)
+    pseudo = teacher_step(m, batch)
+    # with gradients on, so that the record says which convs need dF
+    m.student_losses_3d_concat(batch, pseudo, 0, gen())
+    del m
+    with torch.no_grad():
+        ok = check_kernels(calls, "SSL", stats)
+    counts = {n: sum(c[0] == n for c in calls) for n in TEACHER_KERNELS}
+    print(f"calls per SSL iteration (teacher + student forward): {counts}")
+    g = gen()
+    bwd_cases = []
+    st = stats.setdefault("window_key_conv_bwd", dict(max_abs_err=0.0,
+                                                      cases=0))
+    for i, (name, args, _, need) in enumerate(calls):
+        if name != "window_key_conv_batched" or args[0].shape[0] != 2 * SSL_B:
+            continue
+        feats, keys, nkeys, out_keys, w, band = args
+        dout = torch.randn(feats.shape[0], nkeys.shape[1], w.shape[-1],
+                           generator=g, device=DEVICE)
+        d_f, d_w = window_key_conv_bwd(dout, feats, keys, nkeys, w, band)
+        f = feats.clone().requires_grad_()
+        ww = w.clone().requires_grad_()
+        p_f, p_w = torch.autograd.grad(window_key_conv_plain(
+            f, keys, nkeys, out_keys, ww, band), (f, ww), dout)
+        torch.cuda.synchronize()
+        err_f, err_w = rel_err(d_f, p_f), rel_err(d_w, p_w)
+        st["cases"] += 1
+        st["max_abs_err"] = max(st["max_abs_err"],
+                                float((d_f - p_f).abs().max()),
+                                float((d_w - p_w).abs().max()))
+        good = err_f <= CONV_RTOL and err_w <= CONV_RTOL
+        ok &= good
+        print(f"  SSL B={2 * SSL_B} window_key_conv_bwd[{i}] dF rel_err="
+              f"{err_f:.3e} dW rel_err={err_w:.3e} out "
+              f"{tuple(dout.shape)} taps={nkeys.shape[-1]} dF on the main "
+              f"path={need} {'ok' if good else 'FAIL'}")
+        bwd_cases.append((args, need, dout))
+    expect_fwd = {n: SSL_LAUNCHES[n] for n in TEACHER_KERNELS}
+    if not ok or counts != expect_fwd or len(bwd_cases) != 12:
+        raise AssertionError("a kernel disagrees with its twin at SSL "
+                             f"shapes, or the calls are not {expect_fwd}")
+
+    phase("SSL iteration: kernel path against plain path (pinned)")
+    # the teacher boxes pinned as in the teacher phase; the clean 2D boxes
+    # made from the student's own projected boxes so that the consistency
+    # branch pairs them; every path on the kernel path's proposals
+    tea = batch["unlab"]["tea"]
+    with torch.no_grad():
+        t3 = model._det3d_teacher_boxes(tea)
+        t2_pin = matching_2d_boxes(t3, tea, u, 100,
+                                   model.cfg.score_filter_3d)
+    model._det3d_teacher_boxes = lambda view: t3
+    model._det2d_teacher_boxes = lambda view, nms_cfg: t2_pin
+    res = {}
+    for path, ops in (("kernel", KERNELS), ("plain", PLAIN)):
+        model.ops = ops
+        res[path] = teacher_step(model, batch)
+    model.ops = KERNELS
+    del model._det3d_teacher_boxes, model._det2d_teacher_boxes
+    ok = True
+    for k in ("m3d_stu", "m2d_stu", "m2d_clean"):
+        ok &= compare_boxsets(f"pseudo-labels {k}", res["kernel"][k],
+                              res["plain"][k])
+    pseudo = res["kernel"]
+    if not ok or int(pseudo["m3d_stu"]["valid"].sum()) == 0:
+        raise AssertionError("the teacher phase on pinned boxes disagrees "
+                             "or leaves no 3D pseudo-label")
+    m = copy.deepcopy(model).train()
+    clean, pinned = student_2d_pins(m, batch, pseudo, gen())
+    del m
+    from detmatch_tpu_torch.ssl import modules
+    pseudo = dict(pseudo, m2d_clean=clean, m2d_stu=modules.transform_2d(
+        clean, u["aug2d"], reverse=False))
+    kept2d = (pseudo["m2d_stu"]["valid"]
+              & (pseudo["m2d_stu"]["scores"].amax(-1)
+                 > model.cfg.pseudo_score_thr_2d)).sum(1)
+    print(f"  pinned: 3D pseudo-labels per frame "
+          f"{pseudo['m3d_stu']['valid'].sum(1).tolist()}, clean 2D boxes "
+          f"from the student's own {clean['valid'].sum(1).tolist()}, 2D "
+          f"pseudo-labels kept {kept2d.tolist()}")
+
+    def conv_plain_backward(feats, keys, nkeys, out_keys, w, band):
+        twin = window_key_conv_plain(feats, keys, nkeys, out_keys, w, band)
+        with torch.no_grad():
+            kern = KERNELS.window_key_conv_batched(feats, keys, nkeys,
+                                                   out_keys, w, band)
+        return kern + (twin - twin.detach())  # kern's values, twin's grad
+
+    own_layer = pvrcnn_mod.proposal_layer
+    pvrcnn_mod.proposal_layer = lambda *a, **kw: pinned
+    res = {}
+    try:
+        for path, ops in (
+                ("kernel", KERNELS), ("plain", PLAIN),
+                ("plain backward",
+                 PLAIN._replace(window_key_conv_batched=conv_plain_backward)),
+                ("kernel again", KERNELS)):
+            m = copy.deepcopy(model).train()
+            m.ops = ops
+            k4 = []
+            if path == "kernel":
+                m.ops = recording(KERNELS, k4)  # to keep K4's two calls
+            total, logs = m.student_losses_3d_concat(batch, pseudo, 0, gen())
+            total.backward()
+            bufs = {n: b.clone() for n, b in
+                    m.student["det3d"].named_buffers()
+                    if n.endswith(("running_mean", "running_var"))}
+            res[path] = (dict({k: float(v.detach()) for k, v in
+                               logs.items()}, loss=float(total.detach())),
+                         grads_of(m.student["det3d"]), bufs)
+            if path == "kernel":
+                k4_calls = [c for c in k4 if c[0] == "solve_masked_batched"]
+            del m, total, logs, k4
+    finally:
+        pvrcnn_mod.proposal_layer = own_layer
+    lk, gk, bk = res["kernel"]
+    n_match = lk["metrics.num_2D_to_3D_hung"]
+    print(f"  consistency pairs per frame (metrics.num_2D_to_3D_hung): "
+          f"{n_match}; losses " + ", ".join(
+              f"{k.split('.')[-1]} {lk[k]:.4f}" for k in lk
+              if "2D_to_3D" in k))
+    ok = n_match > 0 and int(kept2d.sum()) > 0
+    ok &= check_kernels(k4_calls, "consistency K4", stats)
+    for path in ("plain", "plain backward"):
+        lp, _, bp = res[path]
+        for k in lp:
+            ok &= report(f"{path}: loss {k} ({lk[k]:.6f})",
+                         abs(lk[k] - lp[k]) / max(abs(lp[k]), 1e-12))
+        ok &= report(f"{path}: BN running statistics (worst)",
+                     max(rel_err(bk[n], bp[n]) for n in bk))
+    for path, gated in (("plain backward", True), ("plain", False),
+                        ("kernel again", False)):
+        worst, where = worst_rel(gk, res[path][1])
+        good = worst <= GRAD_TOL
+        ok &= good or not gated
+        print(f"  {path}: gradients: worst {worst:.3e} of the tensor's "
+              f"largest magnitude ({where}) "
+              + (("ok" if good else "FAIL") if gated else "(information)"))
+    if not ok:
+        raise AssertionError("the SSL iteration disagrees between the kernel "
+                             "and the plain paths, or the consistency branch "
+                             "matched nothing, or no 2D pseudo-label was kept")
+    window_losses = lk
+    del res
+
+    phase("SSL iteration: the four steps on the card, EMA against formula")
+    m = copy.deepcopy(model).train()
+    opts = detmatch_branch_optimizers(m, 0.04, 0.16)
+    l3 = student_3d_step(m, opts[0], batch, pseudo, 0, gen())
+    l2 = student_2d_step(m, opts[1], batch, pseudo, 0, gen())
+    before = {k: v.clone() for k, v in m.teacher.state_dict().items()}
+    ema_step(m, 0)
+    d = ema_decay_at(0, m.cfg).to(DEVICE)
+    s_sd = m.student.state_dict()
+    ema_ok = all(torch.equal(v, before[k] * d + s_sd[k] * (1.0 - d))
+                 for k, v in m.teacher.state_dict().items()
+                 if v.is_floating_point())
+    finite = all(np.isfinite(float(v)) for v in (*l3.values(),
+                                                 *l2.values()))
+    print(f"  3D loss {float(l3['loss']):.4f}, 2D loss "
+          f"{float(l2['loss']):.4f}, finite={finite}; teacher equal to "
+          f"t * {float(d):.6f} + s * (1 - d): {ema_ok}")
+    if not (ema_ok and finite):
+        raise AssertionError("the EMA teacher is not the formula, or a loss "
+                             "is not finite")
+    del m, opts
+
+    phase("SSL iteration: train_ssl, kernel path")
+    m = copy.deepcopy(model)
+    before = {k: v.clone() for k, v in m.state_dict().items()}
+
+    def batches():
+        while True:
+            yield batch_np
+
+    cuda_ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    m, _, hist = train_ssl(m, spec, batches(), ROOT / "build" / "ssl_smoke",
+                           SSL_ITERS, log_interval=1, seed=SEED)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = cuda_ops.launch_counts()
+    print(f"launches in train_ssl ({SSL_ITERS} iterations): {launches}; per "
+          f"iteration expected {SSL_LAUNCHES}")
+    print(f"  {SSL_ITERS} iterations in {wall:.3f} s wall; losses "
+          + " ".join(f"{h['loss']:.4f}" for h in hist)
+          + "; consistency pairs "
+          + " ".join(f"{h['metrics.num_2D_to_3D_hung']:.2f}" for h in hist))
+    sd = m.state_dict()
+    moved = {half: sum(not torch.equal(v, before[k]) for k, v in sd.items()
+                       if k.startswith(half) and v.is_floating_point())
+             for half in ("student.", "teacher.")}
+    finite = all(np.isfinite(v) for h in hist for v in h.values())
+    print(f"  finite={finite}; tensors moved: {moved}")
+    if (any(launches[n] != SSL_ITERS * c for n, c in SSL_LAUNCHES.items())
+            or launches["key_conv_batched"] or not finite
+            or min(moved.values()) == 0):
+        raise AssertionError("train_ssl: a kernel was not launched as "
+                             "expected, a loss is not finite, or the student "
+                             "or teacher did not move")
+    ssl_launches = launches
+    del m, before, sd
+
+    phase("SSL iteration: key-compare conv (K5) path")
+    cfg_key = copy.deepcopy(cfg)
+    det3d = cfg_key["model"]["detector_3d"]
+    det3d["backbone3d_cfg"] = dict(det3d.get("backbone3d_cfg") or {},
+                                   conv_impl="key")
+    key_model = build_ssl(cfg_key)
+    key_model.load_state_dict(model.state_dict())
+    m = copy.deepcopy(key_model).train()
+    kcalls = []
+    m.ops = recording(KERNELS, kcalls)
+    with torch.no_grad():
+        key_pseudo = teacher_step(m, batch)
+        m.student_losses_3d_concat(batch, key_pseudo, 0, gen())
+    del m
+    kcalls = [c for c in kcalls if c[0] == "key_conv_batched"]
+    ok = len(kcalls) == 24
+    st = stats.setdefault("key_conv_bwd", dict(max_abs_err=0.0, cases=0))
+    with torch.no_grad():
+        ok &= check_kernels(kcalls, "key path", stats)
+        g = gen()
+        key_bwd = []
+        for i, (_, args, _, need) in enumerate(kcalls):
+            if args[0].shape[0] != 2 * SSL_B:
+                continue
+            feats, keys, nkeys, w, band = args
+            dout = torch.randn(feats.shape[0], nkeys.shape[1], w.shape[-1],
+                               generator=g, device=DEVICE)
+            s_k = kc.key_conv_bwd(dout, keys, nkeys)
+            s_p = kc.key_scatter_plain(dout, keys, nkeys)
+            torch.cuda.synchronize()
+            exact = torch.equal(s_k, s_p)
+            st["cases"] += 1
+            st["max_abs_err"] = max(st["max_abs_err"],
+                                    float((s_k - s_p).abs().max()))
+            ok &= exact
+            print(f"  key path key_conv_bwd[{i}] S exact={exact} S "
+                  f"{tuple(s_k.shape)} nonzero rows "
+                  f"{int(s_k.abs().amax(-1).gt(0).sum())} "
+                  f"{'ok' if exact else 'FAIL'}")
+            key_bwd.append(((dout, keys, nkeys), need))
+            del s_k, s_p
+    if not ok or len(key_bwd) != 12:
+        raise AssertionError("K5 disagrees with its twin, or its calls are "
+                             "not 24 per iteration")
+    m = copy.deepcopy(key_model).train()
+    opts = detmatch_branch_optimizers(m, 0.04, 0.16)
+    cuda_ops.reset_launch_counts()
+    kp = teacher_step(m, batch)
+    student_3d_step(m, opts[0], batch, pseudo, 0, gen())
+    student_2d_step(m, opts[1], batch, pseudo, 0, gen())
+    ema_step(m, 0)
+    torch.cuda.synchronize()
+    key_launches = cuda_ops.launch_counts()
+    print(f"launches in one key-path iteration: {key_launches}; expected "
+          f"{KEY_LAUNCHES}")
+    if any(key_launches[n] != c for n, c in KEY_LAUNCHES.items()):
+        raise AssertionError("the key path did not launch 24 / 12 / 0")
+    del m, opts, kp
+    pvrcnn_mod.proposal_layer = lambda *a, **kw: pinned
+    res = {}
+    try:
+        for path, ops in (("kernel", KERNELS), ("plain", PLAIN)):
+            m = copy.deepcopy(key_model).train()
+            m.ops = ops
+            with torch.no_grad():
+                total, logs = m.student_losses_3d_concat(batch, pseudo, 0,
+                                                         gen())
+            res[path] = dict({k: float(v) for k, v in logs.items()},
+                             loss=float(total))
+            del m
+    finally:
+        pvrcnn_mod.proposal_layer = own_layer
+    ok = True
+    for k, v in res["plain"].items():
+        ok &= report(f"key path, plain: loss {k} ({res['kernel'][k]:.6f})",
+                     abs(res["kernel"][k] - v) / max(abs(v), 1e-12))
+    diff = max(abs(res["kernel"][k] - window_losses[k])
+               / max(abs(window_losses[k]), 1e-12) for k in window_losses)
+    print(f"  key path (bf16 operands) against the fp32 window path, same "
+          f"pins: worst relative loss difference {diff:.3e} (information)")
+    if not ok:
+        raise AssertionError("the key path's kernel and plain losses differ")
+
+    phase(f"SSL iteration: timing (CUDA events) on {card}")
+    with torch.no_grad():
+        per = time_kernels(calls, bwd_cases)
+        key_per = time_kernels(kcalls, [])
+        t = key_per.setdefault("key_conv_bwd", dict(ms=0.0, plain_ms=0.0))
+        for (dout, keys, nkeys), _ in key_bwd:
+            t["ms"] += cuda_ms(lambda: kc.key_conv_bwd(dout, keys, nkeys),
+                               reps=5)
+            t["plain_ms"] += cuda_ms(
+                lambda: kc.key_scatter_plain(dout, keys, nkeys), reps=2)
+            add_bound(t, *work("key_conv_bwd", (dout, keys, nkeys), {}))
+    per.update(key_per)
+    jv = [(c[1][0].shape[-1], int((c[1][1]).sum())) for c in calls
+          if c[0] == "solve_masked_batched"]
+    del calls, bwd_cases, kcalls, key_bwd, k4_calls
+    for label, mdl in (("window", model), ("key", key_model)):
+        m = copy.deepcopy(mdl).train()
+        opts = detmatch_branch_optimizers(m, 0.04, 0.16)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated() / 2 ** 30
+        torch.cuda.reset_peak_memory_stats()
+        split = iteration_split(m, batch_np, spec, opts, gen(),
+                                reps=2 if label == "window" else 1)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        it_ms = split.pop("iteration")
+        print(f"  {label} path: {it_ms:.3f} ms/iteration = "
+              f"{1000.0 / it_ms:.4f} iterations/s = "
+              f"{1000.0 * 2 * SSL_B / it_ms:.4f} samples/s, peak memory "
+              f"{peak:.3f} GiB ({resident:.3f} GiB resident before the "
+              f"iteration: this script's models, batch and pins) [{card}]")
+        print("    split: " + ", ".join(f"{k} {v:.3f} ms"
+                                        for k, v in split.items())
+              + f" [{card}]")
+        del m, opts
+    for name, c in SSL_LAUNCHES.items():
+        per[name]["launches"] = ssl_launches[name]
+        print(f"  {name}: {describe(per[name])} per SSL iteration, {c} calls "
+              f"[{card}]")
+    for name in ("key_conv_batched", "key_conv_bwd"):
+        per[name]["launches"] = key_launches[name]
+        print(f"  {name}: {describe(per[name])} per SSL iteration, "
+              f"{KEY_LAUNCHES[name]} calls [{card}]")
+    print(f"  K5 against K1 per iteration: forward "
+          f"{per['key_conv_batched']['ms']:.3f} vs "
+          f"{per['window_key_conv_batched']['ms']:.3f} ms; backward kernel "
+          f"(S only; dF and dW are fp32 matmuls outside it) "
+          f"{per['key_conv_bwd']['ms']:.3f} vs "
+          f"{per['window_key_conv_bwd']['ms']:.3f} ms [{card}]")
+    print(f"  solve_masked_batched: {len(jv)} calls per iteration (K, valid "
+          f"rows: fusion {jv[0]}, consistency {jv[-1]}), "
+          f"{per['solve_masked_batched']['ms']:.3f} ms together [{card}]")
+    return per
 
 
 def main():

@@ -1,6 +1,6 @@
 """Box coders (counterpart of ``detmatch_tpu/core/coders.py``): the 7-dof
 residual coder that PV-RCNN uses, the 2D delta coder of Faster R-CNN
-(decode only) and the xyxy / cxcywh conversions."""
+and the xyxy / cxcywh conversions."""
 from __future__ import annotations
 
 import numpy as np
@@ -43,15 +43,34 @@ class ResidualCoder:
 
 
 class DeltaXYWHCoder:
-    """mmdet ``DeltaXYWHBBoxCoder`` decode: xyxy boxes + (dx, dy, dw, dh)
-    deltas, de-normalised by ``target_stds``/``target_means``, the log
-    sizes clamped at ``|log(wh_ratio_clip)|``."""
+    """mmdet ``DeltaXYWHBBoxCoder``: xyxy boxes ↔ (dx, dy, dw, dh) deltas,
+    normalised by ``target_means``/``target_stds``; decoding clamps the
+    log sizes at ``|log(wh_ratio_clip)|``."""
 
     def __init__(self, target_means=(0., 0., 0., 0.),
                  target_stds=(1., 1., 1., 1.), wh_ratio_clip=16 / 1000):
         self.means = np.asarray(target_means, np.float32)
         self.stds = np.asarray(target_stds, np.float32)
         self.wh_ratio_clip = wh_ratio_clip
+
+    def encode(self, proposals, gt):
+        """proposals, gt (..., 4) xyxy → (..., 4) deltas; widths and
+        heights clamped at 1e-6."""
+        px = (proposals[..., 0] + proposals[..., 2]) * 0.5
+        py = (proposals[..., 1] + proposals[..., 3]) * 0.5
+        pw = torch.clamp(proposals[..., 2] - proposals[..., 0], min=1e-6)
+        ph = torch.clamp(proposals[..., 3] - proposals[..., 1], min=1e-6)
+        gx = (gt[..., 0] + gt[..., 2]) * 0.5
+        gy = (gt[..., 1] + gt[..., 3]) * 0.5
+        gw = gt[..., 2] - gt[..., 0]
+        gh = gt[..., 3] - gt[..., 1]
+        deltas = torch.stack([(gx - px) / pw, (gy - py) / ph,
+                              torch.log(torch.clamp(gw, min=1e-6) / pw),
+                              torch.log(torch.clamp(gh, min=1e-6) / ph)],
+                             dim=-1)
+        means = torch.as_tensor(self.means, device=deltas.device)
+        stds = torch.as_tensor(self.stds, device=deltas.device)
+        return (deltas - means) / stds
 
     def decode(self, proposals, deltas, max_shape=None):
         """proposals, deltas (..., 4) → (..., 4) xyxy, clipped to

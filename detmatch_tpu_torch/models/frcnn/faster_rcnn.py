@@ -1,11 +1,15 @@
-"""Faster R-CNN R50-FPN, the 2D detector of DetMatch, in eval mode
-(counterpart of ``detmatch_tpu/models/frcnn/faster_rcnn.py``).
+"""Faster R-CNN R50-FPN, the 2D detector of DetMatch (counterpart of
+``detmatch_tpu/models/frcnn/faster_rcnn.py``).
 
 Images are NCHW on a fixed padded canvas, caffe-normalised by the data
 layer; ``img_shapes`` (B, 2) gives each image's true (h, w) for
 clipping. Test path: 1,000 RPN proposals → RoIAlign → two shared FCs →
 sigmoid scores over C + 1 channels → (optionally) multiclass NMS that
-keeps full score rows. Module names follow mmdet's state dict
+keeps full score rows. Train path: 2,000 / 1,000 RPN proposals
+(detached: RoIAlign backpropagates to the features only) → RPN loss on
+256 sampled anchors + RoI loss on 512 sampled proposals. The model has
+no train-mode layers (its batch norms are frozen), so ``train`` only
+picks the proposal sizes. Module names follow mmdet's state dict
 (``backbone``, ``neck``, ``rpn_head``, ``roi_head.bbox_head``).
 """
 from __future__ import annotations
@@ -18,8 +22,9 @@ from torch import nn
 
 from ...ops.roialign import multilevel_roi_align
 from .resnet import FPN, ResNet50
-from .roi_head2d import Shared2FCBBoxHead, decode_rcnn, multiclass_nms_2d
-from .rpn import RPNHead, grid_anchors, rpn_proposals
+from .roi_head2d import (Shared2FCBBoxHead, decode_rcnn, multiclass_nms_2d,
+                         rcnn_loss, sample_rcnn_targets)
+from .rpn import RPNHead, grid_anchors, rpn_loss, rpn_proposals
 
 STRIDES = (4, 8, 16, 32, 64)
 
@@ -41,13 +46,13 @@ class FasterRCNN(nn.Module):
                  rcnn_num_samples: int = 512,
                  backbone_cfg: Dict = None):
         super().__init__()
-        # the training sizes are the JAX model's keywords; training is not
-        # ported, so they are kept for the config's sake only
-        del train_rpn_nms_pre, train_rpn_max, rcnn_num_samples
         self.num_classes = num_classes
         self.canvas = tuple(canvas)
+        self.train_rpn_nms_pre = train_rpn_nms_pre
+        self.train_rpn_max = train_rpn_max
         self.test_rpn_nms_pre = test_rpn_nms_pre
         self.test_rpn_max = test_rpn_max
+        self.rcnn_num_samples = rcnn_num_samples
         self.backbone = ResNet50(**(backbone_cfg or {}))
         self.neck = FPN()
         self.rpn_head = RPNHead()
@@ -66,8 +71,8 @@ class FasterRCNN(nn.Module):
     def extract_feat(self, images):
         return self.neck(self.backbone(images))
 
-    def forward(self, images, img_shapes):
-        """Features and eval-mode proposals.
+    def forward(self, images, img_shapes, train=False):
+        """Features and proposals (the train sizes if ``train``).
 
         Args:
             images: (B, 3, H, W) float32 on the canvas; img_shapes: (B, 2)
@@ -79,25 +84,56 @@ class FasterRCNN(nn.Module):
         """
         feats = self.extract_feat(images)
         rpn_outs = self.rpn_head(feats)
+        nms_pre = self.train_rpn_nms_pre if train else self.test_rpn_nms_pre
+        max_img = self.train_rpn_max if train else self.test_rpn_max
         props, scores = [], []
-        for b in range(images.shape[0]):
-            p, s = rpn_proposals([(c[b], r[b]) for c, r in rpn_outs],
-                                 self.anchors, img_shapes[b],
-                                 self.test_rpn_nms_pre, self.test_rpn_max)
-            props.append(p)
-            scores.append(s)
+        # proposals are RoI coordinates, not a prediction to differentiate
+        with torch.no_grad():
+            for b in range(images.shape[0]):
+                p, s = rpn_proposals([(c[b], r[b]) for c, r in rpn_outs],
+                                     self.anchors, img_shapes[b], nms_pre,
+                                     max_img)
+                props.append(p)
+                scores.append(s)
         return dict(feats=feats, rpn_outs=rpn_outs,
                     proposals=torch.stack(props),
                     proposal_scores=torch.stack(scores))
 
     def roi_forward(self, feats, rois_batched):
-        """(B, R, 4) rois → (cls (B, R, C+1), reg (B, R, 4C))."""
+        """(B, R, 4) rois → (cls (B, R, C+1), reg (B, R, 4C)); gradients
+        reach the features, never the rois."""
         b, r = rois_batched.shape[:2]
+        rois_batched = rois_batched.detach()
         pooled = torch.cat([
             multilevel_roi_align([f[i] for f in feats[:4]], rois_batched[i],
                                  strides=STRIDES[:4]) for i in range(b)])
         cls, reg = self.roi_head.bbox_head(pooled)
         return cls.reshape(b, r, -1), reg.reshape(b, r, -1)
+
+    def loss(self, generator, fwd, gt_boxes, gt_labels, gt_valid):
+        """Training losses (RPN + RoI) of a ``forward(train=True)``.
+
+        Args:
+            generator: the ``torch.Generator`` the samplers draw from
+                (the RPN's images in order, then the RoI head's).
+            gt_boxes: (B, G, 4); gt_labels: (B, G) 0-based; gt_valid:
+                (B, G).
+        Returns:
+            dict(loss_rpn_cls, loss_rpn_bbox, loss_cls, loss_bbox).
+        """
+        out = rpn_loss(generator, fwd["rpn_outs"], self.anchors, gt_boxes,
+                       gt_valid)
+        per = [sample_rcnn_targets(generator, p, s > -1e9, gb, gl, gv,
+                                   num=self.rcnn_num_samples)
+               for p, s, gb, gl, gv in zip(fwd["proposals"],
+                                           fwd["proposal_scores"], gt_boxes,
+                                           gt_labels, gt_valid)]
+        targets = {k: torch.stack([t[k] for t in per]) for k in per[0]}
+        cls_logits, reg_preds = self.roi_forward(fwd["feats"],
+                                                 targets["rois"])
+        out.update(rcnn_loss(cls_logits, reg_preds, targets,
+                             num_classes=self.num_classes))
+        return out
 
     def simple_test(self, images, img_shapes, score_thr=0.05, iou_thr=0.5,
                     max_per_img=100, with_nms=True):

@@ -96,9 +96,13 @@ class ResNet50(nn.Module):
     def forward(self, x):
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
+        if self.frozen_stages >= 0:
+            x = x.detach()
         outs = []
         for stage in range(self.num_stages):
             x = getattr(self, f"layer{stage + 1}")(x)
+            if self.frozen_stages >= stage + 1:
+                x = x.detach()
             outs.append(x)
         return tuple(outs)
 

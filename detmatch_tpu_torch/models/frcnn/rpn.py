@@ -1,8 +1,15 @@
-"""RPN head, anchors and proposals, the inference half (counterpart of
-``detmatch_tpu/models/frcnn/rpn.py``; mmdet ``RPNHead``): anchor scale 8,
-ratios (0.5, 1, 2), strides 4-64; proposals are each level's top
-``nms_pre`` anchors, decoded, then a level-aware NMS at IoU 0.7 keeps
-``max_per_img``.
+"""RPN head, anchors, proposals and the training targets and loss
+(counterpart of ``detmatch_tpu/models/frcnn/rpn.py``; mmdet ``RPNHead``,
+``MaxIoUAssigner``, ``RandomSampler``): anchor scale 8, ratios
+(0.5, 1, 2), strides 4-64; proposals are each level's top ``nms_pre``
+anchors, decoded, then a level-aware NMS at IoU 0.7 keeps
+``max_per_img``. Training assigns anchors at IoU 0.7 / 0.3 with
+low-quality matches, samples 256 anchors (half positive at most) and
+takes sigmoid BCE on their objectness and L1 on the positives' deltas.
+
+Sampling draws its random numbers through :func:`sample_uniforms` from a
+``torch.Generator``; the tests replace that function to hand over the
+JAX package's draws.
 """
 from __future__ import annotations
 
@@ -11,7 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...core import nms as nms_mod
+from ...core import iou as iou_mod, losses, nms as nms_mod
 from ...core.coders import DeltaXYWHCoder
 
 
@@ -94,3 +101,97 @@ def rpn_proposals(rpn_outs, anchors_per_level, img_shape, nms_pre,
     props = torch.where(valid[:, None], boxes[idx], 0.0)
     pscores = torch.where(valid, scores[idx], nms_mod.NEG_INF)
     return props, pscores
+
+
+def max_iou_assign(boxes, valid, gt_boxes, gt_valid, pos_thr, neg_thr,
+                   min_pos_iou, match_low_quality):
+    """mmdet ``MaxIoUAssigner``, vectorised, on IoUs snapped to a 2^-20
+    grid (``iou.quantize``) so that the force-match ``==`` and the argmax
+    ties do not depend on last-ulp noise.
+
+    Args:
+        boxes: (N, 4) xyxy; valid: (N,); gt_boxes: (G, 4); gt_valid: (G,).
+    Returns:
+        (assigned (N,) int64: -1 ignore / 0 background / 1-based gt,
+        max_iou (N,), argmax (N,)).
+    """
+    ious = iou_mod.quantize(iou_mod.iou2d(boxes, gt_boxes))
+    ious = torch.where(gt_valid[None, :], ious, -1.0)
+    ious = torch.where(valid[:, None], ious, -1.0)
+    max_iou = ious.amax(1)
+    argmax = torch.argmax(ious, 1)
+    assigned = torch.full_like(argmax, -1)
+    assigned = torch.where((max_iou >= 0) & (max_iou < neg_thr), 0, assigned)
+    assigned = torch.where(max_iou >= pos_thr, argmax + 1, assigned)
+    if match_low_quality:
+        gt_max = ious.amax(0)
+        force = ((ious == gt_max[None, :]) & (gt_max[None, :] >= min_pos_iou)
+                 & gt_valid[None, :])
+        force_gt = torch.argmax(force.to(torch.uint8), 1)
+        assigned = torch.where(force.any(1), force_gt + 1, assigned)
+    return torch.where(valid, assigned, -1), max_iou, argmax
+
+
+def sample_uniforms(generator, n, device):
+    """The two (n,) uniform draws of one :func:`random_sample` call."""
+    return (torch.rand(n, generator=generator, device=device),
+            torch.rand(n, generator=generator, device=device))
+
+
+def random_sample(generator, assigned, num, pos_fraction):
+    """mmdet ``RandomSampler`` without replacement, static shape: up to
+    ``num * pos_fraction`` positives in a random order, then negatives.
+
+    Returns:
+        (idx (num,) int64, is_pos (num,), slot_valid (num,)).
+    """
+    n = assigned.shape[0]
+    dev = assigned.device
+    r1, r2 = sample_uniforms(generator, n, dev)
+    pos_mask, neg_mask = assigned > 0, assigned == 0
+    pos_order = torch.argsort(torch.where(pos_mask, r1, 2.0), stable=True)
+    neg_order = torch.argsort(torch.where(neg_mask, r2, 2.0), stable=True)
+    pos_take = torch.clamp(pos_mask.sum(), max=int(num * pos_fraction))
+    neg_take = torch.minimum(num - pos_take, neg_mask.sum())
+    slots = torch.arange(num, device=dev)
+    is_pos = slots < pos_take
+    idx = torch.where(is_pos, pos_order[torch.clamp(slots, max=n - 1)],
+                      neg_order[torch.clamp(slots - pos_take, 0, n - 1)])
+    slot_valid = slots < pos_take + neg_take
+    return idx, is_pos & slot_valid, slot_valid
+
+
+def rpn_loss(generator, rpn_outs, anchors_per_level, gt_boxes, gt_valid,
+             num_samples=256, pos_fraction=0.5):
+    """RPN training loss of a batch: per image, sigmoid BCE over the
+    sampled anchors and L1 over the positives' deltas, both divided by
+    the sample count; then the batch mean.
+
+    Args:
+        rpn_outs: per level (cls (B, H, W, A), reg (B, H, W, 4A)).
+        gt_boxes: (B, G, 4); gt_valid: (B, G).
+    """
+    coder = DeltaXYWHCoder()
+    b = gt_boxes.shape[0]
+    cls_flat = torch.cat([c.reshape(b, -1) for c, _ in rpn_outs], 1)
+    reg_flat = torch.cat([r.reshape(b, -1, 4) for _, r in rpn_outs], 1)
+    anchors = torch.cat(list(anchors_per_level), 0)
+    valid = torch.ones(anchors.shape[0], dtype=torch.bool,
+                       device=anchors.device)
+    cls_losses, reg_losses = [], []
+    for cls, reg, gb, gv in zip(cls_flat, reg_flat, gt_boxes, gt_valid):
+        with torch.no_grad():
+            assigned, _, _ = max_iou_assign(anchors, valid, gb, gv, 0.7, 0.3,
+                                            0.3, True)
+            idx, is_pos, slot_valid = random_sample(
+                generator, assigned, num_samples, pos_fraction)
+            gt_idx = torch.clamp(assigned[idx] - 1, 0, gb.shape[0] - 1)
+            reg_t = coder.encode(anchors[idx], gb[gt_idx])
+        n_total = torch.clamp(slot_valid.sum().to(torch.float32), min=1.0)
+        cls_l = losses.sigmoid_ce_with_logits(cls[idx],
+                                              is_pos.to(torch.float32))
+        cls_losses.append((cls_l * slot_valid).sum() / n_total)
+        reg_l = (reg[idx] - reg_t).abs().sum(-1)
+        reg_losses.append((reg_l * is_pos).sum() / n_total)
+    return dict(loss_rpn_cls=torch.stack(cls_losses).mean(),
+                loss_rpn_bbox=torch.stack(reg_losses).mean())

@@ -4,8 +4,11 @@
 
 SubM(4→16) → [SparseConv s2 + 2×SubM] ×3 (16→32→64→64) → SparseConv
 (3,1,1)/(2,1,1) z-compression to 128 ch. Each level is a fixed-capacity
-sparse buffer with sorted keys; every conv runs through the sparse-conv
-op of the given ``ops.cuda.Ops`` (the CUDA kernel by default).
+sparse buffer with sorted keys; every conv runs through a sparse-conv op
+of the given ``ops.cuda.Ops`` (the CUDA kernels by default): the fp32
+windowed conv (``conv_impl="window"``, kernel K1) or the bf16-operand
+key-compare conv (``conv_impl="key"``, kernel K5), the counterparts of
+the JAX ``conv_impl`` values ``"pallas_window"`` and ``"pallas_key"``.
 Parameter names and the spconv 1.x weight layout (kz, ky, kx, Cin, Cout)
 follow pcdet, e.g. ``conv2.0.0.weight``.
 """
@@ -56,11 +59,18 @@ def level_shapes(spatial_shape):
     return s1, s2, s3, s4, s_out
 
 
+CONV_IMPLS = ("window", "key")
+
+
 class VoxelBackbone8x(nn.Module):
     def __init__(self, spatial_shape, input_channels=4,
                  channels=(16, 16, 32, 64, 64), out_channels=128,
-                 caps=(24000, 16000, 10000, 10000)):
+                 caps=(24000, 16000, 10000, 10000), conv_impl="window"):
         super().__init__()
+        if conv_impl not in CONV_IMPLS:
+            raise ValueError(f"conv_impl must be one of {CONV_IMPLS}, got "
+                             f"{conv_impl!r}")
+        self.conv_impl = conv_impl
         self.spatial_shape = tuple(spatial_shape)
         self.caps = tuple(caps)
         c1, c1b, c2, c3, c4 = channels
@@ -76,12 +86,15 @@ class VoxelBackbone8x(nn.Module):
                                     _block(c4, c4, 3)])
         self.conv_out = _block(c4, out_channels, (3, 1, 1))
 
-    @staticmethod
-    def _conv(block, ops, feats, keys, nkeys, out_keys, shape_in, mask):
+    def _conv(self, block, ops, feats, keys, nkeys, out_keys, shape_in,
+              mask):
         conv, bn = block
         band = int(np.prod(shape_in)) + 1
-        out = ops.window_key_conv_batched(feats, keys, nkeys, out_keys,
-                                          conv.taps(), band)
+        if self.conv_impl == "key":
+            out = ops.key_conv_batched(feats, keys, nkeys, conv.taps(), band)
+        else:
+            out = ops.window_key_conv_batched(feats, keys, nkeys, out_keys,
+                                              conv.taps(), band)
         return torch.relu(masked_bn(bn, out, mask))
 
     def _down(self, block, ops, feats, keys, shape_in, kernel, stride,

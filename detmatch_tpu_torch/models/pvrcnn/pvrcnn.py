@@ -24,7 +24,7 @@ from .anchor_head import AnchorHeadSingle
 from .backbone3d import VoxelBackbone8x, level_shapes
 from .bev import BaseBEVBackbone, height_compression
 from .point_head import PointHeadSimple
-from .roi_head import PVRCNNHead, proposal_layer
+from .roi_head import PVRCNNHead, proposal_layer, roi_head_loss_terms
 from .vsa import VoxelSetAbstraction
 
 # DetMatch PV-RCNN anchor config (``split_0.py:132-160``)
@@ -175,6 +175,39 @@ class PVRCNN(nn.Module):
         losses["loss"] = sum(losses.values())
         return losses
 
+    def loss_grouped(self, out, batch, groups):
+        """Training loss of a concatenated batch, regrouped by sub-batch:
+        for each ``name -> (mask (B,) bool, weight)`` the terms over the
+        masked samples are normalised as a forward over those samples
+        alone would normalise them (per-sample means for the anchor head,
+        the group's positive counts for the point and RoI heads).
+
+        Returns:
+            ``{f"{name}.{term}": scalar, ..., "loss": weighted total}``.
+        """
+        gt = batch["gt_boxes"]
+        rpn_per = self.dense_head.loss_per_sample(
+            out["head_preds"], self.dense_head.targets(gt))
+        pt_numer, pt_pos = PointHeadSimple.loss_terms(
+            out["point_logits"], self.point_head.targets(
+                out["keypoints"], out["kp_valid"], gt))
+        rcnn_terms = roi_head_loss_terms(out["rcnn_cls"], out["rcnn_reg"],
+                                         out["roi_targets"])
+        result, total = {}, 0.0
+        for name, (mask, weight) in groups.items():
+            m = mask.to(torch.float32)
+            cnt = torch.clamp(m.sum(), min=1.0)
+            sub = {k: (v * m).sum() / cnt for k, v in rpn_per.items()}
+            sub["point_loss_cls"] = ((pt_numer * m).sum()
+                                     / torch.clamp((pt_pos * m).sum(),
+                                                   min=1.0))
+            for k, (nu, de) in rcnn_terms.items():
+                sub[k] = (nu * m).sum() / torch.clamp((de * m).sum(), min=1.0)
+            result.update({f"{name}.{k}": v for k, v in sub.items()})
+            total = total + weight * sum(sub.values())
+        result["loss"] = total
+        return result
+
 
 def post_processing(out, nms_pre=4096, nms_post=500, nms_thresh=0.1,
                     score_thresh=0.1):
@@ -195,7 +228,8 @@ def post_processing(out, nms_pre=4096, nms_post=500, nms_thresh=0.1,
         k = min(nms_pre, masked.shape[0])
         top_s, top_i = torch.sort(masked, descending=True, stable=True)
         top_s, top_i = top_s[:k], top_i[:k]
-        idx, valid = nms_mod.nms_bev(b[top_i], top_s, nms_thresh, nms_post)
+        idx, valid = nms_mod.nms_bev(b[top_i].detach(), top_s.detach(),
+                                     nms_thresh, nms_post)
         sel = top_i[idx.long()]
         res["boxes"].append(torch.where(valid[:, None], b[sel], 0.0))
         res["scores"].append(torch.where(valid, s[sel], 0.0))

@@ -155,7 +155,11 @@ def sample_rois_single(generator, rois, roi_labels, roi_scores, roi_full,
     slots = torch.arange(n_sample, device=rois.device)
     is_fg_slot = slots < fg_take
     is_hard_slot = (slots >= fg_take) & (slots < fg_take + hard_take)
-    fg_sel = torch.where(slots < n_fg, fg_idx, fg_rep_idx)
+    # fewer proposals than slots: index past the end clamps, as JAX's
+    # gather does
+    fg_sel = torch.where(slots < n_fg,
+                         fg_idx[torch.clamp(slots, max=len(fg_idx) - 1)],
+                         fg_rep_idx)
     sel = torch.where(is_fg_slot, fg_sel,
                       torch.where(is_hard_slot, hard_idx, easy_idx))
     slot_valid = (n_fg + n_bg) > 0

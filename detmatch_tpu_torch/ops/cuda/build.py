@@ -1,8 +1,9 @@
 """Builds and binds the port's CUDA kernels.
 
-``detmatch_tpu_torch/csrc/*.cu`` compile with ``nvcc`` for ``sm_90a``
-into one shared library with a plain C interface under ``build/kernels/``
-at the repository root, named by a hash of the sources and flags, so an
+``detmatch_tpu_torch/csrc/*.cu`` compile with ``nvcc`` for ``sm_90a``, one
+process per source, all started together, and link into one shared
+library with a plain C interface under ``build/kernels/`` at the
+repository root, named by a hash of the sources and flags, so an
 unchanged tree never rebuilds. The library is loaded with ``ctypes``:
 pointers and the stream pass as ``c_void_p``, and every launch function
 returns a ``cudaError_t`` that :func:`check` raises on.
@@ -27,8 +28,10 @@ import torch
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v", "-c")
+LINK_FLAGS = (*ARCH, "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,6 +46,8 @@ SIGNATURES = {
     "dm_window_key_conv_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                _I, _I, _I, _I, _I, _I, _I, _P),
     "dm_hungarian_jv": (_P, _P, _P, _I, _I, _P),
+    "dm_key_conv_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "dm_key_conv_bwd_scatter": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 
@@ -67,7 +72,7 @@ def _nvcc():
 
 
 def library_path():
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -75,25 +80,49 @@ def library_path():
 
 
 def build() -> BuildResult:
-    """Compile ``csrc/*.cu`` unless the library for these sources exists."""
+    """Compile ``csrc/*.cu`` unless the library for these sources exists:
+    every source in its own ``nvcc`` process, all at once, then one
+    link."""
     lib = library_path()
     log_path = lib.with_suffix(".log")
     if lib.exists():
         log = log_path.read_text() if log_path.exists() else ""
         return BuildResult(lib, 0.0, False, log)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in sorted(CSRC_DIR.glob("*.cu")))]
+    tag = f"{lib.stem}.{os.getpid()}"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True,
-                          cwd=str(CSRC_DIR))
+    jobs = []
+    for src in sorted(CSRC_DIR.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *COMPILE_FLAGS, "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            cwd=str(CSRC_DIR))))
+    logs, failed = [], []
+    for cmd, _, proc in jobs:
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): "
+                          f"{' '.join(cmd)}\n{out}")
+    tmp = lib.with_name(f"{tag}.tmp.so")
+    if not failed:
+        cmd = [nvcc, *LINK_FLAGS, "-o", str(tmp),
+               *(str(obj) for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              cwd=str(CSRC_DIR))
+        logs.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"nvcc link failed ({proc.returncode}): "
+                          f"{' '.join(cmd)}\n{logs[-1]}")
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+        raise RuntimeError("\n".join(failed))
+    log = "".join(logs)
     log_path.write_text(log)
     os.replace(tmp, lib)  # atomic: concurrent builds agree on the file
     return BuildResult(lib, seconds, True, log)

@@ -1,14 +1,16 @@
-"""SSL processors of the teacher phase (counterpart of
-``detmatch_tpu/ssl/modules.py``): box transforms between the teacher and
-student frames, 3D → 2D projection, and the DetMatch fusion Hungarian
-matching, batched and shape-static, with the assignment solved on the
-device by kernel K4.
+"""SSL processors (counterpart of ``detmatch_tpu/ssl/modules.py``): box
+transforms between the teacher and student frames, 3D → 2D projection,
+2D NMS over a BoxSet, the DetMatch fusion Hungarian matching (batched
+and shape-static, the assignment solved on the device by kernel K4) and
+the Hungarian consistency loss.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
-from ..core import geometry, hungarian, losses, transforms
+from ..core import geometry, hungarian, iou as iou_mod, losses, nms as nms_mod
+from ..core import transforms
 from ..core.coders import xyxy_to_cxcywh
 from . import boxset
 
@@ -49,6 +51,29 @@ def boxes_3d_to_2d(bs, lidar2img, ori_shape, min_depth=0.5, min_corners=3):
     valid = bs["valid"] & torch.stack(ok)
     return dict(boxes=torch.where(valid[..., None], torch.stack(out), 0.0),
                 scores=bs["scores"], valid=valid)
+
+
+def nms_2d_boxset(bs, score_thr, iou_thr, max_num):
+    """BboxesNMS_2D on a (possibly projected) 2D BoxSet: class-aware NMS
+    over every (box, class) score above ``score_thr``; the survivors keep
+    their whole score rows, in descending score order. The keeps are
+    found without gradients; the gathered boxes and scores keep theirs."""
+    b, k, c = bs["scores"].shape
+    dev = bs["scores"].device
+    labels = torch.arange(c, dtype=torch.int32, device=dev).repeat(k)
+    rows, oks = [], []
+    with torch.no_grad():
+        for boxes, scores, valid in zip(bs["boxes"], bs["scores"],
+                                        bs["valid"]):
+            flat_scores = scores.reshape(-1)
+            keep = valid.repeat_interleave(c) & (flat_scores > score_thr)
+            idx, ok = nms_mod.batched_nms_2d(
+                boxes.repeat_interleave(c, 0),
+                torch.where(keep, flat_scores, nms_mod.NEG_INF), labels,
+                iou_thr, max_num)
+            rows.append(idx.long() // c)
+            oks.append(ok)
+    return boxset.gather(bs, torch.stack(rows), torch.stack(oks))
 
 
 def _logit(s, eps=1e-6):
@@ -122,3 +147,48 @@ def fusion_hungarian_matching(bs3d, bs2d, lidar2img, ori_shape,
     out3d = boxset.gather(bs3d, order, ok)
     out2d = boxset.gather(bs2d, cols, ok)
     return out3d, out2d, torch.where(ok, mcost.gather(1, order), torch.inf)
+
+
+def hungarian_consistency_loss(bs_in, bs_target, img_shape, cls_w=2.0,
+                               l1_w=20.0, iou_w=2.0, focal_alpha=0.25,
+                               focal_gamma=2.0):
+    """HungarianConsistency: slot-aligned student (projected 3D) boxes
+    toward the teacher's 2D boxes. Focal loss of the student's scores
+    against the teacher's top class, L1 of the boxes normalised by the
+    image size (mean over the 4 coordinates), and 1 - GIoU; each a mean
+    over an image's matched pairs, then a mean over the images with at
+    least one pair.
+
+    Args:
+        img_shape: (B, 2) per-image (h, w) in the student's frame.
+    Returns:
+        dict(cls_loss, l1_loss, iou_loss), already weighted.
+    """
+    pv = (bs_in["valid"] & bs_target["valid"]).to(torch.float32)
+    n_pairs = pv.sum(1)
+    img_has = (n_pairs > 0).to(torch.float32)
+    denom_img = torch.clamp(img_has.sum(), min=1.0)
+    per_pair = torch.clamp(n_pairs, min=1.0)
+
+    def reduce(per_slot):
+        return ((per_slot * pv).sum(1) / per_pair * img_has).sum() / denom_img
+
+    logits = _logit(bs_in["scores"])
+    c = logits.shape[-1]
+    onehot = F.one_hot(torch.argmax(bs_target["scores"], -1), c).to(
+        logits.dtype)
+    p = torch.sigmoid(logits)
+    pt = (1 - p) * onehot + p * (1 - onehot)
+    fw = (focal_alpha * onehot + (1 - focal_alpha) * (1 - onehot)
+          ) * pt ** focal_gamma
+    focal = (losses.sigmoid_ce_with_logits(logits, onehot) * fw).sum(-1)
+
+    hw = img_shape.to(bs_in["boxes"].dtype)
+    factor = torch.stack([hw[:, 1], hw[:, 0], hw[:, 1], hw[:, 0]],
+                         -1)[:, None, :]
+    l1 = (bs_in["boxes"] / factor - bs_target["boxes"] / factor).abs().mean(-1)
+    g = iou_mod.iou2d(bs_in["boxes"].reshape(-1, 4),
+                      bs_target["boxes"].reshape(-1, 4), mode="giou",
+                      aligned=True).reshape(pv.shape)
+    return dict(cls_loss=reduce(focal) * cls_w, l1_loss=reduce(l1) * l1_w,
+                iou_loss=reduce(1.0 - g) * iou_w)

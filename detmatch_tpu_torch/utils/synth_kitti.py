@@ -142,16 +142,18 @@ SSL_LIDAR2IMG = np.array([[0, -700, 0, 6200], [0, 0, -700, 1800],
                           [1, 0, 0, 0], [0, 0, 0, 1]], np.float32)
 
 
-def ssl_view(rng, b, p, canvas):
-    """One unlabeled multimodal view of ``b`` frames as numpy arrays:
-    ``p``-point synthetic scans, a random (B, H, W, 3) image on the
-    ``canvas`` (h, w), KITTI's 375 x 1242 original shape, a fixed
-    lidar-to-image matrix and identity augmentation records (``aug3d`` /
-    ``aug2d`` dicts of the ``Aug3D`` / ``Aug2D`` fields): the JAX
-    benchmark's ``make_view`` without ground truth, the same ``rng``
+def ssl_view(rng, b, p, canvas, with_gt=False):
+    """One multimodal view of ``b`` frames as numpy arrays: ``p``-point
+    synthetic scans, a random (B, H, W, 3) image on the ``canvas``
+    (h, w), KITTI's 375 x 1242 original shape, a fixed lidar-to-image
+    matrix and identity augmentation records (``aug3d`` / ``aug2d`` dicts
+    of the ``Aug3D`` / ``Aug2D`` fields); with ``with_gt`` also a labeled
+    view's 40-slot ground truth (20 valid): 3D boxes (:func:`gt_boxes`),
+    60-pixel 2D boxes, 0-based 2D labels and their validity. The JAX
+    benchmark's ``make_view`` (``benchmarks.py:84-102``): the same ``rng``
     calls in the same order."""
     pts, pvalid = lidar_batch(rng, b, p, SSL_PCR)
-    return dict(
+    view = dict(
         points=pts,
         points_valid=pvalid,
         img=rng.randn(b, *canvas, 3).astype(np.float32),
@@ -167,3 +169,13 @@ def ssl_view(rng, b, p, canvas):
                    flip=np.zeros((b,), np.float32),
                    img_w=np.full((b,), canvas[1], np.float32)),
     )
+    if with_gt:
+        g, n = 40, 20
+        view["gt_boxes"] = gt_boxes(rng, b, g, n)
+        g2 = np.zeros((b, g, 4), np.float32)
+        g2[:, :n, :2] = rng.rand(b, n, 2) * 400
+        g2[:, :n, 2:] = g2[:, :n, :2] + 60
+        view["gt_boxes2d"] = g2
+        view["gt_labels2d"] = rng.randint(0, 3, (b, g)).astype(np.int32)
+        view["gt2d_valid"] = np.arange(g)[None, :].repeat(b, 0) < n
+    return view

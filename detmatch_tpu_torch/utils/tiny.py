@@ -1,9 +1,9 @@
 """Tiny DetMatch fixtures for the CPU tests (a numpy-only copy of
 ``detmatch_tpu/utils/tiny.py``): the smallest PV-RCNN and Faster R-CNN
 configs that still run every branch of the teacher phase, and one
-synthetic multimodal view. The same ``rng`` gives the same view, array
-for array, as the JAX package's ``tiny_view`` (without ``with_gt``:
-training views are not ported)."""
+synthetic multimodal view (with ground truth for a labeled view). The
+same ``rng`` gives the same view, array for array, as the JAX package's
+``tiny_view``."""
 from __future__ import annotations
 
 import numpy as np
@@ -35,16 +35,18 @@ TINY_SPEC = dict(point_cloud_range=TINY_PCR, voxel_size=(0.5, 0.5, 0.1),
                  max_voxels=384, max_points=5)
 
 
-def tiny_view(rng, b=1, p=256):
+def tiny_view(rng, b=1, p=256, with_gt=False):
     """One synthetic view as numpy arrays: points, image (B, H, W, 3),
     calibration and identity augmentation records (``aug3d`` / ``aug2d``
-    dicts of the ``Aug3D`` / ``Aug2D`` fields)."""
+    dicts of the ``Aug3D`` / ``Aug2D`` fields); with ``with_gt`` also
+    6-slot ground truth (3 valid): ``gt_boxes`` (B, 6, 8), ``gt_boxes2d``,
+    ``gt_labels2d`` (0-based) and ``gt2d_valid``."""
     pts = np.stack([
         rng.rand(b, p) * 15 + 0.5, rng.rand(b, p) * 15 - 7.5,
         rng.rand(b, p) * 3.5 - 2.8, rng.rand(b, p)], axis=-1
     ).astype(np.float32)
     canvas = TINY_CANVAS
-    return dict(
+    view = dict(
         points=pts,
         points_valid=np.ones((b, p), bool),
         img=rng.randn(b, *canvas, 3).astype(np.float32),
@@ -64,3 +66,27 @@ def tiny_view(rng, b=1, p=256):
                    flip=np.zeros((b,), np.float32),
                    img_w=np.full((b,), float(canvas[1]), np.float32)),
     )
+    if with_gt:
+        g = 6
+        gt = np.zeros((b, g, 8), np.float32)
+        gt[:, :3, 0] = rng.rand(b, 3) * 12 + 2
+        gt[:, :3, 1] = rng.rand(b, 3) * 10 - 5
+        gt[:, :3, 2] = -1.0
+        gt[:, :3, 3:6] = [3.9, 1.6, 1.56]
+        gt[:, :3, 6] = rng.rand(b, 3) - 0.5
+        gt[:, :3, 7] = rng.randint(1, 4, (b, 3))
+        g2 = np.zeros((b, g, 4), np.float32)
+        g2[:, :3, :2] = rng.rand(b, 3, 2) * 60
+        g2[:, :3, 2:] = g2[:, :3, :2] + 20
+        view.update(gt_boxes=gt, gt_boxes2d=g2,
+                    gt_labels2d=rng.randint(0, 3, (b, g)).astype(np.int32),
+                    gt2d_valid=np.arange(g)[None, :].repeat(b, 0) < 3)
+    return view
+
+
+def tiny_ssl_batch(rng, b=1, p=256):
+    """A full SSL batch: labeled (student view with gt) and unlabeled,
+    student and teacher views (the JAX ``tiny_ssl_batch``)."""
+    return dict(lab=dict(stu=tiny_view(rng, b, p, with_gt=True),
+                         tea=tiny_view(rng, b, p)),
+                unlab=dict(stu=tiny_view(rng, b, p), tea=tiny_view(rng, b, p)))

@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain twins on the card, at edge
 cases the main path does not reach (all-invalid rows, empty balls, empty
 samples, the size limits, argument checks), the sparse conv's backward
-kernel against autograd through its twin, and the JV assignment kernel
-(K4) at sizes and validity patterns the teacher phase does not give it.
+kernel against autograd through its twin, the JV assignment kernel (K4)
+at sizes and validity patterns the teacher phase does not give it, and
+the key-compare conv (K5) forward and backward against their twins.
 
 Needs a CUDA card: every test is marked ``cuda`` and skips without one.
 This file imports no JAX, so it runs where JAX is not installed:
@@ -19,7 +20,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from detmatch_tpu_torch.ops import spconv, voxelize  # noqa: E402
 from detmatch_tpu_torch.ops.cuda import ball_query, fps  # noqa: E402
-from detmatch_tpu_torch.ops.cuda import hungarian  # noqa: E402
+from detmatch_tpu_torch.ops.cuda import hungarian, key_conv  # noqa: E402
 from detmatch_tpu_torch.ops.cuda import window_key_conv  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -240,3 +241,94 @@ def test_hungarian_kernel_checks_its_arguments(dev):
         hungarian.solve_masked_batched(cost.transpose(1, 2), rv)
     with pytest.raises(ValueError):  # not square
         hungarian.solve_masked_batched(cost[:, :, :8].contiguous(), rv)
+
+
+def _dense_conv_case(dev, kind, c, co, all_invalid=False):
+    """B=3 (2,000 / 700 / 0 voxels) in a grid dense enough that most taps
+    find a row; ``all_invalid`` makes every neighbour key INVALID_KEY."""
+    g = torch.Generator().manual_seed(5)
+    shape = (11, 40, 36)
+    n = 2000
+    keys = []
+    for n_valid in (n, 700, 0):
+        kk = torch.randperm(11 * 40 * 36, generator=g)[:n_valid]
+        kk = torch.sort(kk).values.to(torch.int32)
+        pad = torch.full((n - n_valid,), voxelize.INVALID_KEY,
+                         dtype=torch.int32)
+        keys.append(torch.cat([kk, pad]))
+    keys = torch.stack(keys).to(dev)
+    if kind == "subm":
+        nk = spconv.subm_neighbor_keys(keys, shape)
+    else:
+        kernel, stride, pad = (((3, 3, 3), (2, 2, 2), (1, 1, 1))
+                               if kind == "stride2"
+                               else ((3, 1, 1), (2, 1, 1), (0, 0, 0)))
+        shape_out = spconv.output_spatial_shape(shape, kernel, stride, pad)
+        out_keys, _ = spconv.downsample_keys_batched(
+            keys, shape, shape_out, kernel, stride, pad, 1800)
+        nk = spconv.sparse_neighbor_keys(out_keys, shape, shape_out, kernel,
+                                         stride, pad)
+    if all_invalid:
+        nk = torch.full_like(nk, voxelize.INVALID_KEY)
+    feats = torch.randn(3, n, c, generator=g).to(dev)
+    w = torch.randn(nk.shape[-1], c, co, generator=g).to(dev)
+    dout = torch.randn(3, nk.shape[1], co, generator=g).to(dev)
+    return feats, keys, nk.contiguous(), w, dout, 11 * 40 * 36 + 1
+
+
+@pytest.mark.parametrize("kind,c,co,need_dfeats,all_invalid", [
+    ("subm", 4, 16, False, False), ("subm", 16, 16, True, False),
+    ("stride2", 64, 128, True, False), ("z3", 64, 128, True, False),
+    ("stride2", 32, 64, False, False), ("subm", 16, 32, True, True)])
+def test_key_conv_kernels_match_twins(dev, kind, c, co, need_dfeats,
+                                      all_invalid):
+    """K5: the forward within 1e-5 of the twin's largest magnitude, S of
+    the backward kernel equal to the twin's exactly, and dF / dW through
+    the autograd Function within 1e-5; C * Co up to the 8,192 limit, an
+    empty sample, all-INVALID neighbour keys, and the input gradient
+    skipped (one backward launch either way)."""
+    feats, keys, nk, w, dout, band = _dense_conv_case(dev, kind, c, co,
+                                                      all_invalid)
+    out = key_conv.key_conv_batched(feats, keys, nk, w, band)
+    ref = key_conv.key_conv_plain(feats, keys, nk, w, band)
+    scale = float(ref.abs().max())
+    assert float((out - ref).abs().max()) <= 1e-5 * max(scale, 1e-30)
+    assert not out[2].any()
+    if all_invalid:
+        assert scale == 0.0
+    s = key_conv.key_conv_bwd(dout, keys, nk)
+    assert torch.equal(s, key_conv.key_scatter_plain(dout, keys, nk))
+    key_conv.key_conv_bwd.launches = 0
+    got = _key_grads(key_conv.key_conv_batched, feats, keys, nk, w, dout,
+                     band, need_dfeats)
+    torch.cuda.synchronize()
+    assert key_conv.key_conv_bwd.launches == 1
+    want = _key_grads(key_conv.key_conv_plain, feats, keys, nk, w, dout,
+                      band, need_dfeats)
+    for a, r in zip(got, want):
+        err = float((a - r).abs().max())
+        assert err <= 1e-5 * max(float(r.abs().max()), 1e-30), err
+
+
+def _key_grads(fn, feats, keys, nk, w, dout, band, need_dfeats):
+    feats = feats.clone().requires_grad_(need_dfeats)
+    w = w.clone().requires_grad_(True)
+    out = fn(feats, keys, nk, w, band)
+    wrt = (feats, w) if need_dfeats else (w,)
+    return torch.autograd.grad(out, wrt, dout)
+
+
+def test_key_conv_wrappers_check_their_arguments(dev):
+    """The size guard JAX's flattening needs (B * band < 2^31), the
+    kernels' channel limits, and the backward's Co % 4."""
+    feats, keys, nk, w, dout, band = _dense_conv_case(dev, "subm", 16, 16)
+    with pytest.raises(ValueError, match="2\\^31"):
+        key_conv.key_conv_batched(feats, keys, nk, w, 2 ** 30)
+    with pytest.raises(ValueError):  # C = 65 above the kernel's limit
+        key_conv.key_conv_batched(
+            torch.zeros(3, 2000, 65, device=dev), keys, nk,
+            torch.zeros(27, 65, 8, device=dev), band)
+    with pytest.raises(ValueError):  # Co not a multiple of 4
+        key_conv.key_conv_bwd(dout[..., :6].contiguous(), keys, nk)
+    with pytest.raises(TypeError):
+        key_conv.key_conv_bwd(dout.double(), keys, nk)

@@ -7,7 +7,7 @@
   library and numpy;
 * on CPU tensors each kernel wrapper runs its plain twin and leaves its
   launch counter at 0; on any other non-CUDA device it raises, the
-  sparse conv's backward wrapper included;
+  sparse convs' backward wrappers included;
 * no wrapper wraps a launch in ``try``/``except`` (no silent fallback).
 """
 import ast
@@ -117,6 +117,8 @@ def _cpu_inputs():
                                1.0, 4),
         "solve_masked_batched": (torch.rand(2, 6, 6, generator=g),
                                  torch.arange(6).expand(2, -1) < 4),
+        "key_conv_batched": (torch.rand(2, 64, 4, generator=g), keys, nkeys,
+                             torch.rand(3, 4, 8, generator=g), 1000),
     }
 
 
@@ -164,6 +166,17 @@ def test_backward_wrapper_raises_off_cuda():
                 dout.to(dev), feats.to(dev), keys.to(dev), nkeys.to(dev),
                 weights.to(dev), band)
     assert cuda_ops.launch_counts()["window_key_conv_bwd"] == 0
+
+
+def test_key_conv_backward_wrapper_raises_off_cuda():
+    """The key-compare conv's backward kernel has no CPU path either."""
+    _, keys, nkeys, _, _ = _cpu_inputs()["key_conv_batched"]
+    dout = torch.zeros(2, 64, 8)
+    cuda_ops.reset_launch_counts()
+    for dev in ("cpu", "meta"):
+        with pytest.raises((ValueError, TypeError, RuntimeError)):
+            cuda_ops.key_conv_bwd(dout.to(dev), keys.to(dev), nkeys.to(dev))
+    assert cuda_ops.launch_counts()["key_conv_bwd"] == 0
 
 
 def test_build_is_keyed_by_sources_and_fails_loudly(monkeypatch, tmp_path):

@@ -1,0 +1,158 @@
+"""The port's SSL iteration under every ConfThr switch setting
+(``enable_3d``, ``enable_2d``, ``fusion``, ``consistency``) against the
+JAX package's branch losses, and ``train_ssl`` end to end on the CPU.
+
+Each setting runs the port's step functions (``train/ssl_step.py``) on
+``configs/tests/ssl_tiny.py``: the teacher phase, then the branches the
+setting enables, then the EMA. Its pseudo-labels, and JAX's random draws
+(``torch_port_ssl_fixture``), go into JAX's ``student_losses_3d_concat``
+and ``student_losses_2d`` for the same branches; every logged loss term
+agrees within 1e-4 of its value, and a disabled branch neither runs nor
+moves its parameters. The gradients of the whole iteration are held to
+JAX in ``test_torch_port_ssl_step.py``.
+"""
+import json
+
+import numpy as np
+import pytest
+
+import torch_port_ssl_fixture as fx
+from torch_port_ssl_fixture import jax, rel, torch
+
+from detmatch_tpu_torch.apis.build import build_ssl, build_voxelizer
+from detmatch_tpu_torch.apis.train_ssl import train_ssl
+from detmatch_tpu_torch.train import optim as poptim
+from detmatch_tpu_torch.train.ssl_step import (ema_step, student_2d_step,
+                                               student_3d_step, teacher_step)
+
+LOSS_RTOL = 1e-4
+IT = 3
+R3, R2 = jax.random.PRNGKey(13), jax.random.PRNGKey(12)
+SWITCHES = {
+    "no_consistency": dict(consistency=False),
+    "confthr_no_fusion": dict(fusion=False),
+    "confthr_3d_only": dict(fusion=False, enable_2d=False),
+    "confthr_2d_only": dict(fusion=False, enable_3d=False),
+}
+
+
+@pytest.fixture(scope="module")
+def setup():
+    """Weights and batch (shared by every setting), and the JAX branch
+    losses jitted once per (consistency, pseudo-label shape)."""
+    cfg = fx.load_cfg()
+    batch = fx.views(1)
+    vb = fx.j_voxelize_views(fx.jax_views(batch), fx.jax_spec(cfg))
+    jssl = fx.jax_ssl(fx.load_cfg(consistency=False))
+    state = fx.make_state(jssl, vb)
+    masks = fx.DropoutMasks()
+    captured = {}
+
+    def loss3d(v, vbatch, pl):
+        total, aux = jssl.student_losses_3d_concat(v, vbatch, pl, IT, R3)
+        return total, aux["logs"], captured["key"], list(masks.traced)
+
+    def loss2d(v, vbatch, pl):
+        total, aux = jssl.student_losses_2d(v, vbatch, pl, IT, R2)
+        return total, aux["logs"]
+
+    return dict(cfg=cfg, batch=batch, vb=vb, state=state, masks=masks,
+                captured=captured, loss3d=jax.jit(loss3d),
+                loss2d=jax.jit(loss2d))
+
+
+def jax_losses_3d(setup, pseudo):
+    s = setup
+    with pytest.MonkeyPatch.context() as mp:
+        fx.capture_sampling_key(mp, s["captured"])
+        s["masks"].traced.clear()
+        rec = s["masks"].recording()
+        try:
+            total, logs, key, drawn = s["loss3d"](
+                fx._j(s["state"]["student"]["det3d"]), s["vb"], pseudo)
+        finally:
+            rec.undo()
+    s["masks"].masks = [np.asarray(m) for m in drawn]
+    return float(total), fx._np(logs), key
+
+
+@pytest.mark.parametrize("name", sorted(SWITCHES))
+def test_iteration_under_switches(setup, name):
+    sw = SWITCHES[name]
+    cfg = fx.load_cfg(**sw)
+    model = fx.port_ssl(cfg, setup["state"])
+    batch = fx.port_views(cfg, setup["batch"])
+    model.train()
+    pseudo = teacher_step(model, batch)
+    on3d, on2d = cfg["ssl"].get("enable_3d", True), cfg["ssl"].get(
+        "enable_2d", True)
+    assert ("m3d_stu" in pseudo) == on3d and ("m2d_stu" in pseudo) == on2d
+    jpseudo = jax.tree.map(lambda t: jax.numpy.asarray(t.numpy()),
+                           {k: v for k, v in pseudo.items() if k != "logs"})
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    opt3d, opt2d = poptim.detmatch_branch_optimizers(model, 0.01, 0.02, 5)
+    gen = torch.Generator()
+    with pytest.MonkeyPatch.context() as mp:
+        if on3d:
+            total, want, key = jax_losses_3d(setup, jpseudo)
+            mp.setattr(fx.proi, "_pick", fx.roi_picks(key, 2 * fx.B))
+            setup["masks"].replay(mp)
+            logs = student_3d_step(model, opt3d, batch, pseudo, IT, gen)
+            assert not any("2D_to_3D" in k for k in logs)
+            for k, v in want.items():
+                assert rel(logs[k], v) <= LOSS_RTOL, (k, float(logs[k]),
+                                                      float(v))
+            assert rel(logs["loss"], total) <= LOSS_RTOL
+        if on2d:
+            total, want = setup["loss2d"](
+                fx._j(setup["state"]["student"]["det2d"]), setup["vb"],
+                jpseudo)
+            fx.hand_over_frcnn(mp, R2)
+            logs = student_2d_step(model, opt2d, batch, pseudo, IT, gen)
+            for k, v in fx._np(want).items():
+                assert rel(logs[k], v) <= LOSS_RTOL, (k, float(logs[k]),
+                                                      float(v))
+            assert rel(logs["loss"], float(total)) <= LOSS_RTOL
+    ema_step(model, IT)
+    for half, on in (("det3d", on3d), ("det2d", on2d)):
+        moved = any(not torch.equal(p, before[f"student.{half}.{n}"])
+                    for n, p in model.student[half].named_parameters())
+        assert moved == on, half
+
+
+def test_train_ssl_runs_on_cpu(tmp_path):
+    """Two iterations of ``train_ssl`` on the tiny config: the log has
+    the JAX loop's keys, every value is finite, and the student and the
+    teacher both move."""
+    cfg = fx.load_cfg(cost_thr=50.0)
+    model = build_ssl(cfg, device="cpu")
+    rng = np.random.RandomState(2)
+
+    def batches():
+        while True:
+            yield fx.tiny.tiny_ssl_batch(rng, b=fx.B)
+
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    model, opts, hist = train_ssl(model, build_voxelizer(cfg), batches(),
+                                  str(tmp_path), 2, batch_size=fx.B,
+                                  log_interval=1, warmup_iters=2)
+    lines = [json.loads(x) for x in (tmp_path / "log.json").read_text()
+             .splitlines()]
+    assert len(lines) == len(hist) == 2
+    keys = set(lines[-1])
+    for k in ("sup.3d.rpn_loss_cls", "sup.3d.rcnn_loss_reg",
+              "ssl.unlab.hard_pseudo_3d.point_loss_cls",
+              "ssl.unlab.2D_to_3D_hung.l1_loss", "sup.2d.loss_cls",
+              "ssl.unlab.hard_pseudo_2d.loss_rpn_cls",
+              "metrics.num_2D_to_3D_hung", "metrics.num_tea_hung",
+              "metrics.dropped_voxels", "ssl.weight", "ssl.ema_decay",
+              "grad_skips", "loss", "iter", "mode", "time"):
+        assert k in keys, k
+    assert all(np.isfinite(v) for h in hist for v in h.values())
+    assert lines[0]["ssl.ema_decay"] == pytest.approx(0.99)
+    sd = model.state_dict()
+    for half in ("student", "teacher"):
+        assert any(not torch.equal(sd[k], before[k]) for k in sd
+                   if k.startswith(half) and sd[k].is_floating_point()), half
+    assert opts[0].count == 2 and opts[1].count == 2
+    assert model.student.training and not model.teacher.training
