@@ -65,10 +65,23 @@ Phases (any failure exits non-zero without printing the result line):
    K4); the same iteration with ``conv_impl="key"`` (K5 forward within
    1e-5 of its twin and S exactly on the step's 12 shapes, 24 / 12 / 0
    launches of K5 fwd, K5 bwd, K1, losses within 1e-4 of the plain path);
-   CUDA-event timings of the iteration and its split on both conv paths,
-   peak memory, and each kernel per iteration;
-10. a JSON line of the kernels (per SSL iteration, with their bounds),
-   then the result line.
+   the same iteration on the rulebook path (``conv_impl="rulebook"``,
+   JAX's ``"xla"``: every K7 call within 1e-5 of its twin, 24 / 0 / 0 / 0
+   launches of K7, K1 fwd, K1 bwd, K5, losses and BN statistics within
+   1e-4 of the plain path's and of the window path's, the five backbone
+   levels within 1e-5 of the window path's on the same B=8 student
+   input); the one-hot ops K6 and K8, which no model calls, replayed on
+   that forward's operands (K6 on its 12 student rulebooks: forward
+   within 1e-5, S exactly, dF and dW equal given the same S; K8 on every
+   ``pointnet.gather_rows`` call: the gather exactly, the scatter-add
+   within 1e-5), each timed against its twin and, for K8, against the
+   one PyTorch call that computes it (the table's and the rounded rows'
+   preparation excluded); CUDA-event timings of the iteration and its
+   split on the three conv paths, peak memory, and each kernel per
+   iteration;
+10. a JSON line of the kernels (per SSL iteration, with their bounds;
+   K6 and K8 over the replayed calls, with 0 launches on the model
+   path), then the result line.
 """
 from __future__ import annotations
 
@@ -120,8 +133,18 @@ SSL_ITERS = 3
 SSL_LAUNCHES = dict(window_key_conv_batched=24, window_key_conv_bwd=12,
                     ball_query_batched=24, fps_batched=2,
                     solve_masked_batched=2)
+# the one-hot ops no model calls (K6 fwd / bwd, K8 gather / scatter): no
+# launch on any of the three sparse-conv paths
+ONEHOT_KERNELS = ("onehot_gather_conv", "onehot_gather_scatter",
+                  "onehot_take_rows_batched", "onehot_scatter_rows")
+NO_ONEHOT = dict.fromkeys(ONEHOT_KERNELS, 0)
 KEY_LAUNCHES = dict(key_conv_batched=24, key_conv_bwd=12,
-                    window_key_conv_batched=0, window_key_conv_bwd=0)
+                    window_key_conv_batched=0, window_key_conv_bwd=0,
+                    **NO_ONEHOT)
+RULEBOOK_LAUNCHES = dict(gather_conv_batched=24, window_key_conv_batched=0,
+                         window_key_conv_bwd=0, key_conv_batched=0,
+                         key_conv_bwd=0, **NO_ONEHOT)
+LEVELS = ("x_conv1", "x_conv2", "x_conv3", "x_conv4", "out")
 # the stages of one SSL iteration that chip_smoke times
 ITER_STAGES = ("data", "teacher", "3D fwd+loss", "3D bwd", "3D opt",
                "2D fwd+loss", "2D bwd", "2D opt", "EMA")
@@ -147,6 +170,21 @@ KERNEL_META = {
     "key_conv_bwd": dict(
         source="detmatch_tpu_torch/csrc/key_conv.cu",
         replaces="detmatch_tpu/ops/pallas/onehot_key_conv.py:150"),
+    "onehot_gather_conv": dict(
+        source="detmatch_tpu_torch/csrc/gather_conv.cu",
+        replaces="detmatch_tpu/ops/pallas/onehot_gather.py:68"),
+    "onehot_gather_scatter": dict(
+        source="detmatch_tpu_torch/csrc/onehot_gather.cu",
+        replaces="detmatch_tpu/ops/pallas/onehot_gather.py:129"),
+    "gather_conv_batched": dict(
+        source="detmatch_tpu_torch/csrc/gather_conv.cu",
+        replaces="detmatch_tpu/ops/pallas/spconv_kernel.py:52"),
+    "onehot_take_rows_batched": dict(
+        source="detmatch_tpu_torch/csrc/onehot_rows.cu",
+        replaces="detmatch_tpu/ops/pallas/onehot_rows.py:149"),
+    "onehot_scatter_rows": dict(
+        source="detmatch_tpu_torch/csrc/onehot_rows.cu",
+        replaces="detmatch_tpu/ops/pallas/onehot_rows.py:201"),
 }
 
 
@@ -278,13 +316,15 @@ def check_kernels(calls, label, stats):
         torch.cuda.synchronize()
         st = stats.setdefault(name, dict(max_abs_err=0.0, cases=0))
         st["cases"] += 1
-        if name in ("window_key_conv_batched", "key_conv_batched"):
+        if name in ("window_key_conv_batched", "key_conv_batched",
+                    "gather_conv_batched"):
             err = rel_err(k_out, p_out)
             st["max_abs_err"] = max(st["max_abs_err"],
                                     float((k_out - p_out).abs().max()))
             good = err <= CONV_RTOL
+            rb = args[1] if name == "gather_conv_batched" else args[2]
             desc = (f"rel_err={err:.3e} shape={tuple(k_out.shape)} "
-                    f"taps={args[2].shape[-1]}")
+                    f"taps={rb.shape[-1]}")
         else:
             k_out = k_out if isinstance(k_out, tuple) else (k_out,)
             p_out = p_out if isinstance(p_out, tuple) else (p_out,)
@@ -509,7 +549,10 @@ def run():
              max_abs_err=stats[name]["max_abs_err"],
              ms=per[name]["ms"], plain_ms=per[name]["plain_ms"],
              bound_ms=per[name]["bound_ms"],
-             bound_by=per[name]["bound_by"], library_ms=None)
+             bound_by=per[name]["bound_by"],
+             library_ms=per[name].get("library_ms"),
+             **({"replayed_calls": per[name]["replayed_calls"]}
+                if "replayed_calls" in per[name] else {}))
         for name, meta in KERNEL_META.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -521,15 +564,51 @@ def conv_pairs(args):
     rulebook entries that find an input row."""
     from detmatch_tpu_torch.ops import spconv
     _, keys, nkeys = args[:3]
-    b, m, k = nkeys.shape
-    return int((spconv.lookup_batched(keys, nkeys.reshape(b, m * k))
-                >= 0).sum())
+    return int((spconv.rulebook_batched(keys, nkeys) >= 0).sum())
+
+
+def distinct_rows(idx, n):
+    """Rows a gather must read: the distinct (sample, row) pairs that the
+    (B, ...) indices reach, counting only rows in [0, n)."""
+    ok = (idx >= 0) & (idx < n)
+    base = torch.arange(idx.shape[0], device=idx.device) * n
+    rows = idx.long() + base.view(-1, *[1] * (idx.dim() - 1))
+    return int(torch.unique(rows[ok]).numel())
 
 
 def work(name, args, kwargs, need_dfeats=True, out=None):
     """(bytes, flops) of one call: each input read once and each output
     written once, and the arithmetic these inputs need (for the ball
-    query, ``out`` is its (idx, cnt))."""
+    query, ``out`` is its (idx, cnt); for K6's scatter and K8's, the
+    input rows, ``args[2]`` the table's row count). A gather reads only
+    the table rows it indexes."""
+    if name in ("gather_conv_batched", "onehot_gather_conv"):
+        feats, rb, w = args
+        c, co = feats.shape[-1], w.shape[-1]
+        if rb.dim() == 2:  # K6's single-sample form
+            rows = distinct_rows(rb[None], feats.shape[0])
+        else:
+            rows = distinct_rows(rb, feats.shape[1])
+        # one fma per (tap with an input row, c, co)
+        return (4 * (rows * c + rb.numel() + w.numel()
+                     + rb.numel() // rb.shape[-1] * co),
+                2 * int((rb >= 0).sum()) * c * co)
+    if name == "onehot_gather_scatter":
+        dout, rb, n = args
+        # reads dout and the rulebook, writes S (K, N, Co); one add a pair
+        return (4 * (dout.numel() + rb.numel() + rb.shape[-1] * n
+                     * dout.shape[-1]),
+                int((rb >= 0).sum()) * dout.shape[-1])
+    if name == "onehot_take_rows_batched":
+        x, idx = args
+        return 4 * (distinct_rows(idx, x.shape[1]) * x.shape[-1]
+                    + idx.numel() * (1 + x.shape[-1])), 0
+    if name == "onehot_scatter_rows":
+        dout, idx, n = args
+        ok = int(((idx >= 0) & (idx < n)).sum())
+        return (4 * (dout.numel() + idx.numel()
+                     + idx.shape[0] * n * dout.shape[-1]),
+                ok * dout.shape[-1])
     if name == "key_conv_batched":
         feats, _, nkeys, w, _ = args
         b, n, c = feats.shape
@@ -1549,7 +1628,7 @@ def ssl_phases(card, stats):
         raise AssertionError("the SSL iteration disagrees between the kernel "
                              "and the plain paths, or the consistency branch "
                              "matched nothing, or no 2D pseudo-label was kept")
-    window_losses = lk
+    window_losses, window_bufs = lk, bk
     del res
 
     phase("SSL iteration: the four steps on the card, EMA against formula")
@@ -1590,7 +1669,7 @@ def ssl_phases(card, stats):
     wall = time.perf_counter() - t0
     launches = cuda_ops.launch_counts()
     print(f"launches in train_ssl ({SSL_ITERS} iterations): {launches}; per "
-          f"iteration expected {SSL_LAUNCHES}")
+          f"iteration expected {dict(SSL_LAUNCHES, **NO_ONEHOT)}")
     print(f"  {SSL_ITERS} iterations in {wall:.3f} s wall; losses "
           + " ".join(f"{h['loss']:.4f}" for h in hist)
           + "; consistency pairs "
@@ -1602,7 +1681,8 @@ def ssl_phases(card, stats):
     finite = all(np.isfinite(v) for h in hist for v in h.values())
     print(f"  finite={finite}; tensors moved: {moved}")
     if (any(launches[n] != SSL_ITERS * c for n, c in SSL_LAUNCHES.items())
-            or launches["key_conv_batched"] or not finite
+            or launches["key_conv_batched"]
+            or any(launches[n] for n in ONEHOT_KERNELS) or not finite
             or min(moved.values()) == 0):
         raise AssertionError("train_ssl: a kernel was not launched as "
                              "expected, a loss is not finite, or the student "
@@ -1666,7 +1746,8 @@ def ssl_phases(card, stats):
     print(f"launches in one key-path iteration: {key_launches}; expected "
           f"{KEY_LAUNCHES}")
     if any(key_launches[n] != c for n, c in KEY_LAUNCHES.items()):
-        raise AssertionError("the key path did not launch 24 / 12 / 0")
+        raise AssertionError("the key path did not launch 24 / 12 / 0, or "
+                             "launched K6 or K8")
     del m, opts, kp
     pvrcnn_mod.proposal_layer = lambda *a, **kw: pinned
     res = {}
@@ -1693,9 +1774,16 @@ def ssl_phases(card, stats):
     if not ok:
         raise AssertionError("the key path's kernel and plain losses differ")
 
+    rb_model, rb_calls, row_calls, rb_launches = rulebook_phase(
+        cfg, model, batch, pseudo, pinned, (window_losses, window_bufs),
+        stats)
+    onehot_per = onehot_phase(card, stats, rb_calls, row_calls, ssl_launches)
+    del row_calls
+
     phase(f"SSL iteration: timing (CUDA events) on {card}")
     with torch.no_grad():
         per = time_kernels(calls, bwd_cases)
+        per.update(time_kernels(rb_calls, []))
         key_per = time_kernels(kcalls, [])
         t = key_per.setdefault("key_conv_bwd", dict(ms=0.0, plain_ms=0.0))
         for (dout, keys, nkeys), _ in key_bwd:
@@ -1707,8 +1795,9 @@ def ssl_phases(card, stats):
     per.update(key_per)
     jv = [(c[1][0].shape[-1], int((c[1][1]).sum())) for c in calls
           if c[0] == "solve_masked_batched"]
-    del calls, bwd_cases, kcalls, key_bwd, k4_calls
-    for label, mdl in (("window", model), ("key", key_model)):
+    del calls, bwd_cases, kcalls, key_bwd, k4_calls, rb_calls
+    for label, mdl in (("window", model), ("key", key_model),
+                       ("rulebook", rb_model)):
         m = copy.deepcopy(mdl).train()
         opts = detmatch_branch_optimizers(m, 0.04, 0.16)
         torch.cuda.synchronize()
@@ -1736,6 +1825,10 @@ def ssl_phases(card, stats):
         per[name]["launches"] = key_launches[name]
         print(f"  {name}: {describe(per[name])} per SSL iteration, "
               f"{KEY_LAUNCHES[name]} calls [{card}]")
+    name = "gather_conv_batched"
+    per[name]["launches"] = rb_launches[name]
+    print(f"  {name}: {describe(per[name])} per SSL iteration, "
+          f"{RULEBOOK_LAUNCHES[name]} calls [{card}]")
     print(f"  K5 against K1 per iteration: forward "
           f"{per['key_conv_batched']['ms']:.3f} vs "
           f"{per['window_key_conv_batched']['ms']:.3f} ms; backward kernel "
@@ -1745,6 +1838,310 @@ def ssl_phases(card, stats):
     print(f"  solve_masked_batched: {len(jv)} calls per iteration (K, valid "
           f"rows: fusion {jv[0]}, consistency {jv[-1]}), "
           f"{per['solve_masked_batched']['ms']:.3f} ms together [{card}]")
+    per.update(onehot_per)
+    return per
+
+
+def rulebook_phase(cfg, model, batch, pseudo, pinned, window_ref, stats):
+    """The SSL iteration with ``conv_impl="rulebook"`` (K7) on the card:
+    every K7 call against its twin, one iteration's launches, the pinned
+    3D step against the plain and the window paths, and the backbone's
+    levels against the window path's. Returns (the rulebook-path model,
+    its recorded conv calls, the ``gather_rows`` calls of its student
+    forward, the iteration's launches)."""
+    import copy
+
+    from detmatch_tpu_torch.apis.build import build_ssl
+    from detmatch_tpu_torch.models.pvrcnn import anchor_head
+    from detmatch_tpu_torch.models.pvrcnn import pvrcnn as pvrcnn_mod
+    from detmatch_tpu_torch.ops import cuda as cuda_ops
+    from detmatch_tpu_torch.ops import pointnet
+    from detmatch_tpu_torch.ops.cuda import KERNELS, PLAIN
+    from detmatch_tpu_torch.train.optim import detmatch_branch_optimizers
+    from detmatch_tpu_torch.train.ssl_step import (ema_step, student_2d_step,
+                                                   student_3d_step,
+                                                   teacher_step)
+
+    def gen():
+        return torch.Generator(DEVICE).manual_seed(SEED)
+
+    phase("SSL iteration: rulebook path (K7)")
+    cfg_rb = copy.deepcopy(cfg)
+    det3d = cfg_rb["model"]["detector_3d"]
+    det3d["backbone3d_cfg"] = dict(det3d.get("backbone3d_cfg") or {},
+                                   conv_impl="rulebook")
+    rb_model = build_ssl(cfg_rb)
+    rb_model.load_state_dict(model.state_dict())
+    m = copy.deepcopy(rb_model).train()
+    calls, row_calls = [], []
+    m.ops = recording(KERNELS, calls)
+    own_gather = pointnet.gather_rows
+
+    def record_gather(x, idx):
+        row_calls.append((x.detach(), idx.detach()))
+        return own_gather(x, idx)
+
+    with torch.no_grad():
+        rb_pseudo = teacher_step(m, batch)
+        pointnet.gather_rows = anchor_head.gather_rows = record_gather
+        try:
+            m.student_losses_3d_concat(batch, rb_pseudo, 0, gen())
+        finally:
+            pointnet.gather_rows = anchor_head.gather_rows = own_gather
+    del m, rb_pseudo
+    calls = [c for c in calls if c[0] == "gather_conv_batched"]
+    with torch.no_grad():
+        ok = check_kernels(calls, "rulebook path", stats)
+    # one rulebook per indice key: each subm pair's two convs share theirs
+    shared = len({c[1][1].data_ptr() for c in calls
+                  if c[1][0].shape[0] == 2 * SSL_B})
+    print(f"  K7 calls per iteration (teacher + student forward): "
+          f"{len(calls)}; rulebooks of the student's 12 convs {shared}; "
+          f"gather_rows calls of the student forward {len(row_calls)}")
+    if not ok or len(calls) != 24 or shared != 8:
+        raise AssertionError("K7 disagrees with its twin, or its calls are "
+                             "not 24 per iteration on 8 student rulebooks")
+
+    m = copy.deepcopy(rb_model).train()
+    opts = detmatch_branch_optimizers(m, 0.04, 0.16)
+    cuda_ops.reset_launch_counts()
+    teacher_step(m, batch)
+    student_3d_step(m, opts[0], batch, pseudo, 0, gen())
+    student_2d_step(m, opts[1], batch, pseudo, 0, gen())
+    ema_step(m, 0)
+    torch.cuda.synchronize()
+    launches = cuda_ops.launch_counts()
+    print(f"launches in one rulebook-path iteration: {launches}; expected "
+          f"{RULEBOOK_LAUNCHES}")
+    if any(launches[n] != c for n, c in RULEBOOK_LAUNCHES.items()):
+        raise AssertionError("the rulebook path did not launch 24 / 0 / 0 / "
+                             "0, or launched K6 or K8")
+    del m, opts
+
+    own_layer = pvrcnn_mod.proposal_layer
+    pvrcnn_mod.proposal_layer = lambda *a, **kw: pinned
+    res = {}
+    try:
+        for path, ops in (("kernel", KERNELS), ("plain", PLAIN)):
+            m = copy.deepcopy(rb_model).train()
+            m.ops = ops
+            with torch.no_grad():
+                total, logs = m.student_losses_3d_concat(batch, pseudo, 0,
+                                                         gen())
+            res[path] = (dict({k: float(v) for k, v in logs.items()},
+                              loss=float(total)),
+                         {n: b.clone() for n, b in
+                          m.student["det3d"].named_buffers()
+                          if n.endswith(("running_mean", "running_var"))})
+            del m
+    finally:
+        pvrcnn_mod.proposal_layer = own_layer
+    lk, bk = res["kernel"]
+    ok = True
+    for path, (lp, bp) in (("plain", res["plain"]), ("window", window_ref)):
+        for k in lp:
+            ok &= report(f"rulebook path against the {path} path: loss {k} "
+                         f"({lk[k]:.6f})",
+                         abs(lk[k] - lp[k]) / max(abs(lp[k]), 1e-12))
+        ok &= report(f"rulebook path against the {path} path: BN running "
+                     "statistics (worst)",
+                     max(rel_err(bk[n], bp[n]) for n in bp))
+
+    lab, u = batch["lab"]["stu"], batch["unlab"]["stu"]
+    feats, keys = (torch.cat([lab[k], u[k]], 0)
+                   for k in ("voxel_features", "voxel_keys"))
+    with torch.no_grad():
+        lv = {label: copy.deepcopy(mdl.student["det3d"].backbone_3d).train()(
+            feats, keys, KERNELS) for label, mdl in (("window", model),
+                                                     ("rulebook", rb_model))}
+    for n in LEVELS:
+        same = torch.equal(lv["rulebook"][n]["keys"], lv["window"][n]["keys"])
+        err = rel_err(lv["rulebook"][n]["feats"], lv["window"][n]["feats"])
+        good = same and err <= CONV_RTOL
+        ok &= good
+        print(f"  backbone {n} (B={feats.shape[0]}): keys equal {same}, "
+              f"features rel_err={err:.3e} against the window path "
+              f"{'ok' if good else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the rulebook path disagrees with the plain or "
+                             "the window path")
+    return rb_model, calls, row_calls, launches
+
+
+def onehot_phase(card, stats, rb_calls, row_calls, main_launches):
+    """K6 on the rulebook path's 12 student (B=8) conv operands and K8 on
+    its student forward's ``gather_rows`` operands, through their public
+    entry points (forward, and the backward by ``torch.autograd.grad``),
+    against their twins, timed; returns their per-kernel times, bounds,
+    replay counts and launches on the main path (``main_launches``)."""
+    from torch.nn import functional as F
+
+    from detmatch_tpu_torch.ops import cuda as cuda_ops
+    from detmatch_tpu_torch.ops.cuda import onehot_gather as og
+    from detmatch_tpu_torch.ops.cuda import onehot_rows as orows
+    from detmatch_tpu_torch.ops.cuda.key_conv import key_conv_grads
+
+    phase("K6 and K8 on the main path's operands")
+    g = torch.Generator(DEVICE).manual_seed(SEED)
+    convs = []
+    for _, (feats, rb, w), _, _ in rb_calls:
+        if feats.shape[0] != 2 * SSL_B:
+            continue
+        dout = torch.randn(*rb.shape[:2], w.shape[-1], generator=g,
+                           device=DEVICE)
+        convs.append((feats, rb, w, dout))
+    rows = []
+    for x, idx in row_calls:
+        b = x.shape[0]
+        idx = idx.reshape(b, -1).to(torch.int32)
+        dout = torch.randn(b, idx.shape[1], x.shape[-1], generator=g,
+                           device=DEVICE)
+        rows.append((x.contiguous(), idx, dout))
+    ok = len(convs) == 12 and len(rows) > 0
+    flats = []
+    cuda_ops.reset_launch_counts()
+    for i, (feats, rb, w, dout) in enumerate(convs):
+        b, n, c = feats.shape
+        m, k, co = rb.shape[1], rb.shape[2], w.shape[-1]
+        f = feats.clone().requires_grad_()
+        ww = w.clone().requires_grad_()
+        out = og.onehot_gather_conv_batched(f, rb, ww)
+        d_f, d_w = torch.autograd.grad(out, (f, ww), dout)
+        with torch.no_grad():
+            # the twins on the batch flattened as the entry point does
+            base = (torch.arange(b, dtype=torch.int32, device=DEVICE)
+                    * n)[:, None, None]
+            flat = torch.where(rb >= 0, rb + base, -1).reshape(b * m, k)
+            fl = (feats.reshape(b * n, c), flat, w, dout.reshape(b * m, co))
+            flats.append(fl)
+            ref = og.onehot_gather_forward_plain(*fl[:3])
+            s_k = og.onehot_gather_scatter(fl[3], flat, b * n)
+            s_p = og.onehot_gather_scatter_plain(fl[3], flat, b * n)
+            p_f, p_w = key_conv_grads(s_p, fl[0][None], w)
+        torch.cuda.synchronize()
+        err = rel_err(out.reshape(b * m, co), ref)
+        exact = torch.equal(s_k, s_p)
+        same = (torch.equal(d_f.reshape(b * n, c), p_f[0])
+                and torch.equal(d_w, p_w))
+        good = err <= CONV_RTOL and exact and same
+        ok &= good
+        for name, e in (
+                ("onehot_gather_conv", (out.reshape(b * m, co) - ref).abs()
+                 .max()),
+                ("onehot_gather_scatter", (s_k - s_p).abs().max())):
+            st = stats.setdefault(name, dict(max_abs_err=0.0, cases=0))
+            st["cases"] += 1
+            st["max_abs_err"] = max(st["max_abs_err"], float(e))
+        print(f"  K6 student conv[{i}] feats {tuple(feats.shape)} rulebook "
+              f"{tuple(rb.shape)} Co={co}: forward rel_err={err:.3e}, S "
+              f"exact={exact}, autograd dF and dW equal to the twin's S "
+              f"einsums={same} {'ok' if good else 'FAIL'}")
+        del out, d_f, d_w, ref, s_k, s_p, p_f, p_w, f, ww
+    for i, (x, idx, dout) in enumerate(rows):
+        n = x.shape[1]
+        xg = x.clone().requires_grad_()
+        out = orows.onehot_take_rows_batched(xg, idx)
+        (dx,) = torch.autograd.grad(out, (xg,), dout)
+        with torch.no_grad():
+            ref_rows = orows.take_rows_plain(x, idx)
+            ref = orows.scatter_rows_plain(dout, idx, n)
+        torch.cuda.synchronize()
+        exact = torch.equal(out, ref_rows)
+        err = rel_err(dx, ref)
+        good = exact and err <= CONV_RTOL
+        ok &= good
+        for name, e in (("onehot_take_rows_batched",
+                         (out - ref_rows).abs().max()),
+                        ("onehot_scatter_rows", (dx - ref).abs().max())):
+            st = stats.setdefault(name, dict(max_abs_err=0.0, cases=0))
+            st["cases"] += 1
+            st["max_abs_err"] = max(st["max_abs_err"], float(e))
+        print(f"  K8 gather_rows[{i}] table {tuple(x.shape)} idx "
+              f"{tuple(idx.shape)}: gather exact={exact}, autograd scatter "
+              f"rel_err={err:.3e} {'ok' if good else 'FAIL'}")
+        del out, dx, ref_rows, ref, xg
+    launches = cuda_ops.launch_counts()
+    # S once in the autograd backward, once more for its exact check
+    replayed = dict(onehot_gather_conv=len(convs),
+                    onehot_gather_scatter=len(convs),
+                    onehot_take_rows_batched=len(rows),
+                    onehot_scatter_rows=len(rows))
+    expect = dict(replayed, onehot_gather_scatter=2 * len(convs))
+    print(f"  launches in the replay: "
+          f"{ {n: launches[n] for n in ONEHOT_KERNELS} }; expected {expect}")
+    if not ok or any(launches[n] != c for n, c in expect.items()):
+        raise AssertionError("K6 or K8 disagrees with its twin on the main "
+                             "path's operands, or was not launched once a "
+                             "call")
+
+    phase(f"K6 and K8: timing (CUDA events) on {card}")
+    per = {n: dict(ms=0.0, plain_ms=0.0, launches=main_launches[n],
+                   replayed_calls=c) for n, c in replayed.items()}
+    with torch.no_grad():
+        for feats, flat, w, dout in flats:
+            k = flat.shape[1]
+            co, n_total = w.shape[-1], feats.shape[0]
+            # the library call's inputs, prepared outside the timing: the
+            # bf16-rounded cotangent row of each (row, tap) pair with an
+            # input row, and its slot k * N + rb
+            mi, ki = (flat >= 0).nonzero(as_tuple=True)
+            slots = ki * n_total + flat[mi, ki].long()
+            rounded = og._bf16(dout)[mi]
+            for name, kern, plain, lib, args, rate in (
+                    ("onehot_gather_conv", og.onehot_gather_conv,
+                     og.onehot_gather_forward_plain, None, (feats, flat, w),
+                     BF16_FLOP_PER_S),
+                    ("onehot_gather_scatter", og.onehot_gather_scatter,
+                     og.onehot_gather_scatter_plain,
+                     lambda: dout.new_zeros((k * n_total, co))
+                     .index_add_(0, slots, rounded),
+                     (dout, flat, n_total), FP32_FLOP_PER_S)):
+                t = per[name]
+                t["ms"] += cuda_ms(lambda: kern(*args), reps=5)
+                t["plain_ms"] += cuda_ms(lambda: plain(*args), reps=2)
+                if lib is not None:
+                    t["library_ms"] = (t.get("library_ms", 0.0)
+                                       + cuda_ms(lib, reps=5))
+                add_bound(t, *work(name, args, {}), rate)
+            del mi, ki, slots, rounded
+        for x, idx, dout in rows:
+            b, n, c = x.shape
+            # the library calls' inputs, prepared outside the timing: the
+            # bf16-rounded table behind a zero row, the ids shifted by one
+            # (0 for an out-of-range index); the rounded cotangent rows
+            # with an index in range, and their flat slots
+            ok_ = (idx >= 0) & (idx < n)
+            base = (torch.arange(b, device=DEVICE) * n)[:, None]
+            table = torch.cat([x.new_zeros(1, c),
+                               orows._bf16(x).reshape(b * n, c)])
+            ids = torch.where(ok_, idx.long() + base + 1, 0)
+            slots = (idx.long() + base)[ok_]
+            rounded = orows._bf16(dout)[ok_]
+            for name, kern, plain, lib, args in (
+                    ("onehot_take_rows_batched",
+                     orows.onehot_take_rows_batched, orows.take_rows_plain,
+                     lambda: F.embedding(ids, table), (x, idx)),
+                    ("onehot_scatter_rows", orows.onehot_scatter_rows,
+                     orows.scatter_rows_plain,
+                     lambda: x.new_zeros(b * n, c).index_add_(
+                         0, slots, rounded), (dout, idx, n))):
+                t = per[name]
+                ms, lib_ms = cuda_ms(lambda: kern(*args), reps=5), cuda_ms(
+                    lib, reps=5)
+                t["ms"] += ms
+                t["plain_ms"] += cuda_ms(lambda: plain(*args), reps=2)
+                t["library_ms"] = t.get("library_ms", 0.0) + lib_ms
+                add_bound(t, *work(name, args, {}))
+                print(f"    {name} table {tuple(x.shape)} idx "
+                      f"{tuple(idx.shape)} (most repeats of one index "
+                      f"{int(torch.bincount(slots, minlength=1).max())}): "
+                      f"{ms:.3f} ms, library {lib_ms:.3f} ms")
+    for name in ONEHOT_KERNELS:
+        lib = per[name].get("library_ms")
+        print(f"  {name}: {describe(per[name])}"
+              + (f", library {lib:.3f} ms" if lib is not None else "")
+              + f" over {per[name]['replayed_calls']} replayed calls; "
+              f"{per[name]['launches']} launches on the main path [{card}]")
     return per
 
 

@@ -6,9 +6,13 @@ SubM(4→16) → [SparseConv s2 + 2×SubM] ×3 (16→32→64→64) → SparseCon
 (3,1,1)/(2,1,1) z-compression to 128 ch. Each level is a fixed-capacity
 sparse buffer with sorted keys; every conv runs through a sparse-conv op
 of the given ``ops.cuda.Ops`` (the CUDA kernels by default): the fp32
-windowed conv (``conv_impl="window"``, kernel K1) or the bf16-operand
-key-compare conv (``conv_impl="key"``, kernel K5), the counterparts of
-the JAX ``conv_impl`` values ``"pallas_window"`` and ``"pallas_key"``.
+windowed conv (``conv_impl="window"``, kernel K1), the bf16-operand
+key-compare conv (``conv_impl="key"``, kernel K5) or the fp32 rulebook
+gather-GEMM (``conv_impl="rulebook"``, kernel K7), the counterparts of
+the JAX ``conv_impl`` values ``"pallas_window"``, ``"pallas_key"`` and
+``"xla"``. The rulebook path resolves an indice key's neighbour keys to
+input rows once (``spconv.rulebook_batched``): one rulebook per subm
+pair, shared by both of its convs, and one per strided conv.
 Parameter names and the spconv 1.x weight layout (kz, ky, kx, Cin, Cout)
 follow pcdet, e.g. ``conv2.0.0.weight``.
 """
@@ -59,7 +63,7 @@ def level_shapes(spatial_shape):
     return s1, s2, s3, s4, s_out
 
 
-CONV_IMPLS = ("window", "key")
+CONV_IMPLS = ("window", "key", "rulebook")
 
 
 class VoxelBackbone8x(nn.Module):
@@ -86,11 +90,20 @@ class VoxelBackbone8x(nn.Module):
                                     _block(c4, c4, 3)])
         self.conv_out = _block(c4, out_channels, (3, 1, 1))
 
+    def _rulebook(self, keys, nkeys):
+        """The rulebook path's (B, M, K) input rows, else None (the
+        kernels of the other paths resolve the keys themselves)."""
+        if self.conv_impl != "rulebook":
+            return None
+        return spconv.rulebook_batched(keys, nkeys)
+
     def _conv(self, block, ops, feats, keys, nkeys, out_keys, shape_in,
-              mask):
+              mask, rb):
         conv, bn = block
         band = int(np.prod(shape_in)) + 1
-        if self.conv_impl == "key":
+        if self.conv_impl == "rulebook":
+            out = ops.gather_conv_batched(feats, rb, conv.taps())
+        elif self.conv_impl == "key":
             out = ops.key_conv_batched(feats, keys, nkeys, conv.taps(), band)
         else:
             out = ops.window_key_conv_batched(feats, keys, nkeys, out_keys,
@@ -109,13 +122,14 @@ class VoxelBackbone8x(nn.Module):
                                             *geom)
         mask = out_keys != INVALID_KEY
         out = self._conv(block, ops, feats, keys, nkeys, out_keys, shape_in,
-                         mask)
+                         mask, self._rulebook(keys, nkeys))
         return out, out_keys, mask, shape_out
 
     def _subm_pair(self, blocks, ops, x, keys, mask, shape):
         nk = spconv.subm_neighbor_keys(keys, shape)
+        rb = self._rulebook(keys, nk)
         for block in blocks:
-            x = self._conv(block, ops, x, keys, nk, keys, shape, mask)
+            x = self._conv(block, ops, x, keys, nk, keys, shape, mask, rb)
         return x
 
     def forward(self, voxel_features, voxel_keys, ops=KERNELS):

@@ -48,6 +48,10 @@ SIGNATURES = {
     "dm_hungarian_jv": (_P, _P, _P, _I, _I, _P),
     "dm_key_conv_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "dm_key_conv_bwd_scatter": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "dm_gather_conv_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "dm_onehot_gather_scatter": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "dm_onehot_take_rows": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "dm_onehot_scatter_rows": (_P, _P, _P, _P, _I, _I, _P),
 }
 
 

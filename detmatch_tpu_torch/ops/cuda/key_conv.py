@@ -29,16 +29,10 @@ def _bf16(x):
     return x.to(torch.bfloat16).to(torch.float32)
 
 
-def _rulebook(keys, nkeys):
-    b, m, k = nkeys.shape
-    return spconv.lookup_batched(keys, nkeys.reshape(b, m * k)
-                                 ).reshape(b, m, k)
-
-
 def key_conv_forward_plain(feats, keys, nkeys, weights):
     """Plain twin of the forward kernel: (B, M, Co) float32."""
-    return spconv.gather_conv_batched(_bf16(feats), _rulebook(keys, nkeys),
-                                      _bf16(weights))
+    return spconv.gather_conv_batched(
+        _bf16(feats), spconv.rulebook_batched(keys, nkeys), _bf16(weights))
 
 
 def key_scatter_plain(dout, keys, nkeys):
@@ -48,7 +42,7 @@ def key_scatter_plain(dout, keys, nkeys):
     gives the JAX one-hot sum."""
     b, n = keys.shape
     k = nkeys.shape[2]
-    rb = _rulebook(keys, nkeys)
+    rb = spconv.rulebook_batched(keys, nkeys)
     bi, mi, ki = (rb >= 0).nonzero(as_tuple=True)
     s = dout.new_zeros((k, b * n, dout.shape[-1]))
     s[ki, bi * n + rb[bi, mi, ki].long()] = _bf16(dout[bi, mi])

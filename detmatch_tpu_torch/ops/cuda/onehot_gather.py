@@ -1,0 +1,140 @@
+"""Rulebook sparse conv with bf16 operands and fp32 sums (K6): the CUDA
+kernels ``csrc/gather_conv.cu`` with its bf16 flag (replacing the TPU
+kernel ``detmatch_tpu/ops/pallas/onehot_gather.py:_onehot_gather_conv_fwd``)
+and ``csrc/onehot_gather.cu`` (replacing ``_scatter_all_taps`` there),
+their plain PyTorch twins, and one ``torch.autograd.Function`` whose
+backward is JAX's ``_vjp_bwd``, with JAX's signatures
+``onehot_gather_conv(feats, rulebook, weights)`` and
+``onehot_gather_conv_batched``.
+
+The function is JAX's: the forward sums bf16(F[rb[m, k]]) . bf16(W_k) in
+fp32 over the taps with an input row (``rb`` in [0, N); the one-hot
+matmul gives exactly that row, so both gather by index here); the
+backward forms S[k, n] = sum_m 1[rb[m, k] == n] * bf16(dout[m]) in fp32
+(the kernel, deterministic for any rulebook) and takes dF = sum_k S_k W_k^T
+and dW_k = F^T S_k as fp32 matmuls of the unrounded F and W outside it,
+as JAX does. Like JAX's, no model calls it.
+
+On a CPU tensor the wrappers run the twins; on a CUDA tensor they launch
+the kernels or raise, with no fallback.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import spconv
+from . import build, gather_conv
+from .key_conv import _bf16, key_conv_grads
+from .onehot_rows import segments
+
+
+def onehot_gather_forward_plain(feats, rulebook, weights):
+    """Plain twin of the forward kernel: (M, Co) float32 from feats
+    (N, C), rulebook (M, K) and weights (K, C, Co)."""
+    rb = torch.where(rulebook < feats.shape[0], rulebook, -1)
+    return spconv.gather_conv_batched(_bf16(feats)[None], rb[None],
+                                      _bf16(weights))[0]
+
+
+def _tap_slots(rulebook, n_total):
+    """Slot k * N + rb[m, k] of each pair p = m * K + k, K * N where the
+    entry is outside [0, N): (M * K,) int32."""
+    k = rulebook.shape[1]
+    taps = torch.arange(k, dtype=torch.int32, device=rulebook.device)
+    ok = (rulebook >= 0) & (rulebook < n_total)
+    return torch.where(ok, taps * n_total + rulebook, k * n_total).to(
+        torch.int32).reshape(-1)
+
+
+def onehot_gather_scatter_plain(dout, rulebook, n_total):
+    """Plain twin of the backward kernel: S (K, N, Co) float32."""
+    m, k = rulebook.shape
+    co = dout.shape[-1]
+    s = dout.new_zeros((k * n_total + 1, co))
+    rows = _bf16(dout)[:, None].expand(m, k, co).reshape(m * k, co)
+    s.index_add_(0, _tap_slots(rulebook, n_total).long(), rows)
+    return s[:-1].reshape(k, n_total, co)
+
+
+def _launch_fwd(feats, rulebook, weights):
+    out = gather_conv.launch("onehot_gather_conv", feats[None],
+                             rulebook[None], weights, True)[0]
+    onehot_gather_conv.launches += 1
+    return out
+
+
+def onehot_gather_scatter(dout, rulebook, n_total):
+    """The backward kernel on the card: S (K, N, Co) float32 from dout
+    (M, Co) float32 and the rulebook (M, K) int32."""
+    name = "onehot_gather_scatter"
+    dev = build.require_cuda(name, dout, rulebook)
+    build.require_dtype(name, dout, torch.float32, "dout")
+    build.require_dtype(name, rulebook, torch.int32, "rulebook")
+    m, k = rulebook.shape
+    co = dout.shape[-1]
+    if dout.shape != (m, co) or co == 0 or k * n_total >= 2 ** 31 - 1:
+        raise ValueError(f"{name}: needs dout (M, Co) with Co > 0, "
+                         "rulebook (M, K) and K * N below 2^31 - 1")
+    order, offsets = segments(_tap_slots(rulebook, n_total), k * n_total)
+    s = torch.empty((k, n_total, co), dtype=torch.float32, device=dev)
+    lib = build.load_library()
+    err = lib.dm_onehot_gather_scatter(
+        build.ptr(dout), build.ptr(order), build.ptr(offsets), build.ptr(s),
+        k, k * n_total, co, build.stream(dev))
+    onehot_gather_scatter.launches += 1
+    build.check(lib, err, name)
+    return s
+
+
+class OnehotGatherConv(torch.autograd.Function):
+    """``forward`` computes the output, ``scatter`` S in the backward:
+    the kernels or their twins."""
+
+    @staticmethod
+    def forward(ctx, feats, rulebook, weights, forward, scatter):
+        ctx.save_for_backward(feats, rulebook, weights)
+        ctx.scatter = scatter
+        return forward(feats, rulebook, weights)
+
+    @staticmethod
+    def backward(ctx, dout):
+        feats, rulebook, weights = ctx.saved_tensors
+        s = ctx.scatter(dout.contiguous(), rulebook, feats.shape[0])
+        # JAX's _vjp_bwd, as K5's: the same S-based fp32 matmuls
+        dfeats, dw = key_conv_grads(s, feats[None], weights,
+                                    ctx.needs_input_grad[0])
+        return (None if dfeats is None else dfeats[0]), None, dw, None, None
+
+
+def onehot_gather_conv_plain(feats, rulebook, weights):
+    """Plain twin of :func:`onehot_gather_conv` (same arguments)."""
+    return OnehotGatherConv.apply(feats, rulebook, weights,
+                                  onehot_gather_forward_plain,
+                                  onehot_gather_scatter_plain)
+
+
+def onehot_gather_conv(feats, rulebook, weights):
+    """Single-sample sparse conv core: feats (N, C) float32, rulebook
+    (M, K) int32 (-1 = none), weights (K, C, Co) float32 → (M, Co) float32,
+    bf16 operands and fp32 sums; differentiable in feats and weights."""
+    if feats.device.type == "cpu":
+        return onehot_gather_conv_plain(feats, rulebook, weights)
+    return OnehotGatherConv.apply(feats, rulebook, weights, _launch_fwd,
+                                  onehot_gather_scatter)
+
+
+def onehot_gather_conv_batched(feats, rulebook, weights):
+    """(B, N, C) x (B, M, K) x (K, C, Co) → (B, M, Co): the samples
+    stacked in the row dimension with per-sample offsets, as JAX does, and
+    one :func:`onehot_gather_conv`."""
+    b, n, c = feats.shape
+    m, k = rulebook.shape[1], rulebook.shape[2]
+    base = (torch.arange(b, dtype=torch.int32, device=feats.device)
+            * n)[:, None, None]
+    rb = torch.where(rulebook >= 0, rulebook + base, -1).reshape(b * m, k)
+    out = onehot_gather_conv(feats.reshape(b * n, c), rb, weights)
+    return out.reshape(b, m, -1)
+
+
+onehot_gather_conv.launches = 0
+onehot_gather_scatter.launches = 0

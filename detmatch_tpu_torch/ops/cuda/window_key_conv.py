@@ -4,7 +4,7 @@ kernels ``csrc/window_key_conv.cu`` (replacing the TPU kernel
 ``csrc/window_key_conv_bwd.cu`` (replacing ``_bwd_fused`` there), joined
 by a ``torch.autograd.Function``, and the plain PyTorch twin
 :func:`window_key_conv_plain`, the rulebook gather-GEMM
-(``spconv.lookup_batched`` + ``spconv.gather_conv_batched``).
+(``spconv.rulebook_batched`` + ``spconv.gather_conv_batched``).
 
 Each (row, tap) neighbour key is resolved inside its own sample's key
 table. On a CPU tensor the wrapper runs the twin, and autograd
@@ -37,9 +37,8 @@ def _check_band(b, band):
 def window_key_conv_plain(feats, keys, nkeys, out_keys, weights, band):
     """Plain twin of :func:`window_key_conv_batched` (same arguments)."""
     _check_band(feats.shape[0], band)
-    b, m, k = nkeys.shape
-    rb = spconv.lookup_batched(keys, nkeys.reshape(b, m * k))
-    return spconv.gather_conv_batched(feats, rb.reshape(b, m, k), weights)
+    return spconv.gather_conv_batched(
+        feats, spconv.rulebook_batched(keys, nkeys), weights)
 
 
 def _check_args(name, feats, keys, nkeys, weights, band):

@@ -113,6 +113,15 @@ def lookup_batched(sorted_keys, queries):
     return torch.where(found, pos.to(torch.int32), -1)
 
 
+def rulebook_batched(keys, nkeys):
+    """(B, N) sorted keys, (B, M, K) neighbour keys → (B, M, K) int32 input
+    rows of each (output row, tap) in its own sample, -1 where absent:
+    the rulebook of one indice key, built once and shared by every conv
+    of that key (JAX's ``VoxelBackbone8x._rulebook``)."""
+    b, m, k = nkeys.shape
+    return lookup_batched(keys, nkeys.reshape(b, m * k)).reshape(b, m, k)
+
+
 def gather_conv_batched(feats, rulebook, weights):
     """Plain gather-GEMM sparse conv.
 

@@ -3,7 +3,9 @@ cases the main path does not reach (all-invalid rows, empty balls, empty
 samples, the size limits, argument checks), the sparse conv's backward
 kernel against autograd through its twin, the JV assignment kernel (K4)
 at sizes and validity patterns the teacher phase does not give it, and
-the key-compare conv (K5) forward and backward against their twins.
+the key-compare conv (K5) forward and backward against their twins, the
+rulebook gather-GEMM (K7, and with its bf16 flag K6's forward), K6's
+backward scatter and K8's row gather and scatter-add against theirs.
 
 Needs a CUDA card: every test is marked ``cuda`` and skips without one.
 This file imports no JAX, so it runs where JAX is not installed:
@@ -20,7 +22,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from detmatch_tpu_torch.ops import spconv, voxelize  # noqa: E402
 from detmatch_tpu_torch.ops.cuda import ball_query, fps  # noqa: E402
+from detmatch_tpu_torch.ops.cuda import gather_conv  # noqa: E402
 from detmatch_tpu_torch.ops.cuda import hungarian, key_conv  # noqa: E402
+from detmatch_tpu_torch.ops.cuda import onehot_gather  # noqa: E402
+from detmatch_tpu_torch.ops.cuda import onehot_rows  # noqa: E402
 from detmatch_tpu_torch.ops.cuda import window_key_conv  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -332,3 +337,144 @@ def test_key_conv_wrappers_check_their_arguments(dev):
         key_conv.key_conv_bwd(dout[..., :6].contiguous(), keys, nk)
     with pytest.raises(TypeError):
         key_conv.key_conv_bwd(dout.double(), keys, nk)
+
+
+def _close(a, r, tol):
+    err = float((a - r).abs().max())
+    assert err <= tol * max(float(r.abs().max()), 1e-30), err
+
+
+@pytest.mark.parametrize("kind,c,co,need_dfeats,all_invalid", [
+    ("subm", 4, 16, False, False), ("subm", 16, 16, True, False),
+    ("stride2", 64, 128, True, False), ("z3", 64, 128, True, False),
+    ("subm", 16, 32, True, True)])
+def test_gather_conv_kernel_matches_twin(dev, kind, c, co, need_dfeats,
+                                         all_invalid):
+    """K7: the forward within 1e-5 of the twin's largest magnitude, one
+    launch, and dF / dW through the autograd Function within 1e-5 of
+    autograd through the plain gather-GEMM; C * Co up to the 8,192 limit,
+    an empty sample and an all-absent rulebook."""
+    feats, keys, nk, w, dout, _ = _dense_conv_case(dev, kind, c, co,
+                                                   all_invalid)
+    rb = spconv.rulebook_batched(keys, nk)
+    gather_conv.gather_conv_batched.launches = 0
+    out = gather_conv.gather_conv_batched(feats, rb, w)
+    ref = spconv.gather_conv_batched(feats, rb, w)
+    torch.cuda.synchronize()
+    assert gather_conv.gather_conv_batched.launches == 1
+    _close(out, ref, 1e-5)
+    assert not out[2].any()
+    got = _rb_grads(gather_conv.gather_conv_batched, feats, rb, w, dout,
+                    need_dfeats)
+    want = _rb_grads(spconv.gather_conv_batched, feats, rb, w, dout,
+                     need_dfeats)
+    for a, r in zip(got, want):
+        _close(a, r, 1e-5)
+
+
+def _rb_grads(fn, feats, rb, w, dout, need_dfeats):
+    feats = feats.clone().requires_grad_(need_dfeats)
+    w = w.clone().requires_grad_(True)
+    wrt = (feats, w) if need_dfeats else (w,)
+    return torch.autograd.grad(fn(feats, rb, w), wrt, dout)
+
+
+@pytest.mark.parametrize("kind,c,co", [("subm", 16, 16),
+                                       ("stride2", 64, 128), ("z3", 32, 64)])
+def test_onehot_gather_kernels_match_twins(dev, kind, c, co):
+    """K6: the forward (the rulebook kernel with its bf16 flag) within 1e-5
+    of the twin, S of the backward kernel equal to the twin's exactly on a
+    spconv rulebook, and dF / dW through the autograd Function within
+    1e-5; one launch of each."""
+    feats, keys, nk, w, dout, _ = _dense_conv_case(dev, kind, c, co)
+    rb = spconv.rulebook_batched(keys, nk)
+    onehot_gather.onehot_gather_conv.launches = 0
+    onehot_gather.onehot_gather_scatter.launches = 0
+    got = _rb_grads(onehot_gather.onehot_gather_conv_batched, feats, rb, w,
+                    dout, True)
+    torch.cuda.synchronize()
+    assert onehot_gather.onehot_gather_conv.launches == 1
+    assert onehot_gather.onehot_gather_scatter.launches == 1
+    b, m, k = rb.shape
+    flat = torch.where(rb >= 0, rb + 2000 * torch.arange(
+        b, device=dev, dtype=torch.int32)[:, None, None], -1).reshape(-1, k)
+    out = onehot_gather.onehot_gather_conv(feats.reshape(-1, c), flat, w)
+    ref = onehot_gather.onehot_gather_forward_plain(feats.reshape(-1, c),
+                                                    flat, w)
+    _close(out, ref, 1e-5)
+    d = dout.reshape(-1, co)
+    s = onehot_gather.onehot_gather_scatter(d, flat, b * 2000)
+    assert torch.equal(s, onehot_gather.onehot_gather_scatter_plain(
+        d, flat, b * 2000))
+    want = _rb_grads(onehot_gather.onehot_gather_conv_plain,
+                     feats.reshape(-1, c), flat, w, d, True)
+    for a, r in zip(got, want):
+        _close(a.reshape(r.shape), r, 1e-5)
+
+
+def test_onehot_gather_scatter_sums_repeats_deterministically(dev):
+    """A rulebook with repeated rows (up to ~60 writers per slot), -1 and
+    out-of-range entries: S equals the CPU twin's sequential sum bit for
+    bit, and two launches give the same bits."""
+    g = torch.Generator().manual_seed(7)
+    rb = torch.randint(-1, 600, (30000, 27), generator=g, dtype=torch.int32)
+    rb[::5, 4] = 700
+    dout = torch.randn(30000, 24, generator=g)
+    want = onehot_gather.onehot_gather_scatter_plain(dout, rb, 650)
+    s1 = onehot_gather.onehot_gather_scatter(dout.to(dev), rb.to(dev), 650)
+    s2 = onehot_gather.onehot_gather_scatter(dout.to(dev), rb.to(dev), 650)
+    assert torch.equal(s1, s2)
+    assert torch.equal(s1.cpu(), want)
+
+
+@pytest.mark.parametrize("b,n,c,q", [(3, 2048, 128, 20000), (2, 50, 3, 90000),
+                                     (1, 18000, 16, 4096)])
+def test_onehot_rows_kernels_match_twins(dev, b, n, c, q):
+    """K8: the gather equal to the twin bit for bit (-1 and indices at and
+    beyond N give zero rows); the scatter-add equal to the CPU twin's
+    sequential sum bit for bit with thousands of repeats per row, and the
+    same on a second launch; one launch each through the autograd
+    Function."""
+    g = torch.Generator().manual_seed(8)
+    x = torch.randn(b, n, c, generator=g)
+    idx = torch.randint(-1, n + 3, (b, q), generator=g, dtype=torch.int32)
+    dout = torch.randn(b, q, c, generator=g)
+    xd, idd, dd = x.to(dev), idx.to(dev), dout.to(dev)
+    onehot_rows.onehot_take_rows_batched.launches = 0
+    onehot_rows.onehot_scatter_rows.launches = 0
+    xg = xd.clone().requires_grad_()
+    out = onehot_rows.onehot_take_rows_batched(xg, idd)
+    (dx,) = torch.autograd.grad(out, (xg,), dd)
+    torch.cuda.synchronize()
+    assert onehot_rows.onehot_take_rows_batched.launches == 1
+    assert onehot_rows.onehot_scatter_rows.launches == 1
+    assert torch.equal(out, onehot_rows.take_rows_plain(xd, idd))
+    want = onehot_rows.scatter_rows_plain(dout, idx, n)
+    assert torch.equal(dx.cpu(), want)
+    assert torch.equal(onehot_rows.onehot_scatter_rows(dd, idd, n), dx)
+    assert torch.equal(onehot_rows.onehot_take_rows(xd[0], idd[0]), out[0])
+
+
+def test_onehot_wrappers_check_their_arguments(dev):
+    """Types, shapes and the rulebook kernel's channel limits."""
+    feats, keys, nk, w, dout, _ = _dense_conv_case(dev, "subm", 16, 16)
+    rb = spconv.rulebook_batched(keys, nk)
+    with pytest.raises(ValueError):  # C = 65 above the kernel's limit
+        gather_conv.gather_conv_batched(
+            torch.zeros(3, 2000, 65, device=dev), rb,
+            torch.zeros(27, 65, 8, device=dev))
+    with pytest.raises(TypeError):
+        gather_conv.gather_conv_batched(feats, rb.long(), w)
+    with pytest.raises(ValueError):  # weights do not match K
+        onehot_gather.onehot_gather_conv(feats[0], rb[0], w[:3].contiguous())
+    with pytest.raises(ValueError):  # dout rows do not match the rulebook
+        onehot_gather.onehot_gather_scatter(dout[0, :10], rb[0], 2000)
+    x = torch.zeros(2, 40, 8, device=dev)
+    idx = torch.zeros(2, 9, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        onehot_rows.onehot_take_rows_batched(x, idx.long())
+    with pytest.raises(ValueError):
+        onehot_rows.onehot_take_rows_batched(x, idx[:1])
+    with pytest.raises(ValueError):
+        onehot_rows.onehot_scatter_rows(torch.zeros(2, 8, 8, device=dev),
+                                        idx, 40)

@@ -5,9 +5,10 @@
   ``detmatch_tpu``;
 * the port's config loader and synthetic frames import only the standard
   library and numpy;
-* on CPU tensors each kernel wrapper runs its plain twin and leaves its
-  launch counter at 0; on any other non-CUDA device it raises, the
-  sparse convs' backward wrappers included;
+* on CPU tensors each kernel wrapper (the model ops of ``Ops`` and the
+  one-hot ops K6 and K8) runs its plain twin and leaves its launch
+  counter at 0; on any other non-CUDA device it raises, the backward
+  wrappers included;
 * no wrapper wraps a launch in ``try``/``except`` (no silent fallback).
 """
 import ast
@@ -22,7 +23,10 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 from detmatch_tpu_torch.ops import cuda as cuda_ops  # noqa: E402
+from detmatch_tpu_torch.ops import spconv  # noqa: E402
 from detmatch_tpu_torch.ops.cuda import build  # noqa: E402
+from detmatch_tpu_torch.ops.cuda import onehot_gather  # noqa: E402
+from detmatch_tpu_torch.ops.cuda import onehot_rows  # noqa: E402
 
 PORT_FILES = (sorted((ROOT / "detmatch_tpu_torch").rglob("*.py"))
               + sorted((ROOT / "tools" / "port_probes").glob("*.py"))
@@ -119,14 +123,34 @@ def _cpu_inputs():
                                  torch.arange(6).expand(2, -1) < 4),
         "key_conv_batched": (torch.rand(2, 64, 4, generator=g), keys, nkeys,
                              torch.rand(3, 4, 8, generator=g), 1000),
+        "gather_conv_batched": (torch.rand(2, 64, 4, generator=g),
+                                spconv.rulebook_batched(keys, nkeys),
+                                torch.rand(3, 4, 8, generator=g)),
+        "onehot_gather_conv": (torch.rand(64, 4, generator=g),
+                               spconv.rulebook_batched(keys, nkeys)[0],
+                               torch.rand(3, 4, 8, generator=g)),
+        "onehot_take_rows_batched": (
+            torch.rand(2, 64, 4, generator=g),
+            torch.randint(-1, 70, (2, 30), generator=g, dtype=torch.int32)),
     }
 
 
-@pytest.mark.parametrize("name", cuda_ops.Ops._fields)
+# wrapper name -> (wrapper, its plain twin); the launch counter has the
+# wrapper's name
+WRAPPERS = {
+    **{name: (getattr(cuda_ops.KERNELS, name), getattr(cuda_ops.PLAIN, name))
+       for name in cuda_ops.Ops._fields},
+    "onehot_gather_conv": (onehot_gather.onehot_gather_conv,
+                           onehot_gather.onehot_gather_conv_plain),
+    "onehot_take_rows_batched": (onehot_rows.onehot_take_rows_batched,
+                                 onehot_rows.onehot_take_rows_plain),
+}
+
+
+@pytest.mark.parametrize("name", WRAPPERS)
 def test_wrapper_takes_plain_path_on_cpu(name):
     args = _cpu_inputs()[name]
-    kernel = getattr(cuda_ops.KERNELS, name)
-    plain = getattr(cuda_ops.PLAIN, name)
+    kernel, plain = WRAPPERS[name]
     cuda_ops.reset_launch_counts()
     out, ref = kernel(*args), plain(*args)
     for a, b in zip(out if isinstance(out, tuple) else (out,),
@@ -135,7 +159,7 @@ def test_wrapper_takes_plain_path_on_cpu(name):
     assert cuda_ops.launch_counts()[name] == 0
 
 
-@pytest.mark.parametrize("name", cuda_ops.Ops._fields)
+@pytest.mark.parametrize("name", WRAPPERS)
 def test_wrapper_raises_off_cpu_without_cuda(name):
     """A tensor that is not on the CPU never reaches the plain twin: here
     (no card) the wrapper must raise rather than compute."""
@@ -143,7 +167,7 @@ def test_wrapper_raises_off_cpu_without_cuda(name):
             for a in _cpu_inputs()[name]]
     cuda_ops.reset_launch_counts()
     with pytest.raises((ValueError, TypeError, RuntimeError)):
-        getattr(cuda_ops.KERNELS, name)(*args)
+        WRAPPERS[name][0](*args)
     assert cuda_ops.launch_counts()[name] == 0
 
 
@@ -179,13 +203,32 @@ def test_key_conv_backward_wrapper_raises_off_cuda():
     assert cuda_ops.launch_counts()["key_conv_bwd"] == 0
 
 
+@pytest.mark.parametrize("name", ["onehot_gather_scatter",
+                                  "onehot_scatter_rows"])
+def test_onehot_backward_wrappers_raise_off_cuda(name):
+    """The backward kernels of K6 and K8 have no CPU path either."""
+    fn = getattr(cuda_ops, name)
+    if name == "onehot_gather_scatter":
+        _, rb, _ = _cpu_inputs()["onehot_gather_conv"]
+        args = (torch.zeros(64, 8), rb)
+    else:
+        _, idx = _cpu_inputs()["onehot_take_rows_batched"]
+        args = (torch.zeros(2, 30, 4), idx)
+    cuda_ops.reset_launch_counts()
+    for dev in ("cpu", "meta"):
+        with pytest.raises((ValueError, TypeError, RuntimeError)):
+            fn(*(a.to(dev) for a in args), 64)
+    assert cuda_ops.launch_counts()[name] == 0
+
+
 def test_build_is_keyed_by_sources_and_fails_loudly(monkeypatch, tmp_path):
     lib = build.library_path()
     assert lib.parent == ROOT / "build" / "kernels"
     assert lib == build.library_path()  # stable for an unchanged tree
     assert {p.name for p in build.CSRC_DIR.glob("*.cu")} >= {
         "window_key_conv.cu", "window_key_conv_bwd.cu", "fps.cu",
-        "ball_query.cu"}
+        "ball_query.cu", "hungarian_jv.cu", "key_conv.cu", "gather_conv.cu",
+        "onehot_gather.cu", "onehot_rows.cu"}
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):

@@ -125,7 +125,7 @@ def test_key_scatter_matches_jax_and_has_one_writer_per_slot():
         jnp.asarray(nk_f.astype(np.int32)), b * n)
     s = key_conv.key_scatter_plain(torch.from_numpy(dout), keys, nkeys)
     np.testing.assert_array_equal(s.numpy(), np.asarray(ref))
-    rb = key_conv._rulebook(keys, nkeys)
+    rb = spconv.rulebook_batched(keys, nkeys)
     bi, mi, ki = (rb >= 0).nonzero(as_tuple=True)
     added = torch.zeros_like(s).index_put_(
         (ki, bi * n + rb[bi, mi, ki].long()),
