@@ -72,13 +72,16 @@ Phases (any failure exits non-zero without printing the result line):
    levels within 1e-5 of the window path's on the same B=8 student
    input); the one-hot ops K6 and K8, which no model calls, replayed on
    that forward's operands (K6 on its 12 student rulebooks: forward
-   within 1e-5, S exactly, dF and dW equal given the same S; K8 on every
-   ``pointnet.gather_rows`` call: the gather exactly, the scatter-add
-   within 1e-5), each timed against its twin and, for K8, against the
-   one PyTorch call that computes it (the table's and the rounded rows'
-   preparation excluded); CUDA-event timings of the iteration and its
-   split on the three conv paths, peak memory, and each kernel per
-   iteration;
+   within 1e-5, S exactly and every call through the direct path, dF and
+   dW equal given the same S; a rulebook with repeats through the sorted
+   path, S equal to the CPU twin's; K8 on every ``pointnet.gather_rows``
+   call: the gather exactly, the scatter-add within 1e-5 and, where a
+   slot has more than ``CHUNK`` pairs, bit-equal over two launches), each
+   timed against its twin and against the one PyTorch call that computes
+   it (the table's and the rounded rows' preparation excluded), with the
+   share of K8's stable sort and K6's path per call; CUDA-event timings
+   of the iteration and its split on the three conv paths, peak memory,
+   and each kernel per iteration;
 10. a JSON line of the kernels (per SSL iteration, with their bounds;
    K6 and K8 over the replayed calls, with 0 launches on the model
    path), then the result line.
@@ -183,7 +186,7 @@ KERNEL_META = {
         source="detmatch_tpu_torch/csrc/onehot_rows.cu",
         replaces="detmatch_tpu/ops/pallas/onehot_rows.py:149"),
     "onehot_scatter_rows": dict(
-        source="detmatch_tpu_torch/csrc/onehot_rows.cu",
+        source="detmatch_tpu_torch/csrc/segment_sum.cu",
         replaces="detmatch_tpu/ops/pallas/onehot_rows.py:201"),
 }
 
@@ -1998,7 +2001,7 @@ def onehot_phase(card, stats, rb_calls, row_calls, main_launches):
                            device=DEVICE)
         rows.append((x.contiguous(), idx, dout))
     ok = len(convs) == 12 and len(rows) > 0
-    flats = []
+    flats, hot = [], 0
     cuda_ops.reset_launch_counts()
     for i, (feats, rb, w, dout) in enumerate(convs):
         b, n, c = feats.shape
@@ -2015,7 +2018,9 @@ def onehot_phase(card, stats, rb_calls, row_calls, main_launches):
             fl = (feats.reshape(b * n, c), flat, w, dout.reshape(b * m, co))
             flats.append(fl)
             ref = og.onehot_gather_forward_plain(*fl[:3])
+            direct = og.onehot_gather_scatter.direct
             s_k = og.onehot_gather_scatter(fl[3], flat, b * n)
+            direct = og.onehot_gather_scatter.direct - direct
             s_p = og.onehot_gather_scatter_plain(fl[3], flat, b * n)
             p_f, p_w = key_conv_grads(s_p, fl[0][None], w)
         torch.cuda.synchronize()
@@ -2023,7 +2028,7 @@ def onehot_phase(card, stats, rb_calls, row_calls, main_launches):
         exact = torch.equal(s_k, s_p)
         same = (torch.equal(d_f.reshape(b * n, c), p_f[0])
                 and torch.equal(d_w, p_w))
-        good = err <= CONV_RTOL and exact and same
+        good = err <= CONV_RTOL and exact and same and direct == 1
         ok &= good
         for name, e in (
                 ("onehot_gather_conv", (out.reshape(b * m, co) - ref).abs()
@@ -2034,8 +2039,9 @@ def onehot_phase(card, stats, rb_calls, row_calls, main_launches):
             st["max_abs_err"] = max(st["max_abs_err"], float(e))
         print(f"  K6 student conv[{i}] feats {tuple(feats.shape)} rulebook "
               f"{tuple(rb.shape)} Co={co}: forward rel_err={err:.3e}, S "
-              f"exact={exact}, autograd dF and dW equal to the twin's S "
-              f"einsums={same} {'ok' if good else 'FAIL'}")
+              f"exact={exact} ({'direct' if direct else 'sorted'} path), "
+              f"autograd dF and dW equal to the twin's S einsums={same} "
+              f"{'ok' if good else 'FAIL'}")
         del out, d_f, d_w, ref, s_k, s_p, p_f, p_w, f, ww
     for i, (x, idx, dout) in enumerate(rows):
         n = x.shape[1]
@@ -2045,10 +2051,18 @@ def onehot_phase(card, stats, rb_calls, row_calls, main_launches):
         with torch.no_grad():
             ref_rows = orows.take_rows_plain(x, idx)
             ref = orows.scatter_rows_plain(dout, idx, n)
+            ok_ = (idx >= 0) & (idx < n)
+            base = (torch.arange(x.shape[0], device=DEVICE) * n)[:, None]
+            most = int(torch.bincount((idx.long() + base)[ok_]).max()) \
+                if ok_.any() else 0
+            # a slot of several chunks: a second launch gives the same bits
+            repeat = (torch.equal(orows.onehot_scatter_rows(dout, idx, n), dx)
+                      if most > orows.CHUNK else None)
+            hot += repeat is not None
         torch.cuda.synchronize()
         exact = torch.equal(out, ref_rows)
         err = rel_err(dx, ref)
-        good = exact and err <= CONV_RTOL
+        good = exact and err <= CONV_RTOL and repeat is not False
         ok &= good
         for name, e in (("onehot_take_rows_batched",
                          (out - ref_rows).abs().max()),
@@ -2057,22 +2071,57 @@ def onehot_phase(card, stats, rb_calls, row_calls, main_launches):
             st["cases"] += 1
             st["max_abs_err"] = max(st["max_abs_err"], float(e))
         print(f"  K8 gather_rows[{i}] table {tuple(x.shape)} idx "
-              f"{tuple(idx.shape)}: gather exact={exact}, autograd scatter "
-              f"rel_err={err:.3e} {'ok' if good else 'FAIL'}")
+              f"{tuple(idx.shape)} (most repeats of one index {most}): "
+              f"gather exact={exact}, autograd scatter rel_err={err:.3e}"
+              + ("" if repeat is None else
+                 f", a second launch bit-equal={repeat}")
+              + f" {'ok' if good else 'FAIL'}")
         del out, dx, ref_rows, ref, xg
     launches = cuda_ops.launch_counts()
-    # S once in the autograd backward, once more for its exact check
+    paths = dict(direct=og.onehot_gather_scatter.direct,
+                 sorted=og.onehot_gather_scatter.sorted)
+    # S once in the autograd backward, once more for its exact check; the
+    # hot K8 calls' scatter once more for their second launch
     replayed = dict(onehot_gather_conv=len(convs),
                     onehot_gather_scatter=len(convs),
                     onehot_take_rows_batched=len(rows),
                     onehot_scatter_rows=len(rows))
-    expect = dict(replayed, onehot_gather_scatter=2 * len(convs))
+    expect = dict(replayed, onehot_gather_scatter=2 * len(convs),
+                  onehot_scatter_rows=len(rows) + hot)
     print(f"  launches in the replay: "
-          f"{ {n: launches[n] for n in ONEHOT_KERNELS} }; expected {expect}")
-    if not ok or any(launches[n] != c for n, c in expect.items()):
+          f"{ {n: launches[n] for n in ONEHOT_KERNELS} }; expected {expect}; "
+          f"K6's S paths {paths}, expected all {2 * len(convs)} direct on "
+          f"the {len(convs)} student rulebooks; {hot} K8 calls with a slot "
+          f"of more than {orows.CHUNK} pairs")
+    if (not ok or any(launches[n] != c for n, c in expect.items())
+            or paths != dict(direct=2 * len(convs), sorted=0)):
         raise AssertionError("K6 or K8 disagrees with its twin on the main "
-                             "path's operands, or was not launched once a "
-                             "call")
+                             "path's operands, was not launched once a "
+                             "call, or K6's S left the direct path")
+
+    # K6's sorted path: a rulebook with repeated rows (up to ~60 writers a
+    # slot), -1 and out-of-range entries, against the CPU twin
+    gc = torch.Generator().manual_seed(7)
+    rb_rep = torch.randint(-1, 600, (30000, 27), generator=gc,
+                           dtype=torch.int32)
+    rb_rep[::5, 4] = 700
+    d_rep = torch.randn(30000, 24, generator=gc)
+    want = og.onehot_gather_scatter_plain(d_rep, rb_rep, 650)
+    before = og.onehot_gather_scatter.sorted
+    with torch.no_grad():
+        got = og.onehot_gather_scatter(d_rep.to(DEVICE), rb_rep.to(DEVICE),
+                                       650).cpu()
+    sorted_path = og.onehot_gather_scatter.sorted - before == 1
+    exact = torch.equal(got, want)
+    st = stats["onehot_gather_scatter"]
+    st["cases"] += 1
+    st["max_abs_err"] = max(st["max_abs_err"],
+                            float((got - want).abs().max()))
+    print(f"  K6 S on a rulebook with repeats (30000, 27), N=650: sorted "
+          f"path={sorted_path}, equal to the CPU twin={exact} "
+          f"{'ok' if sorted_path and exact else 'FAIL'}")
+    if not (sorted_path and exact):
+        raise AssertionError("K6's sorted path disagrees with the CPU twin")
 
     phase(f"K6 and K8: timing (CUDA events) on {card}")
     per = {n: dict(ms=0.0, plain_ms=0.0, launches=main_launches[n],
@@ -2097,11 +2146,18 @@ def onehot_phase(card, stats, rb_calls, row_calls, main_launches):
                      .index_add_(0, slots, rounded),
                      (dout, flat, n_total), FP32_FLOP_PER_S)):
                 t = per[name]
-                t["ms"] += cuda_ms(lambda: kern(*args), reps=5)
+                sorted0 = og.onehot_gather_scatter.sorted
+                ms = cuda_ms(lambda: kern(*args), reps=5)
+                t["ms"] += ms
                 t["plain_ms"] += cuda_ms(lambda: plain(*args), reps=2)
                 if lib is not None:
-                    t["library_ms"] = (t.get("library_ms", 0.0)
-                                       + cuda_ms(lib, reps=5))
+                    lib_ms = cuda_ms(lib, reps=5)
+                    t["library_ms"] = t.get("library_ms", 0.0) + lib_ms
+                    path = ("direct" if og.onehot_gather_scatter.sorted
+                            == sorted0 else "sorted")
+                    print(f"    {name} rulebook {tuple(flat.shape)} N="
+                          f"{n_total} Co={co} ({path} path): {ms:.3f} ms, "
+                          f"library {lib_ms:.3f} ms")
                 add_bound(t, *work(name, args, {}), rate)
             del mi, ki, slots, rounded
         for x, idx, dout in rows:
@@ -2132,10 +2188,17 @@ def onehot_phase(card, stats, rb_calls, row_calls, main_launches):
                 t["plain_ms"] += cuda_ms(lambda: plain(*args), reps=2)
                 t["library_ms"] = t.get("library_ms", 0.0) + lib_ms
                 add_bound(t, *work(name, args, {}))
+                share = ""
+                if name == "onehot_scatter_rows":
+                    keys = orows.slot_keys(name, idx, idx.shape[1], b, n)
+                    sort_ms = cuda_ms(lambda: torch.sort(keys, stable=True),
+                                      reps=5)
+                    share = (f", its stable sort {sort_ms:.3f} ms = "
+                             f"{sort_ms / ms:.1%} of it")
                 print(f"    {name} table {tuple(x.shape)} idx "
                       f"{tuple(idx.shape)} (most repeats of one index "
                       f"{int(torch.bincount(slots, minlength=1).max())}): "
-                      f"{ms:.3f} ms, library {lib_ms:.3f} ms")
+                      f"{ms:.3f} ms{share}, library {lib_ms:.3f} ms")
     for name in ONEHOT_KERNELS:
         lib = per[name].get("library_ms")
         print(f"  {name}: {describe(per[name])}"

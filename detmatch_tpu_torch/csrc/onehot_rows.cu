@@ -1,25 +1,23 @@
-// Row gather with bf16 rounding, and its transpose (K8):
-//   gather:  out[b, q] = bf16(x[b, idx[b, q]])   (0 where idx is outside
-//            [0, N): -1, or padding)
-//   scatter: dx[b, n] = sum_q 1[idx[b, q] == n] * bf16(dout[b, q])
-//            (fp32 sums; out-of-range indices dropped)
+// Row gather with bf16 rounding (K8's forward):
+//   out[b, q] = bf16(x[b, idx[b, q]])   (0 where idx is outside [0, N): -1,
+//               or padding)
+// Its transpose, the scatter-add dx[b, n] = sum_q 1[idx[b, q] == n] *
+// bf16(dout[b, q]), is the chunked segment sum of csrc/segment_sum.cu.
 //
 // Replaces the TPU kernels of detmatch_tpu/ops/pallas/onehot_rows.py:
-// _gather_fwd (pallas_call at :62), _scatter_add (:114), and their
-// batched forms _gather_fwd_batched (:162) and _scatter_add_batched
-// (:208). They form the gather as a one-hot matmul over the whole table
-// (O(Q * N * C) MACs on the TPU's matrix unit) and the scatter as its
-// transpose; the one match of each row gives bf16(x[idx]) exactly, so the
-// gather here reads the row by index. Ball-query indices repeat (thousands
-// of times per row in RoI-grid pooling): the wrapper stably sorts the
-// pairs by slot b * N + idx, and the scatter sums each slot in ascending q
-// (csrc/segment_sum.cuh), deterministic and with no float atomics.
+// _gather_fwd (pallas_call at :62) and its batched form
+// _gather_fwd_batched (:162). They form the gather as a one-hot matmul
+// over the whole table (O(Q * N * C) MACs on the TPU's matrix unit); the
+// one match of each row gives bf16(x[idx]) exactly, so the gather here
+// reads the row by index.
 //
-// What bounds it on the H100: bytes. The gather reads B * Q indices and
-// writes B * Q * C floats (~3.5 M rows at the RoI-grid shape); the scatter
-// reads as many and writes B * N * C. Design: one thread per output
-// element, the channels of one row on neighbouring threads.
-#include "segment_sum.cuh"
+// What bounds it on the H100: bytes. The gather reads the B * Q indices
+// and the table rows they reach and writes B * Q * C floats (~3.5 M rows
+// at the RoI-grid shape). Design: one thread per output element, the
+// channels of one row on neighbouring threads.
+#include <cuda_bf16.h>
+
+#include "common.cuh"
 
 namespace {
 
@@ -52,19 +50,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    onehot_scatter_rows_kernel(const float* __restrict__ dout,
-                               const int32_t* __restrict__ order,
-                               const int32_t* __restrict__ offsets,
-                               float* __restrict__ dx, int64_t total,
-                               int c) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t e = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-       e < total; e += stride) {
-    dx[e] = dm::segment_sum_bf16(dout, order, offsets, 1, c, e);
-  }
-}
-
 }  // namespace
 
 // x (b, n, c) f32, idx (b, q) int32 → out (b, q, c) f32.
@@ -76,18 +61,5 @@ DM_EXPORT int dm_onehot_take_rows(const float* x, const int32_t* idx,
   if (total == 0) return cudaSuccess;
   onehot_take_rows_kernel<<<grid_for(total), kThreads, 0, stream>>>(
       x, idx, out, n, q, c, total);
-  return cudaGetLastError();
-}
-
-// dout (b * q, c) f32; order (b * q,) int32 sorted stably by slot
-// b * n + idx; offsets (slots + 1,) int32 → dx (slots, c) f32, slots = b * n.
-DM_EXPORT int dm_onehot_scatter_rows(const float* dout, const int32_t* order,
-                                     const int32_t* offsets, float* dx,
-                                     int slots, int c, cudaStream_t stream) {
-  if (slots < 0 || c <= 0) return cudaErrorInvalidValue;
-  const int64_t total = static_cast<int64_t>(slots) * c;
-  if (total == 0) return cudaSuccess;
-  onehot_scatter_rows_kernel<<<grid_for(total), kThreads, 0, stream>>>(
-      dout, order, offsets, dx, total, c);
   return cudaGetLastError();
 }

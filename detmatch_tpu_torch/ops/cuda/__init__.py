@@ -14,7 +14,9 @@ differentiates them (the key conv's twin through JAX's own backward): it
 exists only for verification, where ``chip_smoke.py`` sets
 ``model.ops = PLAIN`` to check the kernels against their twins end to
 end on the card. ``LAUNCHERS`` also holds the wrappers of the one-hot
-ops K6 and K8 (``onehot_gather``, ``onehot_rows``), which no model calls.
+ops K6 and K8 (``onehot_gather``, ``onehot_rows``), which no model calls;
+K6's S also counts its two paths (``onehot_gather_scatter.direct`` and
+``.sorted``).
 """
 from __future__ import annotations
 
@@ -53,6 +55,7 @@ LAUNCHERS = (*KERNELS, window_key_conv_bwd, key_conv_bwd, onehot_gather_conv,
 def reset_launch_counts():
     for fn in LAUNCHERS:
         fn.launches = 0
+    onehot_gather_scatter.direct = onehot_gather_scatter.sorted = 0
 
 
 def launch_counts():

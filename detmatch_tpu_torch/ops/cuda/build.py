@@ -49,9 +49,10 @@ SIGNATURES = {
     "dm_key_conv_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "dm_key_conv_bwd_scatter": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "dm_gather_conv_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    "dm_onehot_gather_scatter": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "dm_onehot_gather_direct": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "dm_onehot_take_rows": (_P, _P, _P, _I, _I, _I, _I, _P),
-    "dm_onehot_scatter_rows": (_P, _P, _P, _P, _I, _I, _P),
+    "dm_slot_keys": (_P, _P, _I, _I, _I, _I, _P),
+    "dm_segment_sum_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -1,19 +1,26 @@
 """Rulebook sparse conv with bf16 operands and fp32 sums (K6): the CUDA
 kernels ``csrc/gather_conv.cu`` with its bf16 flag (replacing the TPU
 kernel ``detmatch_tpu/ops/pallas/onehot_gather.py:_onehot_gather_conv_fwd``)
-and ``csrc/onehot_gather.cu`` (replacing ``_scatter_all_taps`` there),
-their plain PyTorch twins, and one ``torch.autograd.Function`` whose
-backward is JAX's ``_vjp_bwd``, with JAX's signatures
-``onehot_gather_conv(feats, rulebook, weights)`` and
+and ``csrc/onehot_gather.cu`` with ``csrc/segment_sum.cu`` (replacing
+``_scatter_all_taps`` there), their plain PyTorch twins, and one
+``torch.autograd.Function`` whose backward is JAX's ``_vjp_bwd``, with
+JAX's signatures ``onehot_gather_conv(feats, rulebook, weights)`` and
 ``onehot_gather_conv_batched``.
 
 The function is JAX's: the forward sums bf16(F[rb[m, k]]) . bf16(W_k) in
 fp32 over the taps with an input row (``rb`` in [0, N); the one-hot
 matmul gives exactly that row, so both gather by index here); the
 backward forms S[k, n] = sum_m 1[rb[m, k] == n] * bf16(dout[m]) in fp32
-(the kernel, deterministic for any rulebook) and takes dF = sum_k S_k W_k^T
-and dW_k = F^T S_k as fp32 matmuls of the unrounded F and W outside it,
-as JAX does. Like JAX's, no model calls it.
+and takes dF = sum_k S_k W_k^T and dW_k = F^T S_k as fp32 matmuls of the
+unrounded F and W outside the kernel, as JAX does. Like JAX's, no model
+calls it.
+
+S has two paths with one result (:func:`onehot_gather_scatter`): a
+direct store where each (tap, row) slot has at most one writer, as in
+every spconv rulebook, and otherwise K8's chunked segment sum in its
+stated order (``onehot_rows.segment_sum``; within a slot ascending m,
+chunks of ``onehot_rows.CHUNK`` pairs summed from 0, then the chunk sums
+in order), deterministic for any rulebook. The twin follows that order.
 
 On a CPU tensor the wrappers run the twins; on a CUDA tensor they launch
 the kernels or raise, with no fallback.
@@ -25,7 +32,7 @@ import torch
 from .. import spconv
 from . import build, gather_conv
 from .key_conv import _bf16, key_conv_grads
-from .onehot_rows import segments
+from .onehot_rows import segment_sum, segment_sum_plain, slot_keys
 
 
 def onehot_gather_forward_plain(feats, rulebook, weights):
@@ -50,10 +57,9 @@ def onehot_gather_scatter_plain(dout, rulebook, n_total):
     """Plain twin of the backward kernel: S (K, N, Co) float32."""
     m, k = rulebook.shape
     co = dout.shape[-1]
-    s = dout.new_zeros((k * n_total + 1, co))
     rows = _bf16(dout)[:, None].expand(m, k, co).reshape(m * k, co)
-    s.index_add_(0, _tap_slots(rulebook, n_total).long(), rows)
-    return s[:-1].reshape(k, n_total, co)
+    return segment_sum_plain(rows, _tap_slots(rulebook, n_total),
+                             k * n_total).reshape(k, n_total, co)
 
 
 def _launch_fwd(feats, rulebook, weights):
@@ -64,25 +70,42 @@ def _launch_fwd(feats, rulebook, weights):
 
 
 def onehot_gather_scatter(dout, rulebook, n_total):
-    """The backward kernel on the card: S (K, N, Co) float32 from dout
-    (M, Co) float32 and the rulebook (M, K) int32."""
+    """The backward kernels on the card: S (K, N, Co) float32 from dout
+    (M, Co) float32 and the rulebook (M, K) int32.
+
+    A claim kernel maps each (tap, row) slot to its writer and flags a
+    slot with two; a fill kernel, queued behind it, stores
+    bf16(dout[writer]) a slot. Reading the flag then costs one host
+    synchronisation per call. Without repeats that S is the result
+    (counted in ``.direct``); with them, the chunked segment sum of the
+    sorted pairs writes every element of S again (``.sorted``).
+    ``.launches`` counts both."""
     name = "onehot_gather_scatter"
     dev = build.require_cuda(name, dout, rulebook)
     build.require_dtype(name, dout, torch.float32, "dout")
     build.require_dtype(name, rulebook, torch.int32, "rulebook")
     m, k = rulebook.shape
     co = dout.shape[-1]
-    if dout.shape != (m, co) or co == 0 or k * n_total >= 2 ** 31 - 1:
-        raise ValueError(f"{name}: needs dout (M, Co) with Co > 0, "
-                         "rulebook (M, K) and K * N below 2^31 - 1")
-    order, offsets = segments(_tap_slots(rulebook, n_total), k * n_total)
-    s = torch.empty((k, n_total, co), dtype=torch.float32, device=dev)
+    slots = k * n_total
+    if (dout.shape != (m, co) or not 0 < co <= (1024 if co % 4 == 0
+                                                  else 256)
+            or slots * co >= 2 ** 31 or m * k >= 2 ** 30):
+        raise ValueError(f"{name}: needs dout (M, Co) with Co in [1, 256] "
+                         "(up to 1024 if 4 divides it), rulebook (M, K), "
+                         "K * N * Co below 2^31 and M * K below 2^30")
     lib = build.load_library()
-    err = lib.dm_onehot_gather_scatter(
-        build.ptr(dout), build.ptr(order), build.ptr(offsets), build.ptr(s),
-        k, k * n_total, co, build.stream(dev))
+    inv = torch.empty(slots + 1, dtype=torch.int32, device=dev)  # + flag
+    s = torch.empty((k, n_total, co), dtype=torch.float32, device=dev)
+    build.check(lib, lib.dm_onehot_gather_direct(
+        build.ptr(rulebook), build.ptr(dout), build.ptr(inv), build.ptr(s),
+        m, k, n_total, co, build.stream(dev)), name)
+    if inv[slots].item() < 0:
+        onehot_gather_scatter.direct += 1
+    else:
+        keys = slot_keys(name, rulebook, 1, k, n_total)
+        segment_sum(name, dout, keys, k, slots, s)
+        onehot_gather_scatter.sorted += 1
     onehot_gather_scatter.launches += 1
-    build.check(lib, err, name)
     return s
 
 
@@ -138,3 +161,5 @@ def onehot_gather_conv_batched(feats, rulebook, weights):
 
 onehot_gather_conv.launches = 0
 onehot_gather_scatter.launches = 0
+onehot_gather_scatter.direct = 0   # calls that took the direct store
+onehot_gather_scatter.sorted = 0   # calls that took the segment sum

@@ -1,7 +1,8 @@
 """Row gather with bf16-rounded values and its scatter-add transpose (K8):
-CUDA kernels ``csrc/onehot_rows.cu`` (replacing the TPU kernels of
+CUDA kernels ``csrc/onehot_rows.cu`` (the gather) and
+``csrc/segment_sum.cu`` (the scatter), replacing the TPU kernels of
 ``detmatch_tpu/ops/pallas/onehot_rows.py``: ``_gather_fwd``,
-``_scatter_add`` and their batched forms) and their plain PyTorch twins,
+``_scatter_add`` and their batched forms; their plain PyTorch twins,
 joined by one ``torch.autograd.Function``, with JAX's signatures
 ``onehot_take_rows(x, idx)`` and ``onehot_take_rows_batched(x, idx)``.
 
@@ -9,14 +10,17 @@ The function is JAX's: the forward is ``bf16(x)[idx]`` as float32, zero
 where ``idx`` lies outside [0, N); the backward is
 ``dx[n] = sum_q 1[idx[q] == n] * bf16(dout[q])`` in float32, dropping
 out-of-range indices. JAX runs both as one-hot matmuls because TPU row
-gathers are slow; here the gather reads by index and the scatter sums
-each row's contributions in a fixed order (:func:`segments`), with no
-float atomics. Like JAX's, no model calls it: ``pointnet.gather_rows``
-stays the models' row gather.
+gathers are slow; here the gather reads by index and the scatter is the
+chunked segment sum that K6's backward shares (:func:`segment_sum`), with
+no float atomics, in one stated order: within a slot the pairs keep
+ascending q and are cut into consecutive chunks of at most :data:`CHUNK`;
+each chunk is summed in fp32 from 0, then the chunk sums in chunk order
+from 0. A slot of at most ``CHUNK`` pairs is one sequential sum. The twin
+(:func:`segment_sum_plain`) follows the same order. Like JAX's, no model
+calls it: ``pointnet.gather_rows`` stays the models' row gather.
 
-On a CPU tensor the wrappers run the twins (an index gather and
-``index_add_`` of the rounded values); on a CUDA tensor they launch the
-kernels or raise, with no fallback.
+On a CPU tensor the wrappers run the twins; on a CUDA tensor they launch
+the kernels or raise, with no fallback.
 """
 from __future__ import annotations
 
@@ -25,15 +29,70 @@ import torch
 from . import build
 from .key_conv import _bf16
 
+# pairs per chunk of the segment sum, read by the kernels and the twins
+CHUNK = 256
 
-def segments(keys, slots):
-    """Order of the pairs sorted stably by their slot ``keys`` (int32,
-    ``slots`` or more = dropped), and each slot's [start, end) in that
-    order: (order (P,) int32, offsets (slots + 1,) int32)."""
+
+def segment_sum_plain(rows, keys, slots):
+    """Plain twin of the segment sum: out (slots, C) float32, out[s] the
+    sum of ``rows[j]`` (already rounded) over the pairs j whose int
+    ``keys[j]`` is s (``slots`` or more: dropped), in the order the kernel
+    sums: chunks of at most :data:`CHUNK` pairs in ascending j, each summed
+    from 0, then the chunk sums in chunk order (``index_add_`` adds in
+    index order on the CPU)."""
+    keys = keys.long()
     sorted_keys, order = torch.sort(keys, stable=True)
-    bounds = torch.arange(slots + 1, dtype=keys.dtype, device=keys.device)
-    offsets = torch.searchsorted(sorted_keys, bounds, out_int32=True)
-    return order.to(torch.int32), offsets
+    kept = sorted_keys < slots
+    sorted_keys, order = sorted_keys[kept], order[kept]
+    counts = torch.bincount(sorted_keys, minlength=slots)
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(sorted_keys.numel(), device=keys.device) - starts[
+        sorted_keys]
+    chunks = (counts + CHUNK - 1) // CHUNK
+    first = torch.cumsum(chunks, 0) - chunks
+    partials = rows.new_zeros((int(chunks.sum()), rows.shape[1]))
+    partials.index_add_(0, first[sorted_keys] + rank // CHUNK, rows[order])
+    out = rows.new_zeros((slots, rows.shape[1]))
+    out.index_add_(0, torch.repeat_interleave(
+        torch.arange(slots, device=keys.device), chunks), partials)
+    return out
+
+
+def segment_sum(name, rows, keys, div, slots, out):
+    """The segment-sum kernels (``csrc/segment_sum.cu``) on the card:
+    ``out`` (slots, C) float32 gets, for each slot, the sum of
+    bf16(``rows[j // div]``) over the pairs j whose int32 ``keys[j]`` is
+    that slot, in :func:`segment_sum_plain`'s order. The pairs are sorted
+    stably by slot with ``torch.sort``; the offsets, chunk sums and chunk
+    tails are one call, with no host synchronisation."""
+    pairs, cols = keys.numel(), rows.shape[-1]
+    rows_partial = 2 * (pairs // CHUNK) + 2
+    if (pairs >= 2 ** 30 or max(rows.numel(), out.numel(),
+                                rows_partial * cols) >= 2 ** 31):
+        raise ValueError(f"{name}: needs fewer than 2^30 pairs and fewer "
+                         "than 2^31 elements in the rows and the output")
+    sorted_keys, order = torch.sort(keys, stable=True)
+    offsets = torch.empty(slots + 1, dtype=torch.int32, device=keys.device)
+    partials = torch.empty((rows_partial, cols), dtype=torch.float32,
+                           device=keys.device)
+    lib = build.load_library()
+    err = lib.dm_segment_sum_bf16(
+        build.ptr(rows), build.ptr(sorted_keys), build.ptr(order),
+        build.ptr(offsets), build.ptr(partials), build.ptr(out), pairs, div,
+        cols, slots, CHUNK, build.stream(keys.device))
+    build.check(lib, err, name)
+
+
+def slot_keys(name, x, per_group, groups, n):
+    """The slot-key kernel on the card: (x.numel(),) int32 keys
+    ``g * n + x[e]`` with ``g = (e // per_group) % groups`` where x[e] is
+    in [0, n), ``groups * n`` elsewhere."""
+    keys = torch.empty(x.numel(), dtype=torch.int32, device=x.device)
+    lib = build.load_library()
+    err = lib.dm_slot_keys(build.ptr(x), build.ptr(keys), x.numel(),
+                           per_group, groups, n, build.stream(x.device))
+    build.check(lib, err, name)
+    return keys
 
 
 def _slots(idx, n):
@@ -58,9 +117,8 @@ def take_rows_plain(x, idx):
 def scatter_rows_plain(dout, idx, n):
     """Plain twin of the scatter kernel: dx (B, N, C) float32."""
     b, _, c = dout.shape
-    dx = dout.new_zeros((b * n + 1, c))
-    dx.index_add_(0, _slots(idx, n).long(), _bf16(dout).reshape(-1, c))
-    return dx[:-1].reshape(b, n, c)
+    return segment_sum_plain(_bf16(dout).reshape(-1, c), _slots(idx, n),
+                             b * n).reshape(b, n, c)
 
 
 def _check(name, x, idx):
@@ -93,22 +151,19 @@ def _launch_take(x, idx):
 
 
 def onehot_scatter_rows(dout, idx, n):
-    """The scatter kernel on the card: dx (B, N, C) float32 from dout
-    (B, Q, C) float32 and idx (B, Q) int32."""
+    """The scatter kernels on the card: dx (B, N, C) float32 from dout
+    (B, Q, C) float32 and idx (B, Q) int32; the slot keys, their stable
+    sort and the chunked segment sum."""
     name = "onehot_scatter_rows"
     dev = _check(name, dout, idx)
     b, q, c = dout.shape
-    if idx.shape[1] != q or b * n >= 2 ** 31 - 1:
-        raise ValueError(f"{name}: idx must be (B, Q) = {(b, q)} and "
-                         f"B * N below 2^31 - 1")
-    order, offsets = segments(_slots(idx, n), b * n)
+    if idx.shape[1] != q or b * n >= 2 ** 31 - 1 or b * q >= 2 ** 30:
+        raise ValueError(f"{name}: idx must be (B, Q) = {(b, q)}, B * N "
+                         f"below 2^31 - 1 and B * Q below 2^30")
+    keys = slot_keys(name, idx, q, b, n)
     dx = torch.empty((b, n, c), dtype=torch.float32, device=dev)
-    lib = build.load_library()
-    err = lib.dm_onehot_scatter_rows(build.ptr(dout), build.ptr(order),
-                                     build.ptr(offsets), build.ptr(dx),
-                                     b * n, c, build.stream(dev))
+    segment_sum(name, dout, keys, 1, b * n, dx)
     onehot_scatter_rows.launches += 1
-    build.check(lib, err, name)
     return dx
 
 

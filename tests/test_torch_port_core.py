@@ -17,6 +17,7 @@ from detmatch_tpu.core import geometry as jgeo  # noqa: E402
 from detmatch_tpu.core import iou as jiou  # noqa: E402
 from detmatch_tpu.core import nms as jnms  # noqa: E402
 from detmatch_tpu_torch.core import coders, geometry, iou, nms  # noqa: E402
+from torch_port_ssl_fixture import one_torch_thread  # noqa: E402,F401
 
 ATOL = 1e-5  # fp32 trig / products in another operation order
 

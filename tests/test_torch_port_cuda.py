@@ -20,6 +20,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
+from detmatch_tpu_torch.ops import cuda as cuda_ops  # noqa: E402
 from detmatch_tpu_torch.ops import spconv, voxelize  # noqa: E402
 from detmatch_tpu_torch.ops.cuda import ball_query, fps  # noqa: E402
 from detmatch_tpu_torch.ops.cuda import gather_conv  # noqa: E402
@@ -384,17 +385,19 @@ def _rb_grads(fn, feats, rb, w, dout, need_dfeats):
 def test_onehot_gather_kernels_match_twins(dev, kind, c, co):
     """K6: the forward (the rulebook kernel with its bf16 flag) within 1e-5
     of the twin, S of the backward kernel equal to the twin's exactly on a
-    spconv rulebook, and dF / dW through the autograd Function within
-    1e-5; one launch of each."""
+    spconv rulebook, which takes the direct path (one writer a slot), and
+    dF / dW through the autograd Function within 1e-5; one launch of
+    each."""
     feats, keys, nk, w, dout, _ = _dense_conv_case(dev, kind, c, co)
     rb = spconv.rulebook_batched(keys, nk)
-    onehot_gather.onehot_gather_conv.launches = 0
-    onehot_gather.onehot_gather_scatter.launches = 0
+    cuda_ops.reset_launch_counts()
     got = _rb_grads(onehot_gather.onehot_gather_conv_batched, feats, rb, w,
                     dout, True)
     torch.cuda.synchronize()
     assert onehot_gather.onehot_gather_conv.launches == 1
     assert onehot_gather.onehot_gather_scatter.launches == 1
+    assert onehot_gather.onehot_gather_scatter.direct == 1
+    assert onehot_gather.onehot_gather_scatter.sorted == 0
     b, m, k = rb.shape
     flat = torch.where(rb >= 0, rb + 2000 * torch.arange(
         b, device=dev, dtype=torch.int32)[:, None, None], -1).reshape(-1, k)
@@ -414,27 +417,60 @@ def test_onehot_gather_kernels_match_twins(dev, kind, c, co):
 
 def test_onehot_gather_scatter_sums_repeats_deterministically(dev):
     """A rulebook with repeated rows (up to ~60 writers per slot), -1 and
-    out-of-range entries: S equals the CPU twin's sequential sum bit for
+    out-of-range entries takes the sorted path: S equals the CPU twin's
+    sum in the chunked order (``onehot_rows.segment_sum_plain``; slots of
+    at most ``CHUNK`` writers, as all here, are sequential sums) bit for
     bit, and two launches give the same bits."""
     g = torch.Generator().manual_seed(7)
     rb = torch.randint(-1, 600, (30000, 27), generator=g, dtype=torch.int32)
     rb[::5, 4] = 700
     dout = torch.randn(30000, 24, generator=g)
     want = onehot_gather.onehot_gather_scatter_plain(dout, rb, 650)
+    cuda_ops.reset_launch_counts()
     s1 = onehot_gather.onehot_gather_scatter(dout.to(dev), rb.to(dev), 650)
     s2 = onehot_gather.onehot_gather_scatter(dout.to(dev), rb.to(dev), 650)
+    assert onehot_gather.onehot_gather_scatter.sorted == 2
+    assert onehot_gather.onehot_gather_scatter.direct == 0
     assert torch.equal(s1, s2)
     assert torch.equal(s1.cpu(), want)
+
+
+@pytest.mark.parametrize("co", [16, 24, 5])
+def test_onehot_gather_scatter_switches_path_on_one_repeat(dev, co):
+    """An injective spconv rulebook takes the direct path; the same
+    rulebook with one (row, tap) pair copied onto another row's entry
+    (one slot, two writers) takes the sorted path. Both equal the CPU
+    twin bit for bit, and the repeated slot holds the two rounded rows
+    summed in ascending m."""
+    _, keys, nk, _, _, _ = _dense_conv_case(dev, "subm", 16, 16)
+    rb = spconv.rulebook_batched(keys, nk)[0].contiguous()
+    g = torch.Generator().manual_seed(9)
+    dout = torch.randn(rb.shape[0], co, generator=g)
+    hit = (rb[:, 13] >= 0).nonzero()[:, 0]
+    m0, m1 = int(hit[0]), int(hit[-1])
+    dup = rb.clone()
+    dup[m1, 13] = rb[m0, 13]
+    n = 2000
+    for table, path in ((rb, "direct"), (dup, "sorted")):
+        cuda_ops.reset_launch_counts()
+        s = onehot_gather.onehot_gather_scatter(dout.to(dev), table, n)
+        torch.cuda.synchronize()
+        assert getattr(onehot_gather.onehot_gather_scatter, path) == 1
+        assert onehot_gather.onehot_gather_scatter.launches == 1
+        want = onehot_gather.onehot_gather_scatter_plain(dout, table.cpu(), n)
+        assert torch.equal(s.cpu(), want)
+    r = dout.to(torch.bfloat16).float()
+    assert torch.equal(s[13, int(rb[m0, 13])].cpu(), r[m0] + r[m1])
 
 
 @pytest.mark.parametrize("b,n,c,q", [(3, 2048, 128, 20000), (2, 50, 3, 90000),
                                      (1, 18000, 16, 4096)])
 def test_onehot_rows_kernels_match_twins(dev, b, n, c, q):
     """K8: the gather equal to the twin bit for bit (-1 and indices at and
-    beyond N give zero rows); the scatter-add equal to the CPU twin's
-    sequential sum bit for bit with thousands of repeats per row, and the
-    same on a second launch; one launch each through the autograd
-    Function."""
+    beyond N give zero rows); the scatter-add equal to the CPU twin's sum
+    in the chunked order (``onehot_rows.segment_sum_plain``) bit for bit
+    with thousands of repeats per row, and the same on a second launch;
+    one launch each through the autograd Function."""
     g = torch.Generator().manual_seed(8)
     x = torch.randn(b, n, c, generator=g)
     idx = torch.randint(-1, n + 3, (b, q), generator=g, dtype=torch.int32)
@@ -455,8 +491,30 @@ def test_onehot_rows_kernels_match_twins(dev, b, n, c, q):
     assert torch.equal(onehot_rows.onehot_take_rows(xd[0], idd[0]), out[0])
 
 
+def test_onehot_scatter_rows_hot_slot_at_roi_grid_shape(dev):
+    """K8's scatter at the RoI-grid shape, (8, 442368) indices into an
+    (8, 2048, 64) table, with ~340,000 repeats of index 0 in sample 0 (the
+    empty balls' index) and ~147,000 in sample 3: the kernel equals the
+    CPU twin's chunked sum bit for bit, and two launches give the same
+    bits."""
+    b, n, c, q = 8, 2048, 64, 442368
+    g = torch.Generator().manual_seed(10)
+    idx = torch.randint(-1, n, (b, q), generator=g, dtype=torch.int32)
+    idx[0, torch.rand(q, generator=g) < 0.77] = 0
+    idx[3, ::3] = 0
+    dout = torch.randn(b, q, c, generator=g)
+    assert int((idx[0] == 0).sum()) > 300000
+    onehot_rows.onehot_scatter_rows.launches = 0
+    d1 = onehot_rows.onehot_scatter_rows(dout.to(dev), idx.to(dev), n)
+    d2 = onehot_rows.onehot_scatter_rows(dout.to(dev), idx.to(dev), n)
+    torch.cuda.synchronize()
+    assert onehot_rows.onehot_scatter_rows.launches == 2
+    assert torch.equal(d1, d2)
+    assert torch.equal(d1.cpu(), onehot_rows.scatter_rows_plain(dout, idx, n))
+
+
 def test_onehot_wrappers_check_their_arguments(dev):
-    """Types, shapes and the rulebook kernel's channel limits."""
+    """Types, shapes and the rulebook kernels' channel limits."""
     feats, keys, nk, w, dout, _ = _dense_conv_case(dev, "subm", 16, 16)
     rb = spconv.rulebook_batched(keys, nk)
     with pytest.raises(ValueError):  # C = 65 above the kernel's limit
@@ -469,6 +527,9 @@ def test_onehot_wrappers_check_their_arguments(dev):
         onehot_gather.onehot_gather_conv(feats[0], rb[0], w[:3].contiguous())
     with pytest.raises(ValueError):  # dout rows do not match the rulebook
         onehot_gather.onehot_gather_scatter(dout[0, :10], rb[0], 2000)
+    with pytest.raises(ValueError):  # Co = 257 above the direct path's
+        onehot_gather.onehot_gather_scatter(
+            torch.zeros(rb.shape[1], 257, device=dev), rb[0], 2000)
     x = torch.zeros(2, 40, 8, device=dev)
     idx = torch.zeros(2, 9, dtype=torch.int32, device=dev)
     with pytest.raises(TypeError):

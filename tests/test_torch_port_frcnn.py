@@ -41,6 +41,7 @@ from detmatch_tpu_torch.models.frcnn.roi_head2d import (  # noqa: E402
     decode_rcnn)
 from detmatch_tpu_torch.ops import roialign  # noqa: E402
 from detmatch_tpu_torch.utils import tiny  # noqa: E402
+from torch_port_ssl_fixture import one_torch_thread  # noqa: E402,F401
 
 RTOL = 1e-4
 CFG = tiny.TINY_FR_CFG

@@ -39,6 +39,7 @@ from detmatch_tpu_torch.models.frcnn import rpn as prpn  # noqa: E402
 from detmatch_tpu_torch.models.frcnn.faster_rcnn import (  # noqa: E402
     FasterRCNN)
 from detmatch_tpu_torch.utils import tiny  # noqa: E402
+from torch_port_ssl_fixture import one_torch_thread  # noqa: E402,F401
 
 LOSS_RTOL = 1e-4
 GRAD_TOL = 1e-3

@@ -27,6 +27,7 @@ from detmatch_tpu_torch.core import hungarian  # noqa: E402
 from detmatch_tpu_torch.ops import cuda as cuda_ops  # noqa: E402
 from detmatch_tpu_torch.ops.cuda.hungarian import (  # noqa: E402
     inner_steps, solve_masked_batched, solve_masked_plain)
+from torch_port_ssl_fixture import one_torch_thread  # noqa: E402,F401
 
 BIG = jhung.BIG
 

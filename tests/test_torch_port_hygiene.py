@@ -228,7 +228,7 @@ def test_build_is_keyed_by_sources_and_fails_loudly(monkeypatch, tmp_path):
     assert {p.name for p in build.CSRC_DIR.glob("*.cu")} >= {
         "window_key_conv.cu", "window_key_conv_bwd.cu", "fps.cu",
         "ball_query.cu", "hungarian_jv.cu", "key_conv.cu", "gather_conv.cu",
-        "onehot_gather.cu", "onehot_rows.cu"}
+        "onehot_gather.cu", "onehot_rows.cu", "segment_sum.cu"}
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):

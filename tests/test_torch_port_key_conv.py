@@ -31,6 +31,7 @@ from detmatch_tpu_torch.models.pvrcnn.backbone3d import (  # noqa: E402
     VoxelBackbone8x)
 from detmatch_tpu_torch.ops import spconv, voxelize  # noqa: E402
 from detmatch_tpu_torch.ops.cuda import KERNELS, PLAIN, key_conv  # noqa: E402
+from torch_port_ssl_fixture import one_torch_thread  # noqa: E402,F401
 
 SHAPE = (6, 24, 20)
 BAND = int(np.prod(SHAPE)) + 1

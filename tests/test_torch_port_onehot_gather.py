@@ -9,7 +9,9 @@ Tolerances: the forward and both gradients within 1e-5 of the reference's
 largest magnitude (bf16 operands, exact products, fp32 sums in another
 order); S exactly on a spconv rulebook (one writer per slot), within 1e-6
 on a rulebook with repeated rows (fp32 sums of several bf16 values in
-another order).
+another order), hot slots of more than ``CHUNK`` writers included. The
+twin's own order (the stated chunked sum) against a numpy spelling of it
+bit for bit.
 """
 import os
 import sys
@@ -25,7 +27,8 @@ import torch  # noqa: E402
 
 from detmatch_tpu.ops.pallas import onehot_gather as jog  # noqa: E402
 from detmatch_tpu_torch.ops import spconv, voxelize  # noqa: E402
-from detmatch_tpu_torch.ops.cuda import onehot_gather  # noqa: E402
+from detmatch_tpu_torch.ops.cuda import onehot_gather, onehot_rows  # noqa: E402,E501
+from torch_port_ssl_fixture import one_torch_thread  # noqa: E402,F401
 
 SHAPE = (6, 24, 20)
 N, C, CO = 300, 8, 16
@@ -139,3 +142,75 @@ def test_single_sample_conv_drops_out_of_range_rows():
     masked = torch.where(rb0 < N, rb0, -1)
     assert torch.equal(out, onehot_gather.onehot_gather_conv(
         torch.from_numpy(feats[0]), masked, torch.from_numpy(w)))
+
+
+def two_level_sum(rows, keys, slots):
+    """The segment sum's stated order, spelled out in numpy: each slot's
+    rows in ascending pair order, cut into chunks of ``CHUNK``; each chunk
+    summed in float32 from 0, then the chunk sums in order from 0."""
+    chunk = onehot_rows.CHUNK
+    out = np.zeros((slots, rows.shape[1]), np.float32)
+    for s in range(slots):
+        mine = rows[keys == s]
+        total = np.zeros(rows.shape[1], np.float32)
+        for a in range(0, len(mine), chunk):
+            part = np.zeros(rows.shape[1], np.float32)
+            for r in mine[a:a + chunk]:
+                part = part + r
+            total = total + part
+        out[s] = total
+    return out
+
+
+def hot_rulebook(n=300, m=1300, k=3, seed=6):
+    """(M, K) int32 rulebook over N rows: tap 0 sends 3 * CHUNK + 17 rows
+    to row 4, tap 1 exactly CHUNK rows to row 6, tap 2 CHUNK + 1 rows to
+    row 9; the rest random, with -1 and out-of-range entries."""
+    chunk = onehot_rows.CHUNK
+    rng = np.random.RandomState(seed)
+    rb = rng.randint(-1, n + 3, (m, k)).astype(np.int32)
+    for tap, row, count in ((0, 4, 3 * chunk + 17), (1, 6, chunk),
+                            (2, 9, chunk + 1)):
+        rb[rb[:, tap] == row, tap] = -1
+        rb[rng.choice(m, count, replace=False), tap] = row
+    return rb
+
+
+def test_scatter_twin_sums_in_chunks():
+    """S of the twin follows the stated two-level order bit for bit (pair
+    m * K + k reads row m): slots of 3 * CHUNK + 17, CHUNK and CHUNK + 1
+    writers, single writers, -1 and out-of-range entries; slots of at most
+    CHUNK writers are sequential fp32 sums."""
+    n = 300
+    rb = hot_rulebook(n)
+    m, k = rb.shape
+    dout = np.random.RandomState(7).randn(m, CO).astype(np.float32)
+    s = onehot_gather.onehot_gather_scatter_plain(
+        torch.from_numpy(dout), torch.from_numpy(rb), n).numpy()
+    rounded = torch.from_numpy(dout).to(torch.bfloat16).float().numpy()
+    rows = np.repeat(rounded, k, axis=0)
+    keys = np.where((rb >= 0) & (rb < n), rb + n * np.arange(k),
+                    k * n).reshape(-1)
+    want = two_level_sum(rows, keys, k * n)
+    np.testing.assert_array_equal(s.reshape(k * n, CO), want)
+    counts = np.bincount(keys, minlength=k * n + 1)[:-1]
+    chunk = onehot_rows.CHUNK
+    assert counts[4] == 3 * chunk + 17 and counts[n + 6] == chunk
+    assert counts[2 * n + 9] == chunk + 1 and (counts == 1).any()
+    for slot in np.flatnonzero(counts <= chunk):
+        seq = np.zeros(CO, np.float32)
+        for r in rows[keys == slot]:
+            seq = seq + r
+        np.testing.assert_array_equal(s.reshape(k * n, CO)[slot], seq)
+
+
+def test_scatter_twin_with_hot_slot_matches_jax():
+    """S of the twin with the hot slots of ``hot_rulebook`` within 1e-6 of
+    JAX's ``_scatter_all_taps``."""
+    n = 300
+    rb = hot_rulebook(n)
+    dout = np.random.RandomState(7).randn(rb.shape[0], CO).astype(np.float32)
+    ref = jog._scatter_all_taps(jnp.asarray(dout), jnp.asarray(rb), n)
+    s = onehot_gather.onehot_gather_scatter_plain(
+        torch.from_numpy(dout), torch.from_numpy(rb), n)
+    assert rel(s, ref) <= 1e-6

@@ -8,7 +8,9 @@ runs on the CPU (as ``tests/test_extra_ops.py`` runs it):
 Tolerances: the forward exactly (bf16(x) at the one matching row, zero for
 -1 and for indices at or beyond N); the backward within 1e-5 of the
 reference's largest magnitude (fp32 sums of repeated bf16 rows in another
-order).
+order), hot slots of more than ``CHUNK`` repeats included. The twin's own
+order (the stated chunked sum) against a numpy spelling of it bit for
+bit.
 """
 import os
 import sys
@@ -24,6 +26,7 @@ import torch  # noqa: E402
 
 from detmatch_tpu.ops.pallas import onehot_rows as jrows  # noqa: E402
 from detmatch_tpu_torch.ops.cuda import onehot_rows  # noqa: E402
+from torch_port_ssl_fixture import one_torch_thread  # noqa: E402,F401
 
 
 def rel(out, ref):
@@ -95,3 +98,78 @@ def test_scatter_rows_sums_repeats_in_order():
     want = xt.to(torch.bfloat16).float()[
         torch.arange(2)[:, None], torch.where(ok, it, 0).long()]
     assert torch.equal(got, torch.where(ok[..., None], want, 0.0))
+
+
+def two_level_sum(rows, keys, slots):
+    """The segment sum's stated order, spelled out in numpy: each slot's
+    rows in ascending pair order, cut into chunks of ``CHUNK``; each chunk
+    summed in float32 from 0, then the chunk sums in order from 0."""
+    chunk = onehot_rows.CHUNK
+    out = np.zeros((slots, rows.shape[1]), np.float32)
+    for s in range(slots):
+        mine = rows[keys == s]
+        total = np.zeros(rows.shape[1], np.float32)
+        for a in range(0, len(mine), chunk):
+            part = np.zeros(rows.shape[1], np.float32)
+            for r in mine[a:a + chunk]:
+                part = part + r
+            total = total + part
+        out[s] = total
+    return out
+
+
+def hot_case(n=12, c=8, seed=5):
+    """(x (2, N, C), idx (2, Q), dout (2, Q, C)): in sample 0, index 3
+    repeated 3 * CHUNK + 17 times, index 5 exactly CHUNK times, index 7
+    CHUNK + 1 times, indices 0 and 1 once, and -1, N and N + 600 entries,
+    shuffled; sample 1 random with out-of-range entries."""
+    chunk = onehot_rows.CHUNK
+    rng = np.random.RandomState(seed)
+    row0 = np.concatenate([
+        np.full(3 * chunk + 17, 3), np.full(chunk, 5), np.full(chunk + 1, 7),
+        [0, 1], np.full(40, -1), np.full(30, n), np.full(20, n + 600)])
+    rng.shuffle(row0)
+    q = row0.size
+    idx = np.stack([row0, rng.randint(-1, n + 2, q)]).astype(np.int32)
+    x = rng.randn(2, n, c).astype(np.float32)
+    dout = rng.randn(2, q, c).astype(np.float32)
+    return x, idx, dout
+
+
+def test_scatter_rows_twin_sums_in_chunks():
+    """The scatter twin follows the stated two-level order bit for bit: a
+    slot of 3 * CHUNK + 17 repeats, slots of exactly CHUNK and CHUNK + 1,
+    single writers, empty slots and dropped entries; slots of at most
+    CHUNK pairs equal the sequential fp32 sum exactly."""
+    x, idx, dout = hot_case()
+    n, c = x.shape[1], x.shape[2]
+    got = onehot_rows.scatter_rows_plain(torch.from_numpy(dout),
+                                         torch.from_numpy(idx), n).numpy()
+    rounded = torch.from_numpy(dout).to(torch.bfloat16).float().numpy()
+    keys = np.where((idx >= 0) & (idx < n), idx + n * np.arange(2)[:, None],
+                    2 * n).reshape(-1)
+    want = two_level_sum(rounded.reshape(-1, c), keys, 2 * n)
+    np.testing.assert_array_equal(got.reshape(2 * n, c), want)
+    counts = np.bincount(keys, minlength=2 * n + 1)[:-1]
+    assert counts[3] == 3 * onehot_rows.CHUNK + 17 and counts[0] == 1
+    for s in np.flatnonzero(counts <= onehot_rows.CHUNK):
+        seq = np.zeros(c, np.float32)
+        for r in rounded.reshape(-1, c)[keys == s]:
+            seq = seq + r
+        np.testing.assert_array_equal(got.reshape(2 * n, c)[s], seq)
+
+
+def test_scatter_rows_twin_with_hot_slot_matches_jax():
+    """The gradient of ``onehot_take_rows_batched`` with the hot slots of
+    ``hot_case`` (Q = 1,450) within 1e-5 of JAX's Pallas module."""
+    x, idx, dout = hot_case()
+
+    def loss(xx):
+        return jnp.vdot(jrows.onehot_take_rows_batched(xx, jnp.asarray(idx)),
+                        dout)
+
+    jg = jax.grad(loss)(jnp.asarray(x))
+    x_t = torch.from_numpy(x).requires_grad_()
+    out = onehot_rows.onehot_take_rows_batched(x_t, torch.from_numpy(idx))
+    (g,) = torch.autograd.grad(out, (x_t,), torch.from_numpy(dout))
+    assert rel(g, jg) <= 1e-5

@@ -24,6 +24,7 @@ from detmatch_tpu.utils.synth_kitti import lidar_batch  # noqa: E402
 from detmatch_tpu_torch.ops import spconv, voxelize  # noqa: E402
 from detmatch_tpu_torch.ops.cuda import ball_query, fps  # noqa: E402
 from detmatch_tpu_torch.ops.cuda import window_key_conv  # noqa: E402
+from torch_port_ssl_fixture import one_torch_thread  # noqa: E402,F401
 
 PCR = (0.0, -8.0, -3.0, 16.0, 8.0, 1.0)
 VOXEL = (0.25, 0.25, 0.2)

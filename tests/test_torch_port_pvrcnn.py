@@ -44,6 +44,7 @@ from detmatch_tpu_torch.models.pvrcnn.pvrcnn import (  # noqa: E402
 from detmatch_tpu_torch.models.pvrcnn.roi_head import (  # noqa: E402
     PVRCNNHead, proposal_layer)
 from detmatch_tpu_torch.ops import voxelize  # noqa: E402
+from torch_port_ssl_fixture import one_torch_thread  # noqa: E402,F401
 
 RTOL = 1e-4
 CFG = dict(tiny.TINY_PV_CFG,

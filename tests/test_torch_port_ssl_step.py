@@ -27,7 +27,7 @@ import numpy as np
 import pytest
 
 import torch_port_ssl_fixture as fx
-from torch_port_ssl_fixture import jax, rel, torch
+from torch_port_ssl_fixture import jax, one_torch_thread, rel, torch  # noqa: F401,E501
 
 from detmatch_tpu.train import optim as joptim
 from detmatch_tpu.ssl.detector import ema_update as j_ema_update
@@ -80,10 +80,7 @@ def ref():
     jssl = fx.jax_ssl(cfg)
     state = fx.make_state(jssl, vb)
     jst = fx._j(state)
-    u_tea = vb["unlab"]["tea"]
-    j2d = jax.jit(lambda v, view: jssl._det2d_teacher_boxes(
-        v, view, jssl.cfg.nms_2d_cfg))(jst["teacher"]["det2d"], u_tea)
-    pseudo = jax.jit(jssl.teacher_pseudo_labels)(jst["teacher"], vb)
+    pseudo, j2d = jax.jit(teacher_phase(jssl))(jst["teacher"], vb)
 
     tx3d, tx2d = joptim.detmatch_branch_optimizers(LR_3D, LR_2D,
                                                    warmup_iters=WARMUP)
@@ -128,9 +125,10 @@ def ref():
     new_student = dict(det3d=dict(s3, params=p3,
                                   batch_stats=aux3["batch_stats"]["det3d"]),
                        det2d=dict(s2, params=p2))
-    teacher = j_ema_update(jst["teacher"], new_student,
-                           j_ema_decay_at(IT, jssl.cfg),
-                           jssl.cfg.use_student_bn_stats_for_teacher)
+    # jitted: one program instead of one per leaf shape
+    teacher = jax.jit(j_ema_update, static_argnums=3)(
+        jst["teacher"], new_student, j_ema_decay_at(IT, jssl.cfg),
+        jssl.cfg.use_student_bn_stats_for_teacher)
     return dict(cfg=cfg, batch=batch, state=state, j2d=fx._np(j2d),
                 pseudo=pseudo, masks=masks, key=key,
                 total3=float(total3), logs3=fx._np(aux3["logs"]),
@@ -141,6 +139,28 @@ def ref():
                     np.zeros_like, state["student"]["det2d"]["frozen"]),
                     cfg["model"]["detector_2d"]),
                 teacher=fx._np(teacher))
+
+
+def teacher_phase(jssl):
+    """JAX's ``teacher_pseudo_labels`` that also returns the output of its
+    2D teacher stage (``_det2d_teacher_boxes``), which the port is
+    handed: one trace for both."""
+    def run(variables, vbatch):
+        stage = []
+        own = jssl._det2d_teacher_boxes
+
+        def spy(*args):
+            stage.append(own(*args))
+            return stage[-1]
+
+        jssl._det2d_teacher_boxes = spy
+        try:
+            pseudo = jssl.teacher_pseudo_labels(variables, vbatch)
+        finally:
+            del jssl._det2d_teacher_boxes
+        (boxes,) = stage
+        return pseudo, boxes
+    return run
 
 
 def jax_batch(cfg, batch):

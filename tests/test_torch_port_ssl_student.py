@@ -38,6 +38,7 @@ from detmatch_tpu_torch.models.frcnn.faster_rcnn import (  # noqa: E402
     FasterRCNN)
 from detmatch_tpu_torch.train import optim as poptim  # noqa: E402
 from detmatch_tpu_torch.utils import synth_kitti, tiny  # noqa: E402
+from torch_port_ssl_fixture import one_torch_thread  # noqa: E402,F401
 
 
 def _t(a):
@@ -248,9 +249,10 @@ def test_ema_update_matches_jax(ssl_states, use_student_bn):
     student if asked); ``num_batches_tracked`` untouched."""
     _, state, model = ssl_states
     decay = jdet.ema_decay_at(jnp.int32(7), jdet.SSLConfig())
-    want = _np(jdet.ema_update(jax.tree.map(jnp.asarray, state["teacher"]),
-                               jax.tree.map(jnp.asarray, state["student"]),
-                               decay, use_student_bn))
+    # jitted: one program instead of one per leaf shape
+    want = _np(jax.jit(jdet.ema_update, static_argnums=3)(
+        jax.tree.map(jnp.asarray, state["teacher"]),
+        jax.tree.map(jnp.asarray, state["student"]), decay, use_student_bn))
     want_sd = from_jax_ssl(dict(student=want, teacher=want),
                            jtiny.TINY_PV_CFG, jtiny.TINY_FR_CFG)
     teacher = SSLDetector(PVRCNN(**jtiny.TINY_PV_CFG),

@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 
 import torch_port_ssl_fixture as fx
-from torch_port_ssl_fixture import jax, rel, torch
+from torch_port_ssl_fixture import jax, one_torch_thread, rel, torch  # noqa: F401,E501
 
 from detmatch_tpu_torch.apis.build import build_ssl, build_voxelizer
 from detmatch_tpu_torch.apis.train_ssl import train_ssl
@@ -48,12 +48,17 @@ def setup():
     masks = fx.DropoutMasks()
     captured = {}
 
-    def loss3d(v, vbatch, pl):
-        total, aux = jssl.student_losses_3d_concat(v, vbatch, pl, IT, R3)
+    # each loss takes only the pseudo-labels it reads (without the
+    # consistency branch: m3d_stu; the 2D branch: m2d_stu), so the
+    # settings' other keys do not retrace it
+    def loss3d(v, vbatch, m3d_stu):
+        total, aux = jssl.student_losses_3d_concat(
+            v, vbatch, dict(m3d_stu=m3d_stu), IT, R3)
         return total, aux["logs"], captured["key"], list(masks.traced)
 
-    def loss2d(v, vbatch, pl):
-        total, aux = jssl.student_losses_2d(v, vbatch, pl, IT, R2)
+    def loss2d(v, vbatch, m2d_stu):
+        total, aux = jssl.student_losses_2d(v, vbatch,
+                                            dict(m2d_stu=m2d_stu), IT, R2)
         return total, aux["logs"]
 
     return dict(cfg=cfg, batch=batch, vb=vb, state=state, masks=masks,
@@ -69,7 +74,8 @@ def jax_losses_3d(setup, pseudo):
         rec = s["masks"].recording()
         try:
             total, logs, key, drawn = s["loss3d"](
-                fx._j(s["state"]["student"]["det3d"]), s["vb"], pseudo)
+                fx._j(s["state"]["student"]["det3d"]), s["vb"],
+                pseudo["m3d_stu"])
         finally:
             rec.undo()
     s["masks"].masks = [np.asarray(m) for m in drawn]
@@ -106,7 +112,7 @@ def test_iteration_under_switches(setup, name):
         if on2d:
             total, want = setup["loss2d"](
                 fx._j(setup["state"]["student"]["det2d"]), setup["vb"],
-                jpseudo)
+                jpseudo["m2d_stu"])
             fx.hand_over_frcnn(mp, R2)
             logs = student_2d_step(model, opt2d, batch, pseudo, IT, gen)
             for k, v in fx._np(want).items():

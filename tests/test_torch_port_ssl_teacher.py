@@ -55,6 +55,7 @@ from detmatch_tpu_torch.ssl.detector import SSLConfig  # noqa: E402
 from detmatch_tpu_torch.train.ssl_step import (  # noqa: E402
     to_device_views, voxelize_views)
 from detmatch_tpu_torch.utils import tiny  # noqa: E402
+from torch_port_ssl_fixture import one_torch_thread  # noqa: E402,F401
 
 RTOL = 1e-4
 B = 2

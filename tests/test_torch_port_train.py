@@ -35,6 +35,7 @@ from detmatch_tpu_torch.ops import spconv, voxelize  # noqa: E402
 from detmatch_tpu_torch.ops.cuda import window_key_conv  # noqa: E402
 from detmatch_tpu_torch.train.optim import cyclic_lr  # noqa: E402
 from detmatch_tpu_torch.utils import synth_kitti  # noqa: E402
+from torch_port_ssl_fixture import one_torch_thread  # noqa: E402,F401
 
 CFG = dict(tiny.TINY_PV_CFG,
            bev_cfg=dict(tiny.TINY_PV_CFG["bev_cfg"], layer_nums=(5, 5)))

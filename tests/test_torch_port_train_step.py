@@ -41,6 +41,7 @@ from detmatch_tpu_torch.models.pvrcnn.bev import (  # noqa: E402
     height_compression)
 from detmatch_tpu_torch.models.pvrcnn import roi_head as proi  # noqa: E402
 from detmatch_tpu_torch.models.pvrcnn.pvrcnn import PVRCNN  # noqa: E402
+from torch_port_ssl_fixture import one_torch_thread  # noqa: E402,F401
 
 CFG = dict(tiny.TINY_PV_CFG,
            bev_cfg=dict(tiny.TINY_PV_CFG["bev_cfg"], layer_nums=(5, 5)),
@@ -383,11 +384,13 @@ def test_adamw_clip_step_matches_optax(jref):
     total = 100
     tx = optax.chain(optax.clip_by_global_norm(10.0),
                      joptim.adamw(joptim.cyclic_lr(0.001, total)))
-    params = jax.tree.map(jnp.asarray, jref["params"])
-    upd, _ = tx.update(jax.tree.map(jnp.asarray, jref["grads"]),
-                       tx.init(params), params)
-    ref = from_jax_pvrcnn(_np(optax.apply_updates(params, upd)),
-                          jref["stats"], CFG)
+    def step(grads, params):  # jitted: one program, not one per leaf
+        upd, _ = tx.update(grads, tx.init(params), params)
+        return optax.apply_updates(params, upd)
+
+    ref = from_jax_pvrcnn(_np(jax.jit(step)(
+        jax.tree.map(jnp.asarray, jref["grads"]),
+        jax.tree.map(jnp.asarray, jref["params"]))), jref["stats"], CFG)
 
     model = PVRCNN(**CFG)
     model.load_state_dict(from_jax_pvrcnn(jref["params"], jref["stats"],

@@ -19,6 +19,13 @@ the dropout masks that the JAX forward drew (recorded from
 ``jax.random.bernoulli`` while it was traced), and the 2D samplers'
 uniforms from the keys ``FasterRCNN.loss`` splits, in the order the port
 draws them.
+
+Threads: ``one_torch_thread``, imported by every file of the port's CPU
+parity tests against JAX, runs each such module's tests with one PyTorch
+thread. The tests
+run in several worker processes at once (``pytest -n``), and PyTorch's
+default of one thread per core in each of them oversubscribes the cores;
+the tiny models gain nothing from more threads.
 """
 import os
 import sys
@@ -58,6 +65,16 @@ from detmatch_tpu_torch.utils import tiny  # noqa: E402
 
 CONFIG = os.path.join(ROOT, "configs", "tests", "ssl_tiny.py")
 B = 1  # the config's batch_size
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One PyTorch thread for the importing module's tests, restored
+    after them."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def load_cfg(**ssl_overrides):
@@ -133,8 +150,11 @@ def make_state(jssl, vb, seed=0):
     """Student = teacher: the JAX initialisers, randomized BN statistics,
     spread class biases (see the module docstring)."""
     lab = vb["lab"]["stu"]
-    state = jssl.init_states(jax.random.PRNGKey(seed), lab, lab["img"],
-                             lab["img_shape"])
+    # jitted: one program, not one per initializer and shape (the values
+    # agree with the eager init's to the last float32 bit but for a few
+    # small-scale kernels, within 5e-10)
+    state = jax.jit(jssl.init_states)(jax.random.PRNGKey(seed), lab,
+                                      lab["img"], lab["img_shape"])
     stu = _np(state["student"])
     rng = np.random.RandomState(seed + 1)
 
