@@ -54,7 +54,11 @@ Phases (any failure exits non-zero without printing the result line):
    B=4 unlabeled ones, the models' own seeded initialisers): every kernel
    call of the iteration against its twin (K1 forward and backward at the
    student's B=8, K2, K3, K4 on the fusion's and the consistency
-   branch's own problems, exactly); the student 3D step on the kernel path
+   branch's own problems, exactly); K1's forward bit-equal to K7 on the
+   plain rulebook on all 24 calls, with and without writing its
+   rulebook, and that rulebook equal to the plain one; K1's backward
+   (on the forward's rulebook) bit-equal over two launches on the 12
+   student calls; the student 3D step on the kernel path
    against the plain paths on pinned teacher boxes, pinned proposals and
    clean 2D boxes made from the student's own (losses and BN statistics
    within 1e-4, gradients within 1e-3 with the kernel's forward values and
@@ -81,7 +85,9 @@ Phases (any failure exits non-zero without printing the result line):
    it (the table's and the rounded rows' preparation excluded), with the
    share of K8's stable sort and K6's path per call; CUDA-event timings
    of the iteration and its split on the three conv paths, peak memory,
-   and each kernel per iteration;
+   and each kernel per iteration beside its bound; per student conv,
+   K1's matched pairs, forward and backward ms beside their bounds and
+   the backward's passes (profiler kernel times);
 10. a JSON line of the kernels (per SSL iteration, with their bounds;
    K6 and K8 over the replayed calls, with 0 launches on the model
    path), then the result line.
@@ -343,6 +349,95 @@ def check_kernels(calls, label, stats):
         print(f"  {label} {name}[{i}] {desc} {'ok' if good else 'FAIL'}")
         ok &= good
     return ok
+
+
+def check_k1_exact(calls, label):
+    """On every recorded K1 forward call: the kernel, with and without
+    writing its rulebook, bit-equal to K7 on the plain rulebook (the same
+    order of sums; skipped taps change no bit), and the rulebook it
+    writes equal to the plain one. Returns (all equal, calls checked)."""
+    from detmatch_tpu_torch.ops import spconv
+    from detmatch_tpu_torch.ops.cuda import KERNELS
+    from detmatch_tpu_torch.ops.cuda.window_key_conv import (
+        window_key_conv_fwd)
+    ok, checked = True, 0
+    for i, (name, args, _, _) in enumerate(calls):
+        if name != "window_key_conv_batched":
+            continue
+        feats, keys, nkeys, _, w, _ = args
+        rb_plain = spconv.rulebook_batched(keys, nkeys)
+        out, rb = window_key_conv_fwd(*args, rulebook=True)
+        bare, _ = window_key_conv_fwd(*args)
+        k7 = KERNELS.gather_conv_batched(feats, rb_plain, w)
+        torch.cuda.synchronize()
+        same = torch.equal(out, k7) and torch.equal(bare, k7)
+        rb_same = torch.equal(rb, rb_plain)
+        pairs = int((rb_plain >= 0).sum())
+        print(f"  {label} K1 fwd[{i}] bit-equal to K7={same} rulebook "
+              f"equal={rb_same} (B, M, K)={tuple(nkeys.shape)} C={w.shape[1]}"
+              f" Co={w.shape[2]} pairs {pairs} "
+              f"({pairs / rb_plain.numel():.4f} of capacity x K) "
+              f"{'ok' if same and rb_same else 'FAIL'}")
+        ok &= same and rb_same
+        checked += 1
+    return ok, checked
+
+
+# K1 backward's kernels (csrc/window_key_conv_bwd.cu) by their passes
+K1_BWD_PASSES = (("Memset", "inv fill"), ("pair_count", "count"),
+                 ("pair_scan", "scan"), ("pair_fill", "fill"),
+                 ("dweight_partial", "dW"), ("dweight_reduce", "dW reduce"),
+                 ("transpose_taps", "W^T"), ("gather_gemm", "dF"))
+
+
+def k1_breakdown(bwd_cases, card):
+    """Per student conv of the SSL iteration (B=8): matched pairs and
+    their share of capacity x K, K1 fwd (writing its rulebook, as the
+    student's forward does) and K1 bwd ms (CUDA events) beside their
+    bounds, and the backward's passes from the profiler's kernel times
+    of one launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from detmatch_tpu_torch.ops.cuda.window_key_conv import (
+        window_key_conv_bwd, window_key_conv_fwd)
+    tot = dict(fwd=0.0, bwd=0.0, fwd_bound=0.0, bwd_bound=0.0)
+    for j, (args, need, dout, rb) in enumerate(bwd_cases):
+        feats, _, nkeys, _, w, _ = args
+        pairs = int((rb >= 0).sum())
+        fwd = cuda_ms(lambda: window_key_conv_fwd(*args, rulebook=True),
+                      reps=5)
+        bwd = cuda_ms(lambda: window_key_conv_bwd(dout, feats, rb, w,
+                                                  need_dfeats=need), reps=5)
+        fb, bb = {}, {}
+        add_bound(fb, *work("window_key_conv_batched", args, {}))
+        add_bound(bb, *work("window_key_conv_bwd", args, {}, need))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            window_key_conv_bwd(dout, feats, rb, w, need_dfeats=need)
+            torch.cuda.synchronize()
+        passes = {}
+        for ev in prof.key_averages():
+            us = (getattr(ev, "device_time_total", None)
+                  or getattr(ev, "cuda_time_total", 0))
+            for key, label in K1_BWD_PASSES:
+                if key in ev.key and us:
+                    passes[label] = passes.get(label, 0.0) + us / 1e3
+        for k, v in (("fwd", fwd), ("bwd", bwd), ("fwd_bound", fb[
+                "bound_ms"]), ("bwd_bound", bb["bound_ms"])):
+            tot[k] += v
+        print(f"  student conv {j}: (B, M, K)={tuple(nkeys.shape)} N="
+              f"{feats.shape[1]} C={w.shape[1]} Co={w.shape[2]}: pairs "
+              f"{pairs} ({pairs / rb.numel():.4f} of capacity x K); fwd "
+              f"{fwd:.4f} ms (bound {fb['bound_ms']:.4f}, "
+              f"{fb['bound_ms'] / fwd:.1%}); bwd {bwd:.4f} ms (bound "
+              f"{bb['bound_ms']:.4f}, {bb['bound_ms'] / bwd:.1%}; dF "
+              f"{need}); bwd passes (profiler, one launch): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in passes.items())
+              + f" ms [{card}]")
+    print(f"  student convs together: fwd {tot['fwd']:.3f} ms (bound "
+          f"{tot['fwd_bound']:.4f}, {tot['fwd_bound'] / tot['fwd']:.1%}), "
+          f"bwd {tot['bwd']:.3f} ms (bound {tot['bwd_bound']:.4f}, "
+          f"{tot['bwd_bound'] / tot['bwd']:.1%}) [{card}]")
 
 
 def compare_dense(out_k, out_p):
@@ -633,12 +728,14 @@ def work(name, args, kwargs, need_dfeats=True, out=None):
         m, k = nkeys.shape[1], nkeys.shape[2]
         co = w.shape[-1]
         flops = 2 * conv_pairs(args) * c * co  # one fma per (pair, c, co)
+        # feats, keys, nkeys and weights; the backward reads the forward's
+        # rulebook (B, M, K) instead of the keys
         inputs = b * n * c + b * n + b * m * k + k * c * co
         if name == "window_key_conv_batched":
             return 4 * (inputs + b * m * co), flops
         # reads dout too; writes dW and, where wanted, dF
         out = k * c * co + (b * n * c if need_dfeats else 0)
-        return (4 * (inputs + b * m * co + out),
+        return (4 * (inputs - b * n + b * m * co + out),
                 flops * (2 if need_dfeats else 1))
     if name == "solve_masked_batched":
         from detmatch_tpu_torch.ops.cuda.hungarian import inner_steps
@@ -673,16 +770,17 @@ def add_bound(entry, nbytes, flops, flop_rate=FP32_FLOP_PER_S):
 
 def describe(t):
     return (f"{t['ms']:.3f} ms (plain {t['plain_ms']:.3f} ms, bound "
-            f"{t['bound_ms']:.4f} ms by {t['bound_by']})")
+            f"{t['bound_ms']:.4f} ms by {t['bound_by']}, "
+            f"{t['bound_ms'] / t['ms']:.1%} of it)")
 
 
 def time_kernels(calls, bwd_cases):
     """Kernel and twin time (CUDA events) and bound of each kernel,
     summed over the recorded calls; ``bwd_cases`` adds the sparse conv's
-    backward for each (args, need_dfeats, dout)."""
+    backward for each (args, need_dfeats, dout, the forward's rulebook)."""
     from detmatch_tpu_torch.ops.cuda import KERNELS, PLAIN
     from detmatch_tpu_torch.ops.cuda.window_key_conv import (
-        window_key_conv_bwd, window_key_conv_plain)
+        window_key_conv_bwd, window_key_conv_fwd, window_key_conv_plain)
     kern = dict(zip(KERNELS._fields, KERNELS))
     plain = dict(zip(PLAIN._fields, PLAIN))
     per = {}
@@ -695,11 +793,11 @@ def time_kernels(calls, bwd_cases):
                                                                **kwargs)),
                   BF16_FLOP_PER_S if name == "key_conv_batched"
                   else FP32_FLOP_PER_S)
-    for args, need, dout in bwd_cases:
+    for args, need, dout, rb in bwd_cases:
         feats, keys, nkeys, out_keys, w, band = args
         t = per.setdefault("window_key_conv_bwd", dict(ms=0.0, plain_ms=0.0))
         t["ms"] += cuda_ms(lambda: window_key_conv_bwd(
-            dout, feats, keys, nkeys, w, band, need_dfeats=need), reps=5)
+            dout, feats, rb, w, need_dfeats=need), reps=5)
         with torch.enable_grad():
             f = feats.clone().requires_grad_(need)
             ww = w.clone().requires_grad_()
@@ -738,7 +836,7 @@ def train_phases(cfg, spec, card, stats):
     from detmatch_tpu_torch.ops import cuda as cuda_ops
     from detmatch_tpu_torch.ops.cuda import KERNELS, PLAIN
     from detmatch_tpu_torch.ops.cuda.window_key_conv import (
-        window_key_conv_bwd, window_key_conv_plain)
+        window_key_conv_bwd, window_key_conv_fwd, window_key_conv_plain)
     from detmatch_tpu_torch.ops.voxelize import INVALID_KEY
     from detmatch_tpu_torch.train.optim import (clip_grad_norm_,
                                                 make_optimizer)
@@ -779,7 +877,8 @@ def train_phases(cfg, spec, card, stats):
         feats, keys, nkeys, out_keys, w, band = args
         dout = torch.randn(feats.shape[0], nkeys.shape[1], w.shape[-1],
                            generator=g, device=DEVICE)
-        d_f, d_w = window_key_conv_bwd(dout, feats, keys, nkeys, w, band)
+        _, rb = window_key_conv_fwd(*args, rulebook=True)
+        d_f, d_w = window_key_conv_bwd(dout, feats, rb, w)
         f = feats.clone().requires_grad_()
         ww = w.clone().requires_grad_()
         p_f, p_w = torch.autograd.grad(window_key_conv_plain(
@@ -797,7 +896,7 @@ def train_phases(cfg, spec, card, stats):
               f"out {tuple(dout.shape)} taps={nkeys.shape[-1]} "
               f"pairs={conv_pairs(args)} dF on the main path={need} "
               f"{'ok' if good else 'FAIL'}")
-        bwd_cases.append((args, need, dout))
+        bwd_cases.append((args, need, dout, rb))
     if not ok:
         raise AssertionError("a kernel disagrees with its plain twin at "
                              "training shapes")
@@ -1455,7 +1554,7 @@ def ssl_phases(card, stats):
     from detmatch_tpu_torch.ops.cuda import KERNELS, PLAIN
     from detmatch_tpu_torch.ops.cuda import key_conv as kc
     from detmatch_tpu_torch.ops.cuda.window_key_conv import (
-        window_key_conv_bwd, window_key_conv_plain)
+        window_key_conv_bwd, window_key_conv_fwd, window_key_conv_plain)
     from detmatch_tpu_torch.ops.voxelize import INVALID_KEY
     from detmatch_tpu_torch.ssl.detector import ema_decay_at
     from detmatch_tpu_torch.train.optim import detmatch_branch_optimizers
@@ -1496,8 +1595,11 @@ def ssl_phases(card, stats):
     del m
     with torch.no_grad():
         ok = check_kernels(calls, "SSL", stats)
+        exact, n_exact = check_k1_exact(calls, "SSL")
     counts = {n: sum(c[0] == n for c in calls) for n in TEACHER_KERNELS}
-    print(f"calls per SSL iteration (teacher + student forward): {counts}")
+    print(f"calls per SSL iteration (teacher + student forward): {counts}; "
+          f"K1 fwd bit-equal to K7 with its rulebook equal to the plain one "
+          f"on {n_exact} of them: {exact}")
     g = gen()
     bwd_cases = []
     st = stats.setdefault("window_key_conv_bwd", dict(max_abs_err=0.0,
@@ -1508,28 +1610,36 @@ def ssl_phases(card, stats):
         feats, keys, nkeys, out_keys, w, band = args
         dout = torch.randn(feats.shape[0], nkeys.shape[1], w.shape[-1],
                            generator=g, device=DEVICE)
-        d_f, d_w = window_key_conv_bwd(dout, feats, keys, nkeys, w, band)
+        _, rb = window_key_conv_fwd(*args, rulebook=True)
+        d_f, d_w = window_key_conv_bwd(dout, feats, rb, w)
+        d_f2, d_w2 = window_key_conv_bwd(dout, feats, rb, w)
         f = feats.clone().requires_grad_()
         ww = w.clone().requires_grad_()
         p_f, p_w = torch.autograd.grad(window_key_conv_plain(
             f, keys, nkeys, out_keys, ww, band), (f, ww), dout)
         torch.cuda.synchronize()
         err_f, err_w = rel_err(d_f, p_f), rel_err(d_w, p_w)
+        same = torch.equal(d_f, d_f2) and torch.equal(d_w, d_w2)
         st["cases"] += 1
         st["max_abs_err"] = max(st["max_abs_err"],
                                 float((d_f - p_f).abs().max()),
                                 float((d_w - p_w).abs().max()))
-        good = err_f <= CONV_RTOL and err_w <= CONV_RTOL
+        good = err_f <= CONV_RTOL and err_w <= CONV_RTOL and same
         ok &= good
         print(f"  SSL B={2 * SSL_B} window_key_conv_bwd[{i}] dF rel_err="
-              f"{err_f:.3e} dW rel_err={err_w:.3e} out "
-              f"{tuple(dout.shape)} taps={nkeys.shape[-1]} dF on the main "
-              f"path={need} {'ok' if good else 'FAIL'}")
-        bwd_cases.append((args, need, dout))
+              f"{err_f:.3e} dW rel_err={err_w:.3e} two launches bit-equal="
+              f"{same} out {tuple(dout.shape)} taps={nkeys.shape[-1]} dF on "
+              f"the main path={need} {'ok' if good else 'FAIL'}")
+        bwd_cases.append((args, need, dout, rb))
+        del d_f, d_w, d_f2, d_w2, p_f, p_w
     expect_fwd = {n: SSL_LAUNCHES[n] for n in TEACHER_KERNELS}
-    if not ok or counts != expect_fwd or len(bwd_cases) != 12:
+    if (not ok or not exact or counts != expect_fwd or len(bwd_cases) != 12
+            or n_exact != SSL_LAUNCHES["window_key_conv_batched"]):
         raise AssertionError("a kernel disagrees with its twin at SSL "
-                             f"shapes, or the calls are not {expect_fwd}")
+                             "shapes, K1 fwd is not bit-equal to K7 or its "
+                             "rulebook to the plain one, K1 bwd differs "
+                             f"between two launches, or the calls are not "
+                             f"{expect_fwd}")
 
     phase("SSL iteration: kernel path against plain path (pinned)")
     # the teacher boxes pinned as in the teacher phase; the clean 2D boxes
@@ -1786,6 +1896,7 @@ def ssl_phases(card, stats):
     phase(f"SSL iteration: timing (CUDA events) on {card}")
     with torch.no_grad():
         per = time_kernels(calls, bwd_cases)
+        k1_breakdown(bwd_cases, card)
         per.update(time_kernels(rb_calls, []))
         key_per = time_kernels(kcalls, [])
         t = key_per.setdefault("key_conv_bwd", dict(ms=0.0, plain_ms=0.0))

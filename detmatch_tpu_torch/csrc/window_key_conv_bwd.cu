@@ -1,10 +1,11 @@
-// Sparse 3D convolution backward over sorted int32 voxel keys: the
-// gradients of csrc/window_key_conv.cu's out[b, m] = sum_k F[b,
-// row(b,m,k)] . W_k,
-//   dW_k     = sum_{b,m} F[b, row(b,m,k)]^T . dout[b, m]
+// Sparse 3D convolution backward over sorted int32 voxel keys (K1 bwd):
+// the gradients of csrc/window_key_conv.cu's
+// out[b, m] = sum_k F[b, rb(b,m,k)] . W_k,
+//   dW_k     = sum_{b,m} F[b, rb(b,m,k)]^T . dout[b, m]
 //   dF[b, n] = sum_k dout[b, inv(b,n,k)] . W_k^T
-// where row(b,m,k) is the row of nkeys[b,m,k] in sample b's own sorted key
-// table and inv(b,n,k) is the output row whose tap k reads input row n.
+// where rb is the rulebook that the forward resolved and wrote (per-sample
+// input rows, -1 = none) and inv(b,n,k) is the output row whose tap k
+// reads input row n.
 //
 // Replaces the TPU kernel detmatch_tpu/ops/pallas/window_key_conv.py:
 // _bwd_fused (_bwd_kernel, pallas_call at :334). That kernel builds, per
@@ -12,277 +13,402 @@
 // in a window against the tile's keys, on the VPU, keeps it in VMEM
 // scratch and contracts dF = sum_k S_k W_k^T and dW_k += F^T S_k on the MXU
 // in bf16. Gathers are cheap on this card, so nothing of that is kept:
-// both gradients are gathers plus fp32 products, and each sample is
-// searched in its own sorted segment (the TPU wrapper's flattened table
-// is unsorted at B > 1).
+// both gradients are gathers plus fp32 products over the forward's
+// rulebook, with no key search.
 //
-// What bounds it on the H100: the backbone's gradients are a few MB
-// (at most 2 x 24,000 rows x 27 taps x 64 x 128 fp32 products, ~10 GFLOP
-// for the widest conv, and feature rows of 16-128 floats), so memory
-// latency of the row gathers bounds it, not FLOPs or bandwidth. The design
-// keeps every gathered tile in shared memory for the whole C x Co product
-// and skips tiles in which no row has the tap (padding, sparse taps).
+// What bounds it on the H100: the fp32 FMAs of the matched pairs, one
+// per (pair, C, Co) for dW and again for dF. No pass does arithmetic on a
+// row or a tap without a matched pair.
 //
-// Passes, all fp32, none with atomics, so every result is deterministic:
-// 1. rulebook: one thread per (b, m, k) binary-searches nkeys[b,m,k] and
-//    writes rb[b,m,k] = row (-1 = none). If dF is wanted it also writes
-//    inv[b, row, k] = m. For any conv (submanifold, strided, (3,1,1)
-//    z-compress) an input position and a tap fix at most one output
-//    position, and distinct output rows have distinct keys, so each
-//    (b, row, k) slot is written at most once: a plain scatter, no
-//    atomics, and no conv geometry needed here. Outputs dropped by a
-//    level cap have no row in nkeys and so leave inv at -1 (they add 0).
-// 2. dF as a gather-GEMM like the forward: one block per 16 input rows;
-//    per tap it stages W_k^T (Co x C) and the 16 gathered dout rows in
-//    shared memory and accumulates dF in registers.
-// 3. dW per tap as a reduction over output rows: block (j, k) sums
-//    F[rb]^T . dout over the j-th chunk of output rows, 32 rows at a time
-//    from shared memory, and writes one C x Co partial.
-// 4. A second pass sums the partials over j in a fixed order.
-#include "common.cuh"
+// Passes, all fp32, none with float atomics, every result written once,
+// so every result is deterministic:
+// 1. pair_count: one thread per output row, over the taps. Writes
+//    inv[b, rb, k] = m (for any conv an input row and a tap fix at most
+//    one output row, so each slot has at most one writer; the caller
+//    fills inv with -1 first) and each 256-row chunk's pair count per tap.
+// 2. pair_scan: one block, exclusive prefix sums of the counts, tap-major,
+//    and each tap's first pair.
+// 3. pair_fill: the per-tap lists of matched pairs as output rows, in
+//    ascending (sample, output row) order (ballots within a chunk).
+// 4. dW: block (j, k, g) takes pairs [j * kPairChunk, (j + 1) *
+//    kPairChunk) of tap k's list and output columns [gw g, gw (g + 1)),
+//    gw = Co, or 16 where K x chunks is too few blocks to fill the card
+//    (the 3-tap conv), stages 32 pairs at a time
+//    (F rows and dout row pieces, cp.async, two stages) and sums
+//    F^T . dout from 0 by 4 x 4 register micro-tiles over (ci, oc), pairs
+//    ascending. Where the block's C * gw / 16 micro-tiles are fewer than
+//    its threads, S = 256 / tiles slices take every S-th pair and their
+//    sums are added slice 0 first. One partial per chunk; a second pass
+//    adds the chunks of a tap from 0, ascending. Column groups give
+//    Co / 16 times the blocks of a chunk, without more partials.
+// 5. dF: the forward's gather-GEMM tile (csrc/gather_gemm.cuh) in map
+//    mode on inv, with W_k^T staged as (Co, C): per element, fmaf from +0
+//    over the taps ascending, then the output channels ascending.
+#include "gather_gemm.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using dm::gemm::cp_async16;
+using dm::gemm::cp_async_commit;
+using dm::gemm::cp_async_wait;
+
+constexpr int kThreads = 256;     // also the rows of a counting chunk
+constexpr int kPairChunk = 2048;  // ops/cuda/window_key_conv.PAIR_CHUNK
+constexpr int kTilePairs = 32;    // pairs per staged dW tile
+constexpr int kFewDwBlocks = 528;  // 4 blocks for each of the 132 SMs
 constexpr int kMaxTaps = 27;
 constexpr int kMaxCin = 64;
 constexpr int kMaxCout = 128;
-constexpr int kMaxW = 8192;                       // C * Co floats per tap
-constexpr int kRowsF = 16;                        // input rows per dF block
-constexpr int kAccF = kRowsF * kMaxCin / kThreads;
-constexpr int kRowsW = 32;                        // rows per dW tile
-constexpr int kAccW = kMaxW / kThreads;
+constexpr int kMaxW = 8192;  // C * Co floats per tap
 
 __global__ void __launch_bounds__(kThreads)
-    rulebook_kernel(const int32_t* __restrict__ keys,
-                    const int32_t* __restrict__ nkeys,
-                    int32_t* __restrict__ rb, int32_t* __restrict__ inv,
-                    int b, int n, int m, int k) {
-  const int64_t p = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  const int64_t total = static_cast<int64_t>(b) * m * k;
-  if (p >= total) return;
-  const int64_t row = p / k;
-  const int tap = static_cast<int>(p - row * k);
-  const int bi = static_cast<int>(row / m);
-  const int mm = static_cast<int>(row - static_cast<int64_t>(bi) * m);
-  const int32_t q = nkeys[p];
-  int src = -1;
-  if (q != dm::kInvalidKey) {
-    const int32_t* tbl = keys + static_cast<size_t>(bi) * n;
-    const int pos = dm::lower_bound(tbl, n, q);
-    if (pos < n && tbl[pos] == q) src = pos;
-  }
-  rb[p] = src;
-  if (inv != nullptr && src >= 0) {
-    inv[(static_cast<int64_t>(bi) * n + src) * k + tap] = mm;
+    pair_count_kernel(const int32_t* __restrict__ rb,
+                      int32_t* __restrict__ inv,
+                      int32_t* __restrict__ counts, int b, int n, int m,
+                      int k, int n_rc) {
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * kThreads +
+                      threadIdx.x;
+  const bool valid = row < static_cast<int64_t>(b) * m;
+  const int bi = valid ? static_cast<int>(row / m) : 0;
+  const int mm = valid ? static_cast<int>(row - static_cast<int64_t>(bi) * m)
+                       : 0;
+  for (int tap = 0; tap < k; ++tap) {
+    const int v = valid ? rb[row * k + tap] : -1;
+    const bool has = v >= 0 && v < n;
+    if (has && inv != nullptr) {
+      inv[(static_cast<int64_t>(bi) * n + v) * k + tap] = mm;
+    }
+    const int cnt = __syncthreads_count(has);
+    if (threadIdx.x == 0) counts[tap * n_rc + blockIdx.x] = cnt;
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    dfeats_kernel(const float* __restrict__ dout,
-                  const float* __restrict__ weights,
-                  const int32_t* __restrict__ inv,
-                  float* __restrict__ dfeats, int b, int n, int m, int k,
-                  int c, int co) {
-  __shared__ int s_inv[kRowsF][kMaxTaps];  // global dout row, -1 = none
-  __shared__ float s_wt[kMaxW];            // W_k^T, (co, c)
-  __shared__ float s_d[kRowsF * kMaxCout];
-
+// One block of 1,024 threads: offsets = exclusive scan of counts (k *
+// n_rc, tap-major); tap_start[tap] = first pair of the tap, [k] = total.
+__global__ void __launch_bounds__(1024)
+    pair_scan_kernel(const int32_t* __restrict__ counts,
+                     int32_t* __restrict__ offsets,
+                     int32_t* __restrict__ tap_start, int k, int n_rc) {
+  __shared__ int s_sum[1024];
   const int t = threadIdx.x;
-  const int64_t rows = static_cast<int64_t>(b) * n;
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kRowsF;
-
-  for (int p = t; p < kRowsF * k; p += kThreads) {
-    const int r = p / k;
-    const int tap = p - r * k;
-    const int64_t row = row0 + r;
-    int dst = -1;
-    if (row < rows) {
-      const int v = inv[row * k + tap];
-      if (v >= 0) dst = static_cast<int>(row / n) * m + v;
-    }
-    s_inv[r][tap] = dst;
-  }
+  const int total = k * n_rc;
+  const int per = (total + 1023) / 1024;
+  const int lo = min(t * per, total);
+  const int hi = min(lo + per, total);
+  int local = 0;
+  for (int i = lo; i < hi; ++i) local += counts[i];
+  s_sum[t] = local;
   __syncthreads();
+  for (int d = 1; d < 1024; d <<= 1) {  // inclusive Hillis-Steele scan
+    const int add = t >= d ? s_sum[t - d] : 0;
+    __syncthreads();
+    s_sum[t] += add;
+    __syncthreads();
+  }
+  int run = s_sum[t] - local;
+  for (int i = lo; i < hi; ++i) {
+    offsets[i] = run;
+    if (i % n_rc == 0) tap_start[i / n_rc] = run;
+    run += counts[i];
+  }
+  if (t == 1023) tap_start[k] = s_sum[1023];
+}
 
-  float acc[kAccF];
-#pragma unroll
-  for (int j = 0; j < kAccF; ++j) acc[j] = 0.f;
-
-  const int cw = c * co;
+__global__ void __launch_bounds__(kThreads)
+    pair_fill_kernel(const int32_t* __restrict__ rb,
+                     const int32_t* __restrict__ offsets,
+                     int32_t* __restrict__ pairs, int b, int n, int m, int k,
+                     int n_rc) {
+  __shared__ int s_warp[kThreads / 32];
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * kThreads + t;
+  const bool valid = row < static_cast<int64_t>(b) * m;
   for (int tap = 0; tap < k; ++tap) {
-    // a barrier too: the previous tap's tiles are consumed past here
-    const bool mine = t < kRowsF && s_inv[t][tap] >= 0;
-    if (!__syncthreads_or(mine)) continue;
-    const float* wk = weights + static_cast<size_t>(tap) * cw;
-    for (int e = t; e < cw; e += kThreads) {
-      const int ci = e / co;
-      const int oc = e - ci * co;
-      s_wt[oc * c + ci] = wk[e];
-    }
-    for (int e = t; e < kRowsF * co; e += kThreads) {
-      const int r = e / co;
-      const int oc = e - r * co;
-      const int dst = s_inv[r][tap];
-      s_d[e] = dst >= 0 ? dout[static_cast<size_t>(dst) * co + oc] : 0.f;
+    const int v = valid ? rb[row * k + tap] : -1;
+    const bool has = v >= 0 && v < n;
+    const unsigned ballot = __ballot_sync(0xffffffffu, has);
+    if (lane == 0) s_warp[warp] = __popc(ballot);
+    __syncthreads();
+    if (has) {
+      int at = offsets[tap * n_rc + blockIdx.x] +
+               __popc(ballot & ((1u << lane) - 1u));
+      for (int w = 0; w < warp; ++w) at += s_warp[w];
+      pairs[at] = static_cast<int32_t>(row);
     }
     __syncthreads();
-#pragma unroll
-    for (int j = 0; j < kAccF; ++j) {
-      const int o = t + j * kThreads;
-      if (o < kRowsF * c) {
-        const int r = o / c;
-        const int ci = o - r * c;
-        const float* d = s_d + r * co;
-        float a = acc[j];
-        for (int oc = 0; oc < co; ++oc) a = fmaf(d[oc], s_wt[oc * c + ci], a);
-        acc[j] = a;
-      }
-    }
-  }
-
-#pragma unroll
-  for (int j = 0; j < kAccF; ++j) {
-    const int o = t + j * kThreads;
-    if (o < kRowsF * c) {
-      const int r = o / c;
-      const int ci = o - r * c;
-      const int64_t row = row0 + r;
-      if (row < rows) dfeats[row * c + ci] = acc[j];
-    }
   }
 }
 
-// grid (n_chunks, k): block (j, tap) writes partial[j, tap] (c x co).
-__global__ void __launch_bounds__(kThreads)
+// grid (max_chunks, k, co / gw): block (j, tap, g) writes columns
+// [g * gw, (g + 1) * gw) of partial[tap, j] (c x co) if tap k's list has a
+// j-th chunk. At most 80 registers, so that three blocks share an SM and
+// the 27-tap convs' chunks run in one wave.
+__global__ void __launch_bounds__(kThreads, 3)
     dweight_partial_kernel(const float* __restrict__ feats,
                            const float* __restrict__ dout,
                            const int32_t* __restrict__ rb,
-                           float* __restrict__ partial, int b, int n, int m,
-                           int k, int c, int co, int chunk_rows) {
-  __shared__ int s_src[kRowsW];  // global input row, -1 = none
-  __shared__ float s_f[kRowsW * kMaxCin];
-  __shared__ float s_d[kRowsW * kMaxCout];
+                           const int32_t* __restrict__ pairs,
+                           const int32_t* __restrict__ tap_start,
+                           float* __restrict__ partial, int n, int m, int k,
+                           int c, int co, int gw, int max_chunks) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* s_f[2];
+  float* s_d[2];
+  s_f[0] = reinterpret_cast<float*>(smem);
+  s_d[0] = s_f[0] + kTilePairs * c;
+  s_f[1] = s_d[0] + kTilePairs * gw;
+  s_d[1] = s_f[1] + kTilePairs * c;
 
   const int t = threadIdx.x;
   const int tap = blockIdx.y;
-  const int64_t rows = static_cast<int64_t>(b) * m;
-  const int64_t start = static_cast<int64_t>(blockIdx.x) * chunk_rows;
-  const int64_t end = start + chunk_rows < rows ? start + chunk_rows : rows;
-  const int cw = c * co;
+  const int col0 = blockIdx.z * gw;
+  const int start = tap_start[tap] + blockIdx.x * kPairChunk;
+  const int end = min(start + kPairChunk, tap_start[tap + 1]);
+  if (start >= end) return;
 
-  float acc[kAccW];
+  const int c4 = c / 4;
+  const int g4 = gw / 4;
+  const int units = c4 * g4;  // 4 x 4 micro-tiles of the c x gw columns
+  const int slices = units >= kThreads ? 1 : kThreads / units;
+  const int slice = units >= kThreads ? 0 : t / units;
+  const bool active = units >= kThreads || t < slices * units;
+  const int unit0 = units >= kThreads ? t : t - slice * units;
+  const int mine = active ? (units - unit0 + kThreads - 1) / kThreads : 0;
+
+  float4 acc[2][4];
 #pragma unroll
-  for (int j = 0; j < kAccW; ++j) acc[j] = 0.f;
+  for (int s = 0; s < 2; ++s) {
+#pragma unroll
+    for (int a = 0; a < 4; ++a) acc[s][a] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
 
-  for (int64_t r0 = start; r0 < end; r0 += kRowsW) {
-    int src = -1;
-    if (t < kRowsW && r0 + t < end) {
-      const int64_t row = r0 + t;
-      const int v = rb[row * k + tap];
-      if (v >= 0) src = static_cast<int>(row / m) * n + v;
+  auto issue = [&](int stage, int p0) {
+    const int np = min(kTilePairs, end - p0);
+    for (int e = t; e < np * c4; e += kThreads) {
+      const int p = e / c4;
+      const int q = e - p * c4;
+      const int row = pairs[p0 + p];
+      const int src = (row / m) * n + rb[static_cast<int64_t>(row) * k + tap];
+      cp_async16(s_f[stage] + p * c + q * 4,
+                 feats + static_cast<size_t>(src) * c + q * 4);
     }
-    if (t < kRowsW) s_src[t] = src;
-    // a barrier too: the previous tile is consumed past here
-    if (!__syncthreads_or(src >= 0)) continue;
-    for (int e = t; e < kRowsW * c; e += kThreads) {
-      const int r = e / c;
-      const int ci = e - r * c;
-      const int s = s_src[r];
-      s_f[e] = s >= 0 ? feats[static_cast<size_t>(s) * c + ci] : 0.f;
+    for (int e = t; e < np * g4; e += kThreads) {
+      const int p = e / g4;
+      const int q = e - p * g4;
+      const int row = pairs[p0 + p];
+      cp_async16(s_d[stage] + p * gw + q * 4,
+                 dout + static_cast<size_t>(row) * co + col0 + q * 4);
     }
-    for (int e = t; e < kRowsW * co; e += kThreads) {
-      const int r = e / co;
-      const int oc = e - r * co;
-      s_d[e] = s_src[r] >= 0 ? dout[(r0 + r) * co + oc] : 0.f;
+  };
+
+  const int n_tiles = (end - start + kTilePairs - 1) / kTilePairs;
+  issue(0, start);
+  cp_async_commit();
+  for (int i = 0; i < n_tiles; ++i) {
+    const int p0 = start + i * kTilePairs;
+    if (i + 1 < n_tiles) issue((i + 1) & 1, p0 + kTilePairs);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int np = min(kTilePairs, end - p0);
+    const float* sf = s_f[i & 1];
+    const float* sd = s_d[i & 1];
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      if (s < mine) {
+        const int u = unit0 + s * kThreads;
+        const int ci0 = (u / g4) * 4;
+        const int oc0 = (u - (u / g4) * g4) * 4;
+        for (int p = slice; p < np; p += slices) {
+          const float4 f = *reinterpret_cast<const float4*>(sf + p * c + ci0);
+          const float4 d =
+              *reinterpret_cast<const float4*>(sd + p * gw + oc0);
+          dm::gemm::fma4(acc[s][0], f.x, d);
+          dm::gemm::fma4(acc[s][1], f.y, d);
+          dm::gemm::fma4(acc[s][2], f.z, d);
+          dm::gemm::fma4(acc[s][3], f.w, d);
+        }
+      }
     }
     __syncthreads();
+  }
+  cp_async_wait<0>();
+
+  const int cw = c * co;
+  float* out = partial +
+               (static_cast<size_t>(tap) * max_chunks + blockIdx.x) * cw +
+               col0;
+  float* red = reinterpret_cast<float*>(smem);  // (slices, c, gw)
+  const int cg = c * gw;
 #pragma unroll
-    for (int j = 0; j < kAccW; ++j) {
-      const int e = t + j * kThreads;
-      if (e < cw) {
-        const int ci = e / co;
-        const int oc = e - ci * co;
-        float a = acc[j];
-#pragma unroll 8
-        for (int r = 0; r < kRowsW; ++r) {
-          a = fmaf(s_f[r * c + ci], s_d[r * co + oc], a);
+  for (int s = 0; s < 2; ++s) {
+    if (s < mine) {
+      const int u = unit0 + s * kThreads;
+      const int ci0 = (u / g4) * 4;
+      const int oc0 = (u - (u / g4) * g4) * 4;
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        if (slices == 1) {
+          *reinterpret_cast<float4*>(out + (ci0 + a) * co + oc0) = acc[s][a];
+        } else {
+          *reinterpret_cast<float4*>(red + slice * cg + (ci0 + a) * gw +
+                                     oc0) = acc[s][a];
         }
-        acc[j] = a;
       }
     }
   }
-
-  float* out = partial + (static_cast<size_t>(blockIdx.x) * k + tap) * cw;
-#pragma unroll
-  for (int j = 0; j < kAccW; ++j) {
-    const int e = t + j * kThreads;
-    if (e < cw) out[e] = acc[j];
+  if (slices == 1) return;
+  __syncthreads();
+  for (int e = t; e < cg; e += kThreads) {
+    float v = 0.f;
+    for (int s = 0; s < slices; ++s) v += red[s * cg + e];
+    const int ci = e / gw;
+    out[ci * co + (e - ci * gw)] = v;
   }
 }
 
-// dw[tap, e] = sum_j partial[j, tap, e], j ascending.
+// dw[tap, e] = sum over tap's chunks j ascending of partial[tap, j, e].
 __global__ void __launch_bounds__(kThreads)
     dweight_reduce_kernel(const float* __restrict__ partial,
-                          float* __restrict__ dw, int n_chunks, int kcw) {
+                          const int32_t* __restrict__ tap_start,
+                          float* __restrict__ dw, int k, int cw,
+                          int max_chunks) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= kcw) return;
+  if (i >= k * cw) return;
+  const int tap = i / cw;
+  const int e = i - tap * cw;
+  const int cnt = tap_start[tap + 1] - tap_start[tap];
+  const int chunks = (cnt + kPairChunk - 1) / kPairChunk;
+  const float* p = partial + static_cast<size_t>(tap) * max_chunks * cw + e;
   float s = 0.f;
-  for (int j = 0; j < n_chunks; ++j) {
-    s += partial[static_cast<size_t>(j) * kcw + i];
-  }
+  for (int j = 0; j < chunks; ++j) s += p[static_cast<size_t>(j) * cw];
   dw[i] = s;
+}
+
+// wt[tap, oc, ci] = w[tap, ci, oc]
+__global__ void __launch_bounds__(kThreads)
+    transpose_taps_kernel(const float* __restrict__ w,
+                          float* __restrict__ wt, int k, int c, int co) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= k * c * co) return;
+  const int tap = i / (c * co);
+  const int e = i - tap * c * co;
+  const int ci = e / co;
+  const int oc = e - ci * co;
+  wt[(static_cast<size_t>(tap) * co + oc) * c + ci] = w[i];
+}
+
+// Columns of dout a dW block takes: all of them, or 16 where the taps'
+// chunks alone could not fill the card (k * max_chunks below
+// kFewDwBlocks, e.g. the 3-tap z-compressing conv) and 16 divides Co.
+// Splitting the columns gathers each F row once per group: at 27 taps it
+// made the wide convs slower (tools/port_probes/k1_tiles.py).
+int dw_group(int co, int k, int max_chunks) {
+  return co % 16 == 0 && k * max_chunks < kFewDwBlocks ? 16 : co;
+}
+
+int64_t dw_smem_bytes(int c, int gw) {
+  const int64_t stages = 2LL * kTilePairs * (c + gw) * 4;
+  const int64_t red = 4LL * kThreads * 16;  // slices * c * gw <= 16 * 256
+  return stages > red ? stages : red;
+}
+
+// Int32 workspace of the backward (mirrored by
+// ops/cuda/window_key_conv.bwd_workspace): counts and offsets (k * n_rc
+// each, n_rc = ceil(b * m / 256)), tap_start (32), pairs (b * m * k) and,
+// if dfeats is wanted, inv (b * n * k).
+int64_t bwd_workspace(int b, int n, int m, int k, bool dfeats) {
+  const int64_t n_rc = (static_cast<int64_t>(b) * m + kThreads - 1) /
+                       kThreads;
+  return 2 * k * n_rc + 32 + static_cast<int64_t>(b) * m * k +
+         (dfeats ? static_cast<int64_t>(b) * n * k : 0);
 }
 
 }  // namespace
 
-// feats (b, n, c) f32; keys (b, n) int32 sorted per sample, INVALID_KEY
-// padded; nkeys (b, m, k) int32; weights (k, c, co) f32; dout (b, m, co)
-// f32. Scratch from the caller: rb (b, m, k) int32; inv (b, n, k) int32
-// filled with -1 (only if dfeats is wanted); partial (n_chunks, k, c, co)
-// f32 with n_chunks = ceil(b * m / chunk_rows). Outputs: dfeats (b, n, c)
-// (nullptr = not wanted, and inv may be nullptr), dw (k, c, co).
+// feats (b, n, c) f32; rb (b, m, k) int32 from the forward; weights
+// (k, c, co) f32; dout (b, m, co) f32. Scratch from the caller: ws, int32,
+// of bwd_workspace(...) entries; partial (k,
+// max_chunks, c, co) f32 with max_chunks = max(1, ceil(b * m /
+// kPairChunk)); wt (k, co, c) f32 if dfeats is wanted. Outputs: dfeats
+// (b, n, c) (nullptr = not wanted; then wt may be nullptr), dw (k, c, co).
+// rows: input rows per block of the dF tile (as the forward's rows).
 DM_EXPORT int dm_window_key_conv_bwd(
-    const float* feats, const int32_t* keys, const int32_t* nkeys,
-    const float* weights, const float* dout, int32_t* rb, int32_t* inv,
-    float* partial, float* dfeats, float* dw, int b, int n, int m, int k,
-    int c, int co, int chunk_rows, int n_chunks, cudaStream_t stream) {
+    const float* feats, const int32_t* rb, const float* weights,
+    const float* dout, int32_t* ws, int64_t ws_len, float* partial,
+    float* wt, float* dfeats, float* dw, int b, int n, int m, int k, int c,
+    int co, int rows, int max_chunks, cudaStream_t stream) {
   if (b < 0 || n <= 0 || m < 0 || k <= 0 || k > kMaxTaps || c <= 0 ||
-      c > kMaxCin || co <= 0 || co > kMaxCout || c * co > kMaxW ||
-      chunk_rows <= 0 || n_chunks < 0 || (dfeats != nullptr && !inv)) {
+      c > kMaxCin || c % 4 != 0 || co <= 0 || co > kMaxCout || co % 4 != 0 ||
+      c * co > kMaxW || (dfeats != nullptr && wt == nullptr) ||
+      ws_len != bwd_workspace(b, n, m, k, dfeats != nullptr) ||
+      (dfeats != nullptr && !dm::gemm::tile_ok(rows, k, co, c))) {
     return cudaErrorInvalidValue;
   }
   const int64_t out_rows = static_cast<int64_t>(b) * m;
   const int64_t in_rows = static_cast<int64_t>(b) * n;
-  if (in_rows > 0x7fffffff || out_rows > 0x7fffffff ||
-      static_cast<int64_t>(n_chunks) * chunk_rows < out_rows ||
-      (n_chunks > 0 &&
-       static_cast<int64_t>(n_chunks - 1) * chunk_rows >= out_rows)) {
+  const int64_t need_chunks = (out_rows + kPairChunk - 1) / kPairChunk;
+  if (in_rows > 0x7fffffff || out_rows * k > 0x7fffffff ||
+      static_cast<int64_t>(b) * n * k > 0x7fffffff ||
+      max_chunks != (need_chunks > 1 ? need_chunks : 1)) {
     return cudaErrorInvalidValue;
   }
-  const int kcw = k * c * co;
-  if (out_rows > 0) {
-    const int64_t pairs = out_rows * k;
-    rulebook_kernel<<<static_cast<unsigned>((pairs + kThreads - 1) /
-                                            kThreads),
-                      kThreads, 0, stream>>>(keys, nkeys, rb,
-                                             dfeats ? inv : nullptr, b, n, m,
-                                             k);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    dweight_partial_kernel<<<dim3(static_cast<unsigned>(n_chunks),
-                                  static_cast<unsigned>(k)),
-                             kThreads, 0, stream>>>(
-        feats, dout, rb, partial, b, n, m, k, c, co, chunk_rows);
-    err = cudaGetLastError();
+  const int cw = c * co;
+  cudaError_t err;
+  if (out_rows == 0) {  // no pairs: zero gradients
+    err = cudaMemsetAsync(dw, 0, sizeof(float) * k * cw, stream);
+    if (err == cudaSuccess && dfeats != nullptr) {
+      err = cudaMemsetAsync(dfeats, 0, sizeof(float) * in_rows * c, stream);
+    }
+    return err;
+  }
+  const int n_rc = static_cast<int>((out_rows + kThreads - 1) / kThreads);
+  int32_t* counts = ws;
+  int32_t* offsets = counts + static_cast<int64_t>(k) * n_rc;
+  int32_t* tap_start = offsets + static_cast<int64_t>(k) * n_rc;
+  int32_t* pairs = tap_start + 32;
+  int32_t* inv = dfeats != nullptr ? pairs + out_rows * k : nullptr;
+  if (inv != nullptr) {
+    err = cudaMemsetAsync(inv, 0xff, sizeof(int32_t) * in_rows * k, stream);
     if (err != cudaSuccess) return err;
   }
-  dweight_reduce_kernel<<<(kcw + kThreads - 1) / kThreads, kThreads, 0,
-                          stream>>>(partial, dw, n_chunks, kcw);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || dfeats == nullptr || in_rows == 0) return err;
-  dfeats_kernel<<<static_cast<unsigned>((in_rows + kRowsF - 1) / kRowsF),
-                  kThreads, 0, stream>>>(dout, weights, inv, dfeats, b, n,
-                                         m, k, c, co);
-  return cudaGetLastError();
+  pair_count_kernel<<<n_rc, kThreads, 0, stream>>>(rb, inv, counts, b, n, m,
+                                                   k, n_rc);
+  pair_scan_kernel<<<1, 1024, 0, stream>>>(counts, offsets, tap_start, k,
+                                           n_rc);
+  pair_fill_kernel<<<n_rc, kThreads, 0, stream>>>(rb, offsets, pairs, b, n,
+                                                  m, k, n_rc);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  static bool attr_set = false;
+  if (!attr_set) {
+    err = cudaFuncSetAttribute(dweight_partial_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               dm::gemm::kMaxSmem);
+    if (err != cudaSuccess) return err;
+    attr_set = true;
+  }
+  const int gw = dw_group(co, k, max_chunks);
+  dweight_partial_kernel<<<dim3(static_cast<unsigned>(max_chunks),
+                                static_cast<unsigned>(k),
+                                static_cast<unsigned>(co / gw)),
+                           kThreads, static_cast<size_t>(dw_smem_bytes(c, gw)),
+                           stream>>>(feats, dout, rb, pairs, tap_start,
+                                     partial, n, m, k, c, co, gw, max_chunks);
+  dweight_reduce_kernel<<<(k * cw + kThreads - 1) / kThreads, kThreads, 0,
+                          stream>>>(partial, tap_start, dw, k, cw,
+                                    max_chunks);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || dfeats == nullptr) return err;
+
+  transpose_taps_kernel<<<(k * cw + kThreads - 1) / kThreads, kThreads, 0,
+                          stream>>>(weights, wt, k, c, co);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return dm::gemm::launch_gather_gemm<false>(dout, nullptr, inv, wt, dfeats,
+                                             nullptr, b, m, n, k, co, c,
+                                             rows, stream);
 }

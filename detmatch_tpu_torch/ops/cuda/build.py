@@ -36,14 +36,15 @@ LINK_FLAGS = (*ARCH, "-shared")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_int64
 # C signatures of the launch functions in csrc/ (all return int).
 SIGNATURES = {
     "dm_fps": (_P, _P, _P, _I, _I, _I, _P),
     "dm_ball_query": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I,
                       _P),
-    "dm_window_key_conv_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                               _P),
-    "dm_window_key_conv_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+    "dm_window_key_conv_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _I, _I, _P),
+    "dm_window_key_conv_bwd": (_P, _P, _P, _P, _P, _L, _P, _P, _P, _P, _I,
                                _I, _I, _I, _I, _I, _I, _I, _P),
     "dm_hungarian_jv": (_P, _P, _P, _I, _I, _P),
     "dm_key_conv_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),

@@ -6,6 +6,9 @@ at sizes and validity patterns the teacher phase does not give it, and
 the key-compare conv (K5) forward and backward against their twins, the
 rulebook gather-GEMM (K7, and with its bf16 flag K6's forward), K6's
 backward scatter and K8's row gather and scatter-add against theirs.
+K1's forward is held bit-equal to K7 (dense, sparse and pad-only tiles),
+the rulebook it writes to the plain one, and its backward, which reads
+that rulebook, to itself over two launches.
 
 Needs a CUDA card: every test is marked ``cuda`` and skips without one.
 This file imports no JAX, so it runs where JAX is not installed:
@@ -106,6 +109,80 @@ def test_window_key_conv_kernel_matches_twin(dev, k, c, co):
     assert not out[2].any()
 
 
+def _dense_case(dev, c, co, b=2):
+    """A solid 8 x 12 x 12 block of voxels per sample (every subm tap of an
+    inner voxel matches), the second sample shifted, and 500 pad rows."""
+    g = torch.Generator().manual_seed(5)
+    shape = (41, 200, 176)
+    z, y, x = torch.meshgrid(torch.arange(8), torch.arange(12),
+                             torch.arange(12), indexing="ij")
+    coords = torch.stack([z, y, x], -1).reshape(-1, 3).to(torch.int32)
+    keys = []
+    for i in range(b):
+        kk = voxelize.linearize(coords + torch.tensor([i, 3 * i, 5 * i],
+                                                      dtype=torch.int32),
+                                shape)
+        pad = torch.full((500,), voxelize.INVALID_KEY, dtype=torch.int32)
+        keys.append(torch.cat([torch.sort(kk.to(torch.int32)).values, pad]))
+    keys = torch.stack(keys).to(dev)
+    nk = spconv.subm_neighbor_keys(keys, shape).contiguous()
+    feats = torch.randn(b, keys.shape[1], c, generator=g).to(dev)
+    w = torch.randn(27, c, co, generator=g).to(dev)
+    return feats, keys, nk, w, 41 * 200 * 176 + 1
+
+
+def _sparse_case(dev, k, c, co):
+    """The B=3 uneven-count subm case of the twin test (3,000 / 1,200 /
+    0 voxels), its first ``k`` taps."""
+    g = torch.Generator().manual_seed(2)
+    shape = (41, 200, 176)
+    keys = []
+    for n_valid in (3000, 1200, 0):
+        kk = torch.randperm(41 * 200 * 176, generator=g)[:n_valid]
+        kk = torch.sort(kk).values.to(torch.int32)
+        pad = torch.full((3000 - n_valid,), voxelize.INVALID_KEY,
+                         dtype=torch.int32)
+        keys.append(torch.cat([kk, pad]))
+    keys = torch.stack(keys).to(dev)
+    nk = spconv.subm_neighbor_keys(keys, shape)[..., :k].contiguous()
+    feats = torch.randn(3, 3000, c, generator=g).to(dev)
+    w = torch.randn(k, c, co, generator=g).to(dev)
+    return feats, keys, nk, w, 41 * 200 * 176 + 1
+
+
+def _k1_case(dev, kind, k, c, co):
+    """"dense": _dense_case; "sparse": _sparse_case, whose third sample
+    has no voxel, so its 3,000 rows make whole tiles of pad rows."""
+    if kind == "dense":
+        return _dense_case(dev, c, co)
+    return _sparse_case(dev, k, c, co)
+
+
+@pytest.mark.parametrize("kind,k,c,co", [
+    ("dense", 27, 4, 16), ("dense", 27, 64, 128), ("sparse", 27, 4, 16),
+    ("sparse", 27, 64, 64), ("sparse", 3, 64, 128), ("sparse", 27, 16, 32)])
+def test_window_key_conv_is_bit_equal_to_k7(dev, kind, k, c, co):
+    """K1's forward skips the taps without an input row and keeps K7's
+    order of the sums (taps, then channels, ascending, fmaf from +0), so
+    it is bit-equal to K7 on the plain rulebook; the rulebook it writes
+    for the backward is that rulebook, and writing it changes no bit."""
+    feats, keys, nk, w, band = _k1_case(dev, kind, k, c, co)
+    rb_plain = spconv.rulebook_batched(keys, nk)
+    out, rb = window_key_conv.window_key_conv_fwd(feats, keys, nk, keys, w,
+                                                  band, rulebook=True)
+    again, none = window_key_conv.window_key_conv_fwd(feats, keys, nk, keys,
+                                                      w, band)
+    k7 = gather_conv.gather_conv_batched(feats, rb_plain, w)
+    torch.cuda.synchronize()
+    assert none is None
+    assert torch.equal(rb, rb_plain)
+    assert torch.equal(out, k7) and torch.equal(again, k7)
+    if kind == "dense":  # inner voxels match all 27 taps
+        assert int((rb_plain >= 0).all(-1).sum()) > 0
+    else:  # the tiles of the empty sample: pad rows only, zeros out
+        assert not (rb_plain[2] >= 0).any() and not out[2].any()
+
+
 def _conv_case(dev, kind, c, co):
     """Keys, neighbour keys and output keys of one conv geometry at B=3
     with uneven voxel counts (3,000 / 1,200 / 0)."""
@@ -168,6 +245,41 @@ def test_window_key_conv_backward_matches_twin(dev, kind, c, co,
         assert not got[0][2].any()  # the empty sample
 
 
+@pytest.mark.parametrize("kind,c,co,need_dfeats", [
+    ("dense", 4, 16, True), ("dense", 64, 128, True), ("subm", 16, 16, True),
+    ("stride2", 32, 64, True), ("z3", 64, 128, False)])
+def test_window_key_conv_backward_reads_the_forward_rulebook(dev, kind, c,
+                                                             co, need_dfeats):
+    """The backward takes the rulebook the forward wrote (equal to the
+    plain one), gives the same bits over two launches (fixed orders, no
+    float atomics), and matches the twin's gradients within 1e-5."""
+    if kind == "dense":
+        feats, keys, nk, w, band = _dense_case(dev, c, co)
+        out_keys = keys
+        g = torch.Generator().manual_seed(6)
+        dout = torch.randn(*nk.shape[:2], co, generator=g).to(dev)
+    else:
+        feats, keys, nk, out_keys, w, dout, band = _conv_case(dev, kind, c,
+                                                              co)
+    _, rb = window_key_conv.window_key_conv_fwd(feats, keys, nk, out_keys, w,
+                                                band, rulebook=True)
+    assert torch.equal(rb, spconv.rulebook_batched(keys, nk))
+    first = window_key_conv.window_key_conv_bwd(dout, feats, rb, w,
+                                                need_dfeats)
+    second = window_key_conv.window_key_conv_bwd(dout, feats, rb, w,
+                                                 need_dfeats)
+    ref = _grads(window_key_conv.window_key_conv_plain, feats, keys, nk,
+                 out_keys, w, dout, band, need_dfeats)
+    torch.cuda.synchronize()
+    got = [t for t in first if t is not None]
+    assert len(got) == len(ref) == (2 if need_dfeats else 1)
+    for a, a2 in zip(first, second):
+        assert (a is None and a2 is None) or torch.equal(a, a2)
+    for a, r in zip(got, ref):
+        err = float((a - r).abs().max() / r.abs().max())
+        assert err <= 1e-5, err
+
+
 def test_wrappers_check_their_arguments(dev):
     xyz = _cloud(dev, 1, 100, 3)
     valid = torch.ones(1, 100, dtype=torch.bool, device=dev)
@@ -185,11 +297,26 @@ def test_wrappers_check_their_arguments(dev):
         window_key_conv.window_key_conv_batched(
             torch.zeros(1, 4, 65, device=dev), keys, nkeys, keys,
             torch.zeros(27, 65, 8, device=dev), 100)
+    with pytest.raises(ValueError):  # C = 6 not a multiple of 4
+        window_key_conv.window_key_conv_batched(
+            torch.zeros(1, 4, 6, device=dev), keys, nkeys, keys,
+            torch.zeros(27, 6, 8, device=dev), 100)
+    shifted = torch.zeros(17, device=dev)[1:].view(1, 4, 4)  # 4 bytes in
+    with pytest.raises(ValueError):  # not 16-byte aligned
+        window_key_conv.window_key_conv_batched(
+            shifted, keys, nkeys, keys, torch.zeros(27, 4, 8, device=dev),
+            100)
+    rb = torch.zeros(1, 4, 27, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):  # dout of the wrong shape
         window_key_conv.window_key_conv_bwd(
             torch.zeros(1, 3, 8, device=dev), torch.zeros(1, 4, 4,
                                                           device=dev),
-            keys, nkeys, torch.zeros(27, 4, 8, device=dev), 100)
+            rb, torch.zeros(27, 4, 8, device=dev))
+    with pytest.raises(TypeError):  # a rulebook that is not int32
+        window_key_conv.window_key_conv_bwd(
+            torch.zeros(1, 4, 8, device=dev), torch.zeros(1, 4, 4,
+                                                          device=dev),
+            rb.long(), torch.zeros(27, 4, 8, device=dev))
 
 
 def _jv_problem(b, k, n_rows, n_cols, seed):

@@ -181,14 +181,14 @@ def test_backward_wrapper_raises_off_cuda():
     """The sparse conv's backward kernel has no CPU path: its wrapper
     raises on any tensor that is not on the card and counts nothing."""
     args = _cpu_inputs()["window_key_conv_batched"]
-    feats, keys, nkeys, _, weights, band = args
+    feats, keys, nkeys, _, weights, _ = args
+    rb = spconv.rulebook_batched(keys, nkeys)
     dout = torch.zeros(2, 64, 8)
     cuda_ops.reset_launch_counts()
     for dev in ("cpu", "meta"):
         with pytest.raises((ValueError, TypeError, RuntimeError)):
             cuda_ops.window_key_conv_bwd(
-                dout.to(dev), feats.to(dev), keys.to(dev), nkeys.to(dev),
-                weights.to(dev), band)
+                dout.to(dev), feats.to(dev), rb.to(dev), weights.to(dev))
     assert cuda_ops.launch_counts()["window_key_conv_bwd"] == 0
 
 
@@ -229,6 +229,8 @@ def test_build_is_keyed_by_sources_and_fails_loudly(monkeypatch, tmp_path):
         "window_key_conv.cu", "window_key_conv_bwd.cu", "fps.cu",
         "ball_query.cu", "hungarian_jv.cu", "key_conv.cu", "gather_conv.cu",
         "onehot_gather.cu", "onehot_rows.cu", "segment_sum.cu"}
+    assert (build.CSRC_DIR / "gather_gemm.cuh").exists()
+    assert "gather_gemm.cuh" in {p.name for p in build._sources()}
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
