@@ -13,16 +13,18 @@ Phases (any failure exits non-zero without printing the result line):
 2. precision — TF32 off for matmuls and cuDNN convs;
 3. build — compiles ``detmatch_tpu_torch/csrc/*.cu`` (timed);
 4. kernels — every sparse-conv, FPS and ball-query call of the main path
-   (B=4 synthetic KITTI frames of 16,384 points, 16,000-voxel cap, plus a
-   B=3 batch with uneven valid counts), kernel against twin on the same
-   inputs: integer outputs exactly equal, conv max relative error <= 1e-5;
+   (B=4 synthetic KITTI frames of 16,384 points, 16,000-voxel cap, the
+   first of them alone, and a B=3 batch with uneven valid counts), kernel
+   against twin on the same inputs: integer outputs exactly equal, conv
+   max relative error <= 1e-5;
 5. end to end — full-width PV-RCNN from
    ``configs/detmatch/001/pretrain_pvrcnn/split_0.py`` with seeded random
    weights runs ``detect`` (all launch counters must move, outputs
    finite), then the kernel path is compared with the plain path on the
    card (B=4) and with the plain path on the CPU (B=1);
 6. timing with CUDA events — B=1 latency, B=4 frames/s, each kernel
-   against its twin;
+   against its twin; K3 (FPS) at B=1 and B=4 with its cluster size and
+   µs a step;
 7. training (``configs/.../pretrain_pvrcnn/split_0.py`` at full width,
    train mode, B=2 synthetic frames of 18,000 points with the JAX
    benchmark's 40-slot GT boxes): every kernel of one training step
@@ -67,10 +69,11 @@ Phases (any failure exits non-zero without printing the result line):
    teacher equal to its formula; ``train_ssl`` for 3 iterations with
    24 / 12 / 24 / 2 / 2 launches per iteration (K1 fwd, K1 bwd, K2, K3,
    K4); the same iteration with ``conv_impl="key"`` (K5 forward within
-   1e-5 of its twin and S exactly on the step's 12 shapes, 24 / 12 / 0
-   launches of K5 fwd, K5 bwd, K1, losses within 1e-4 of the plain path);
-   the same iteration on the rulebook path (``conv_impl="rulebook"``,
-   JAX's ``"xla"``: every K7 call within 1e-5 of its twin, 24 / 0 / 0 / 0
+   1e-5 of its twin and S exactly on the step's 12 shapes, its 24 K2 and
+   2 K3 calls exactly, 24 / 12 / 0 launches of K5 fwd, K5 bwd, K1, losses
+   within 1e-4 of the plain path); the same iteration on the rulebook
+   path (``conv_impl="rulebook"``, JAX's ``"xla"``: every K7 call within
+   1e-5 of its twin, its K2 and K3 calls exactly, 24 / 0 / 0 / 0
    launches of K7, K1 fwd, K1 bwd, K5, losses and BN statistics within
    1e-4 of the plain path's and of the window path's, the five backbone
    levels within 1e-5 of the window path's on the same B=8 student
@@ -87,7 +90,11 @@ Phases (any failure exits non-zero without printing the result line):
    of the iteration and its split on the three conv paths, peak memory,
    and each kernel per iteration beside its bound; per student conv,
    K1's matched pairs, forward and backward ms beside their bounds and
-   the backward's passes (profiler kernel times);
+   the backward's passes (profiler kernel times); per ball-query call
+   (K2) its site, shapes, lanes a center, window, positions scanned and
+   count, ms and device ms beside its bound; per FPS call (K3) its
+   cluster size and µs a step, and K3's step floor (one point a thread,
+   equal to its twin) at B=1 and B=8;
 10. a JSON line of the kernels (per SSL iteration, with their bounds;
    K6 and K8 over the replayed calls, with 0 launches on the model
    path), then the result line.
@@ -153,6 +160,9 @@ KEY_LAUNCHES = dict(key_conv_batched=24, key_conv_bwd=12,
 RULEBOOK_LAUNCHES = dict(gather_conv_batched=24, window_key_conv_batched=0,
                          window_key_conv_bwd=0, key_conv_batched=0,
                          key_conv_bwd=0, **NO_ONEHOT)
+# the ball query (K2) and FPS (K3), and their calls per SSL iteration
+POINT_KERNELS = ("ball_query_batched", "fps_batched")
+POINT_CALLS = SSL_LAUNCHES["ball_query_batched"] + SSL_LAUNCHES["fps_batched"]
 LEVELS = ("x_conv1", "x_conv2", "x_conv3", "x_conv4", "out")
 # the stages of one SSL iteration that chip_smoke times
 ITER_STAGES = ("data", "teacher", "3D fwd+loss", "3D bwd", "3D opt",
@@ -440,6 +450,125 @@ def k1_breakdown(bwd_cases, card):
           f"{tot['bwd_bound'] / tot['bwd']:.1%}) [{card}]")
 
 
+def k2_scan(args):
+    """Means over a ball-query call's valid centers: the y-window (sorted
+    table positions within r plus the kernel's slack of the center's y)
+    and the positions a scan of it reads before it stops (the window, or
+    up to the nsample-th hit)."""
+    from detmatch_tpu_torch.ops import pointnet
+    centers, cvalid, pts, pvalid, radius, ns = args[:6]
+    r = float(np.float32(radius))
+    cy = centers[..., 1].double()
+    slack = 1e-3 * r + 1e-6 * (cy.abs() + 1.0)
+    ykey = torch.where(pvalid, pts[..., 1], float("inf")).double()
+    lo = torch.searchsorted(ykey, (cy - r - slack).contiguous())
+    hi = torch.searchsorted(ykey, (cy + r + slack).contiguous(), right=True)
+    idx, cnt = pointnet.ball_query(centers, cvalid, pts, pvalid,
+                                   float(pointnet.radius_sq(radius)), ns)
+    scanned = torch.where(cnt == ns, idx[..., -1].long() + 1, hi) - lo
+    return (float((hi - lo)[cvalid].double().mean()),
+            float(scanned[cvalid].double().mean()))
+
+
+# the sites of one PV-RCNN pass's 12 ball queries, in call order: the VSA
+# on the raw points and x_conv1..4 (two radii each), then the RoI grid
+K2_SITES = (("raw points",) * 2 + tuple(f"x_conv{i // 2 + 1}"
+                                       for i in range(8))
+            + ("RoI grid",) * 2)
+
+
+def kernel_device_ms(fn, key, reps=5):
+    """Mean device time per call of the kernels whose name holds ``key``
+    (the profiler's kernel times over ``reps`` calls of ``fn``; a trace
+    that recorded none of them is taken again, up to three times)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum((getattr(ev, "device_time_total", None)
+                  or getattr(ev, "cuda_time_total", 0))
+                 for ev in prof.key_averages() if key in ev.key)
+        if us:
+            break
+    return us / 1e3 / reps
+
+
+def k2_breakdown(calls, card):
+    """Per ball-query call (K2) of ``calls``: site, B, M, N (and valid
+    points), r, nsample, the G lanes a center gets, mean window, positions
+    scanned and count, ms (CUDA events over back-to-back wrapper calls,
+    host time included) and the kernel's device ms (profiler) beside the
+    bound and its share."""
+    from detmatch_tpu_torch.ops.cuda import ball_query as bq
+    total = dict(ms=0.0, dev=0.0, bound=0.0)
+    k2 = [c for c in calls if c[0] == "ball_query_batched"]
+    for j, (_, args, kwargs, _) in enumerate(k2):
+        centers, cvalid, pts, pvalid, radius, ns = args
+        b, m, n = centers.shape[0], centers.shape[1], pts.shape[1]
+        window, scanned = k2_scan(args)
+        out = bq.ball_query_batched(*args, **kwargs)
+        ms = cuda_ms(lambda: bq.ball_query_batched(*args, **kwargs), reps=5)
+        dev = kernel_device_ms(lambda: bq.ball_query_batched(*args, **kwargs),
+                               "ball_query_kernel")
+        t = {}
+        add_bound(t, *work("ball_query_batched", args, kwargs, out=out))
+        total["ms"] += ms
+        total["dev"] += dev
+        total["bound"] += t["bound_ms"]
+        group = bq.group_lanes(m, n, radius, ns)
+        print(f"  K2 {j}: {K2_SITES[j % 12]} B={b} M={m} N={n} (valid "
+              f"{float(pvalid.sum(1).double().mean()):.0f}) r={radius} "
+              f"ns={ns} G={group}: window {window:.1f}, scanned "
+              f"{scanned:.1f}, count {float(out[1].double().mean()):.2f}; "
+              f"{ms:.4f} ms, device {dev:.4f} ms (bound "
+              f"{t['bound_ms']:.5f}, {t['bound_ms'] / ms:.1%}) [{card}]")
+    print(f"  K2 over {len(k2)} calls: {total['ms']:.3f} ms, device "
+          f"{total['dev']:.3f} ms (bound {total['bound']:.4f}, "
+          f"{total['bound'] / total['ms']:.1%}) [{card}]")
+
+
+def k3_line(label, xyz, valid, k, card):
+    """One FPS call (K3): B, N, the plan (cluster size C, points a thread
+    P) and the clusters the card holds at once, ms (CUDA events), µs per
+    step and the share of its bound."""
+    from detmatch_tpu_torch.ops.cuda import fps
+    b, n = valid.shape
+    plan = fps.fps_plan(b, n)
+    ms = cuda_ms(lambda: fps.fps_batched(xyz, valid, k), reps=3)
+    t = {}
+    add_bound(t, *work("fps_batched", (xyz, valid, k), {}))
+    print(f"  K3 {label}: B={b} N={n} (valid "
+          f"{float(valid.sum(1).double().mean()):.0f}) samples={k} C="
+          f"{plan.cluster} P={plan.per_thread} (active clusters "
+          f"{fps.active_clusters(plan)}): {ms:.4f} ms, "
+          f"{1e3 * ms / k:.3f} us/step (bound {t['bound_ms']:.5f}, "
+          f"{t['bound_ms'] / ms:.1%}) [{card}]")
+
+
+def k3_step_floor(b, k, card):
+    """K3 at a minimal sweep: N = one point a thread of the plan for B
+    frames of TRAIN_POINTS, k samples; µs per step."""
+    from detmatch_tpu_torch.ops.cuda import fps
+    from detmatch_tpu_torch.utils.synth_kitti import SSL_PCR, lidar_batch
+    plan = fps.fps_plan(b, TRAIN_POINTS)._replace(per_thread=1)
+    n = plan.cluster * fps.CTA_THREADS
+    pts, valid = lidar_batch(np.random.RandomState(SEED), b, n, SSL_PCR)
+    xyz = torch.from_numpy(pts[..., :3].copy()).to(DEVICE)
+    v = torch.from_numpy(valid).to(DEVICE)
+    out = fps.fps_launch(xyz, v, k, plan)
+    ok = torch.equal(out, fps.fps_plain(xyz, v, k))
+    ms = cuda_ms(lambda: fps.fps_launch(xyz, v, k, plan), reps=3)
+    print(f"  K3 step floor B={b}: N={n} (one point a thread: C="
+          f"{plan.cluster}), {k} samples, equal to the twin {ok}: "
+          f"{ms:.4f} ms, {1e3 * ms / k:.3f} us/step [{card}]")
+    return ok
+
+
 def compare_dense(out_k, out_p):
     """Keypoints exactly, and every output before the proposal NMS."""
     ok = torch.equal(out_k["keypoints"], out_p["keypoints"])
@@ -548,15 +677,18 @@ def run():
 
     phase("kernels against plain twins (main-path shapes)")
     stats = {}
-    calls4, calls3 = [], []
+    calls4, calls3, calls1 = [], [], []
     with torch.inference_mode():
         model.ops = recording(PLAIN, calls4)
         model(batch4)
         model.ops = recording(PLAIN, calls3)
         model(batch3)
+        model.ops = recording(PLAIN, calls1)
+        model({k: v[:1] for k, v in batch4.items()})
         model.ops = KERNELS
         ok = check_kernels(calls4, "B=4", stats)
         ok &= check_kernels(calls3, "B=3", stats)
+        ok &= check_kernels(calls1, "B=1", stats)
     counts = {n: sum(c[0] == n for c in calls4) for n in FWD_KERNELS}
     print(f"calls per forward: {counts}")
     if not ok:
@@ -635,6 +767,9 @@ def run():
         for name in FWD_KERNELS:
             print(f"  {name}: {describe(per_kernel[name])} per B=4 forward, "
                   f"{counts[name]} calls [{card}]")
+        xyz, valid, k = next(c[1] for c in calls4 if c[0] == "fps_batched")
+        for b in (1, 4):
+            k3_line(f"detect B={b}", xyz[:b], valid[:b], k, card)
     del model, batch3, batch4, batch1
 
     train_phases(cfg, spec, card, stats)
@@ -748,12 +883,13 @@ def work(name, args, kwargs, need_dfeats=True, out=None):
         # per step and valid point: 3 sub, 3 mul, 2 add, a min, a compare
         return (xyz.numel() * 4 + valid.numel() + xyz.shape[0] * s * 4,
                 10 * s * int(valid.sum()))
-    centers, cvalid, pts, pvalid, _, ns = args
+    centers, cvalid, pts, _, _, ns = args
     idx, cnt = out
-    # per neighbour found, one distance test: 3 sub, 3 mul, 2 add, compare
-    return (centers.numel() * 4 + cvalid.numel() + pts.numel() * 4
-            + pvalid.numel() + kwargs["point_perm"].numel() * 4
-            + (idx.numel() + cnt.numel()) * 4, 9 * int(cnt.sum()))
+    # reads the centers and the packed table (16 bytes a point); per
+    # neighbour found, one distance test: 3 sub, 3 mul, 2 add, compare
+    return (centers.numel() * 4 + cvalid.numel() + pts.shape[0]
+            * pts.shape[1] * 16 + (idx.numel() + cnt.numel()) * 4,
+            9 * int(cnt.sum()))
 
 
 def add_bound(entry, nbytes, flops, flop_rate=FP32_FLOP_PER_S):
@@ -1817,11 +1953,13 @@ def ssl_phases(card, stats):
         key_pseudo = teacher_step(m, batch)
         m.student_losses_3d_concat(batch, key_pseudo, 0, gen())
     del m
+    point_calls = [c for c in kcalls if c[0] in POINT_KERNELS]
     kcalls = [c for c in kcalls if c[0] == "key_conv_batched"]
-    ok = len(kcalls) == 24
+    ok = len(kcalls) == 24 and len(point_calls) == POINT_CALLS
     st = stats.setdefault("key_conv_bwd", dict(max_abs_err=0.0, cases=0))
     with torch.no_grad():
         ok &= check_kernels(kcalls, "key path", stats)
+        ok &= check_kernels(point_calls, "key path", stats)
         g = gen()
         key_bwd = []
         for i, (_, args, _, need) in enumerate(kcalls):
@@ -1845,8 +1983,9 @@ def ssl_phases(card, stats):
             key_bwd.append(((dout, keys, nkeys), need))
             del s_k, s_p
     if not ok or len(key_bwd) != 12:
-        raise AssertionError("K5 disagrees with its twin, or its calls are "
-                             "not 24 per iteration")
+        raise AssertionError("K5, K2 or K3 disagrees with its twin, or K5's "
+                             "calls are not 24 per iteration, or K2's and "
+                             "K3's not 24 and 2")
     m = copy.deepcopy(key_model).train()
     opts = detmatch_branch_optimizers(m, 0.04, 0.16)
     cuda_ops.reset_launch_counts()
@@ -1897,6 +2036,13 @@ def ssl_phases(card, stats):
     with torch.no_grad():
         per = time_kernels(calls, bwd_cases)
         k1_breakdown(bwd_cases, card)
+        k2_breakdown(calls, card)
+        k3 = [c[1] for c in calls if c[0] == "fps_batched"]
+        for j, args in enumerate(k3):
+            k3_line(f"SSL {j}", *args, card)
+        if not all([k3_step_floor(b, k3[0][2], card) for b in (1, 8)]):
+            raise AssertionError("K3 at one point a thread disagrees with "
+                                 "its twin")
         per.update(time_kernels(rb_calls, []))
         key_per = time_kernels(kcalls, [])
         t = key_per.setdefault("key_conv_bwd", dict(ms=0.0, plain_ms=0.0))
@@ -2003,9 +2149,12 @@ def rulebook_phase(cfg, model, batch, pseudo, pinned, window_ref, stats):
         finally:
             pointnet.gather_rows = anchor_head.gather_rows = own_gather
     del m, rb_pseudo
+    point_calls = [c for c in calls if c[0] in POINT_KERNELS]
     calls = [c for c in calls if c[0] == "gather_conv_batched"]
     with torch.no_grad():
         ok = check_kernels(calls, "rulebook path", stats)
+        ok &= check_kernels(point_calls, "rulebook path", stats)
+    ok &= len(point_calls) == POINT_CALLS
     # one rulebook per indice key: each subm pair's two convs share theirs
     shared = len({c[1][1].data_ptr() for c in calls
                   if c[1][0].shape[0] == 2 * SSL_B})
@@ -2013,8 +2162,9 @@ def rulebook_phase(cfg, model, batch, pseudo, pinned, window_ref, stats):
           f"{len(calls)}; rulebooks of the student's 12 convs {shared}; "
           f"gather_rows calls of the student forward {len(row_calls)}")
     if not ok or len(calls) != 24 or shared != 8:
-        raise AssertionError("K7 disagrees with its twin, or its calls are "
-                             "not 24 per iteration on 8 student rulebooks")
+        raise AssertionError("K7, K2 or K3 disagrees with its twin, or K7's "
+                             "calls are not 24 per iteration on 8 student "
+                             "rulebooks, or K2's and K3's not 24 and 2")
 
     m = copy.deepcopy(rb_model).train()
     opts = detmatch_branch_optimizers(m, 0.04, 0.16)

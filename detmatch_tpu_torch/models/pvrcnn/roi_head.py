@@ -21,7 +21,7 @@ from torch import nn
 from ...core import geometry, iou as iou_mod, losses, nms as nms_mod
 from ...core.coders import ResidualCoder
 from ...ops.cuda import KERNELS
-from ...ops.cuda.ball_query import sort_points_by_y
+from ...ops.cuda.ball_query import pack_table, sort_points_by_y
 from ..layers import dropout, masked_bn, pointwise
 from .vsa import StackSAModuleMSG
 
@@ -327,10 +327,12 @@ class PVRCNNHead(nn.Module):
         grid_valid = torch.ones(grid.shape[:2], dtype=torch.bool,
                                 device=grid.device)
         kp_s, kv_s, kperm = sort_points_by_y(keypoints, kp_valid)
+        table = pack_table(kp_s, kv_s, kperm)
         outs = []
         for g, (r, ns) in enumerate(zip(pool.radii, pool.nsamples)):
             idx, cnt = ops.ball_query_batched(grid, grid_valid, kp_s, kv_s,
-                                              r, ns, point_perm=kperm)
+                                              r, ns, point_perm=kperm,
+                                              table=table)
             outs.append(pool.pool(g, grid, keypoints, pf, idx, cnt, ns))
         pooled = torch.cat(outs, dim=-1)  # (B, N*G^3, C)
         # pcdet flattens (C, G^3), channel-major

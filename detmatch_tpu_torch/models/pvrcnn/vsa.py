@@ -14,7 +14,7 @@ from torch import nn
 
 from ...ops import pointnet
 from ...ops.cuda import KERNELS
-from ...ops.cuda.ball_query import sort_points_by_y
+from ...ops.cuda.ball_query import pack_table, sort_points_by_y
 from ...ops.voxelize import INVALID_KEY, delinearize
 from ..layers import bn_pairs, masked_bn, mlp, pointwise
 
@@ -143,10 +143,12 @@ class StackSAModuleMSG(nn.Module):
                 ops=KERNELS):
         """Queries every radius against one y-sort of the table."""
         xyz_s, xv_s, perm = sort_points_by_y(xyz, xyz_valid)
+        table = pack_table(xyz_s, xv_s, perm)
         outs = []
         for g, (r, ns) in enumerate(zip(self.radii, self.nsamples)):
             idx, cnt = ops.ball_query_batched(centers, centers_valid, xyz_s,
-                                              xv_s, r, ns, point_perm=perm)
+                                              xv_s, r, ns, point_perm=perm,
+                                              table=table)
             outs.append(self.pool(g, centers, xyz, feats, idx, cnt, ns))
         return torch.cat(outs, dim=-1)
 

@@ -8,6 +8,11 @@ sort, invalid rows last), as in the JAX reference; returned indices
 refer to the caller's table. On a CPU tensor the wrapper runs the twin;
 on a CUDA tensor it launches the kernel or raises. Both give exactly the
 same indices and counts.
+
+The kernel reads the sorted table packed as one 16-byte record a point
+(:func:`pack_table`); a caller that queries one table at several radii
+packs it once. Host-side plan: :func:`group_lanes` picks the lanes that
+serve one center.
 """
 from __future__ import annotations
 
@@ -17,6 +22,8 @@ from .. import pointnet
 from . import build
 
 BIG = 1e9
+# csrc/ball_query.cu: lanes per center it is built for
+GROUP_LANES = (1, 2, 4, 8, 16, 32)
 
 
 def sort_points_by_y(points, points_valid):
@@ -32,6 +39,28 @@ def sort_points_by_y(points, points_valid):
     return pts_s, torch.gather(points_valid, 1, perm), perm.to(torch.int32)
 
 
+def pack_table(points_sorted, valid_sorted, perm):
+    """The kernel's table: (B, N, 4) float32 records (x, y, z, perm as
+    int32 bits) of a :func:`sort_points_by_y` result, y = +inf on the
+    invalid rows (which sort last)."""
+    x, y, z = points_sorted[..., :3].unbind(-1)
+    y = torch.where(valid_sorted, y, float("inf"))
+    return torch.stack((x.view(torch.int32), y.view(torch.int32),
+                        z.view(torch.int32), perm.to(torch.int32)),
+                       -1).view(torch.float32)
+
+
+def group_lanes(m, n, radius, nsample):
+    """Lanes that serve one center (``GROUP_LANES``) for a call of M
+    centers over an N-point table: 32 over the VSA's tables of 10,000
+    points and more, whose windows run to hundreds of positions; 8 over
+    the RoI grid's 2,048 keypoints (windows of 58-212). By the kernel's
+    device time on the H100 (``tools/port_probes/k2k3_plans.py``), the
+    fastest G on 22 of the SSL iteration's 24 calls and within 18% of it
+    on the other two (the student's RoI grid, where 1 and 4 won)."""
+    return 32 if n > 4096 else 8
+
+
 def _sorted_table(points, points_valid, point_perm):
     if point_perm is None:
         return sort_points_by_y(points, points_valid)
@@ -39,8 +68,9 @@ def _sorted_table(points, points_valid, point_perm):
 
 
 def ball_query_plain(centers, centers_valid, points, points_valid, radius,
-                     nsample, point_perm=None):
-    """Plain twin of :func:`ball_query_batched` (same arguments)."""
+                     nsample, point_perm=None, table=None):
+    """Plain twin of :func:`ball_query_batched` (same arguments; it reads
+    the sorted table itself, not ``table``)."""
     pts_s, pv_s, perm = _sorted_table(points, points_valid, point_perm)
     idx_s, cnt = pointnet.ball_query(
         centers, centers_valid, pts_s, pv_s,
@@ -50,8 +80,28 @@ def ball_query_plain(centers, centers_valid, points, points_valid, radius,
     return idx.reshape(idx_s.shape), cnt
 
 
+def ball_query_launch(centers, centers_valid, table, radius, nsample,
+                      group):
+    """The kernel with ``group`` lanes a center (the wrapper passes
+    :func:`group_lanes`'s) on a :func:`pack_table` table; arguments
+    checked by :func:`ball_query_batched`."""
+    b, m, _ = centers.shape
+    idx = torch.empty((b, m, nsample), dtype=torch.int32,
+                      device=centers.device)
+    cnt = torch.empty((b, m), dtype=torch.int32, device=centers.device)
+    lib = build.load_library()
+    err = lib.dm_ball_query(
+        build.ptr(centers), build.ptr(centers_valid), build.ptr(table),
+        build.ptr(idx), build.ptr(cnt), b, m, table.shape[1], float(radius),
+        float(pointnet.radius_sq(radius)), nsample, group,
+        build.stream(centers.device))
+    ball_query_batched.launches += 1
+    build.check(lib, err, "ball_query_batched")
+    return idx, cnt
+
+
 def ball_query_batched(centers, centers_valid, points, points_valid, radius,
-                       nsample, point_perm=None):
+                       nsample, point_perm=None, table=None):
     """First ``nsample`` neighbours within ``radius``, batched.
 
     Args:
@@ -62,6 +112,8 @@ def ball_query_batched(centers, centers_valid, points, points_valid, radius,
             ``points``/``points_valid`` are already y-sorted (several
             queries against one table); indices still refer to the
             original table.
+        table: :func:`pack_table` of that sorted table, when the caller
+            packed it already (the kernel reads only this).
     Returns:
         idx (B, M, nsample) int32 — unused slots repeat the first hit; an
         empty ball gives ``perm[b, 0]`` in every slot;
@@ -71,34 +123,23 @@ def ball_query_batched(centers, centers_valid, points, points_valid, radius,
         return ball_query_plain(centers, centers_valid, points,
                                 points_valid, radius, nsample, point_perm)
     name = "ball_query_batched"
-    pts_s, pv_s, perm = _sorted_table(points, points_valid, point_perm)
-    pts_s, pv_s, perm = (t.contiguous() for t in (pts_s, pv_s, perm))
-    dev = build.require_cuda(name, centers, centers_valid, pts_s, pv_s, perm)
+    if table is None:
+        table = pack_table(*_sorted_table(points, points_valid, point_perm))
+    build.require_cuda(name, centers, centers_valid, table)
     for t, dtype, what in ((centers, torch.float32, "centers"),
                            (centers_valid, torch.bool, "centers_valid"),
-                           (pts_s, torch.float32, "points"),
-                           (pv_s, torch.bool, "points_valid"),
-                           (perm, torch.int32, "point_perm")):
+                           (table, torch.float32, "table")):
         build.require_dtype(name, t, dtype, what)
     b, m, _ = centers.shape
-    n = pts_s.shape[1]
-    if (centers.shape[-1] != 3 or pts_s.shape != (b, n, 3)
-            or centers_valid.shape != (b, m) or pv_s.shape != (b, n)
-            or perm.shape != (b, n)):
-        raise ValueError(f"{name}: shapes do not match (B, M, 3) / (B, N, 3)")
+    n = points.shape[1]
+    if (centers.shape[-1] != 3 or points.shape[0] != b
+            or centers_valid.shape != (b, m) or table.shape != (b, n, 4)):
+        raise ValueError(f"{name}: shapes do not match centers (B, M, 3), "
+                         "points (B, N, 3+), table (B, N, 4)")
     if n == 0 or nsample <= 0 or not radius > 0:
         raise ValueError(f"{name}: needs N > 0, nsample > 0 and radius > 0")
-    idx = torch.empty((b, m, nsample), dtype=torch.int32, device=dev)
-    cnt = torch.empty((b, m), dtype=torch.int32, device=dev)
-    lib = build.load_library()
-    err = lib.dm_ball_query(
-        build.ptr(centers), build.ptr(centers_valid), build.ptr(pts_s),
-        build.ptr(pv_s), build.ptr(perm), build.ptr(idx), build.ptr(cnt),
-        b, m, n, float(radius), float(pointnet.radius_sq(radius)), nsample,
-        build.stream(dev))
-    ball_query_batched.launches += 1
-    build.check(lib, err, name)
-    return idx, cnt
+    return ball_query_launch(centers, centers_valid, table, radius, nsample,
+                             group_lanes(m, n, radius, nsample))
 
 
 ball_query_batched.launches = 0

@@ -39,9 +39,9 @@ _F = ctypes.c_float
 _L = ctypes.c_int64
 # C signatures of the launch functions in csrc/ (all return int).
 SIGNATURES = {
-    "dm_fps": (_P, _P, _P, _I, _I, _I, _P),
-    "dm_ball_query": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I,
-                      _P),
+    "dm_fps": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "dm_fps_active_clusters": (_I, _I, _P),
+    "dm_ball_query": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _P),
     "dm_window_key_conv_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _I, _I, _P),
     "dm_window_key_conv_bwd": (_P, _P, _P, _P, _P, _L, _P, _P, _P, _P, _I,

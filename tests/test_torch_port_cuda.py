@@ -8,7 +8,10 @@ rulebook gather-GEMM (K7, and with its bf16 flag K6's forward), K6's
 backward scatter and K8's row gather and scatter-add against theirs.
 K1's forward is held bit-equal to K7 (dense, sparse and pad-only tiles),
 the rulebook it writes to the plain one, and its backward, which reads
-that rulebook, to itself over two launches.
+that rulebook, to itself over two launches. K2 (ball query) and K3 (FPS)
+give their twins' integers at the main path's shapes (the VSA and RoI-grid
+calls at every group width, FPS at B = 1, 4, 8), around a cluster's
+capacity, with ties across a cluster's CTAs and with clustered centers.
 
 Needs a CUDA card: every test is marked ``cuda`` and skips without one.
 This file imports no JAX, so it runs where JAX is not installed:
@@ -18,6 +21,7 @@ This file imports no JAX, so it runs where JAX is not installed:
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -31,6 +35,8 @@ from detmatch_tpu_torch.ops.cuda import hungarian, key_conv  # noqa: E402
 from detmatch_tpu_torch.ops.cuda import onehot_gather  # noqa: E402
 from detmatch_tpu_torch.ops.cuda import onehot_rows  # noqa: E402
 from detmatch_tpu_torch.ops.cuda import window_key_conv  # noqa: E402
+from detmatch_tpu_torch.utils.synth_kitti import (  # noqa: E402
+    SSL_PCR, lidar_batch)
 
 pytestmark = pytest.mark.cuda
 
@@ -53,7 +59,7 @@ def _cloud(dev, b, n, seed):
 @pytest.mark.parametrize("n,k", [(1000, 64), (fps.MAX_POINTS, 256),
                                  (3000, 2048)])
 def test_fps_kernel_matches_twin(dev, n, k):
-    """Odd sizes, the 18,432-point limit, and more samples than valid
+    """Odd sizes, the kernel's point limit, and more samples than valid
     points (selection repeats); one short row and one all-invalid row."""
     xyz = _cloud(dev, 3, n, 0)
     valid = torch.ones(3, n, dtype=torch.bool, device=dev)
@@ -79,6 +85,157 @@ def test_ball_query_kernel_matches_twin(dev, radius, nsample):
     pi, pc = ball_query.ball_query_plain(cen, cv, pts, pv, radius, nsample)
     assert torch.equal(ki, pi) and torch.equal(kc, pc)
     assert (kc[:, :50] == 0).all() and (kc[:, 600:] == 0).all()
+
+
+def _lidar(dev, b, n, seed):
+    """Synthetic KITTI frames (the main path's kind of cloud)."""
+    pts, valid = lidar_batch(np.random.RandomState(seed), b, n, SSL_PCR)
+    return (torch.from_numpy(pts[..., :3].copy()).to(dev),
+            torch.from_numpy(valid).to(dev))
+
+
+@pytest.mark.parametrize("b", [1, 4, 8])
+@pytest.mark.parametrize("n", [16384, 18000])
+def test_fps_kernel_at_main_path_shapes(dev, b, n):
+    """2,048 samples of B frames, as the VSA draws them (plan: one
+    cluster of ``fps_plan(b, n).cluster`` CTAs a frame)."""
+    xyz, valid = _lidar(dev, b, n, b)
+    out = fps.fps_batched(xyz, valid, 2048)
+    assert torch.equal(out, fps.fps_plain(xyz, valid, 2048))
+
+
+def _capacity_edges():
+    plan = fps.fps_plan(1, 18000)
+    threads = plan.cluster * fps.CTA_THREADS
+    cap = threads * plan.per_thread
+    return [cap - 1, cap, cap + 1, fps.MAX_POINTS - 1, fps.MAX_POINTS, 33,
+            threads + 1]
+
+
+@pytest.mark.parametrize("n", _capacity_edges())
+def test_fps_kernel_around_a_clusters_capacity(dev, n):
+    """N one less, equal to and one more than a cluster's capacity (lanes
+    that own no point, a thread's last point half empty), the kernel's
+    limit, and small N where whole CTAs own nothing; a row with fewer
+    valid points than samples and an all-invalid row."""
+    xyz = _cloud(dev, 3, n, n)
+    valid = torch.ones(3, n, dtype=torch.bool, device=dev)
+    valid[1, n // 2:] = False
+    valid[1, :3] = False
+    valid[2] = False
+    k = min(300, n + 20)
+    out = fps.fps_batched(xyz, valid, k)
+    assert torch.equal(out, fps.fps_plain(xyz, valid, k))
+    assert (out[2] == 0).all()
+
+
+@pytest.mark.parametrize("pattern", ["duplicates", "all_equal", "grid"])
+def test_fps_kernel_breaks_ties_across_ctas(dev, pattern):
+    """Equal distances held by points in different CTAs of a cluster:
+    duplicated coordinates far apart in the table, every point the same
+    (all distances 0 after the first pick), and an integer grid (many
+    exactly equal squared distances); 2,048 samples over 18,000 points,
+    more samples than distinct points in the last two."""
+    b, n = 2, 18000
+    g = torch.Generator().manual_seed(7)
+    if pattern == "duplicates":
+        xyz = torch.rand(b, n, 3, generator=g) * 50
+        src = torch.randint(0, n, (4000,), generator=g)
+        dst = torch.randint(0, n, (4000,), generator=g)
+        xyz[:, dst] = xyz[:, src]
+    elif pattern == "all_equal":
+        xyz = torch.full((b, n, 3), 1.5)
+    else:
+        xyz = torch.randint(0, 12, (b, n, 3), generator=g).float()
+    xyz, valid = xyz.to(dev), torch.ones(b, n, dtype=torch.bool,
+                                         device=dev)
+    valid[1, ::5] = False
+    out = fps.fps_batched(xyz, valid, 2048)
+    assert torch.equal(out, fps.fps_plain(xyz, valid, 2048))
+
+
+def _ball_edges(pts, pv, cen, cv):
+    """Edge cases written into a table and its centers in place: a point
+    at exactly d2 == r2 (0.5 m) from center 0, runs of equal y, and
+    invalid rows sitting on centers 1-3."""
+    cen[:, 0] = torch.tensor([20.0, 5.0, -1.0])
+    pts[:, 0] = torch.tensor([20.5, 5.0, -1.0])
+    pts[:, 1:400:3, 1] = 2.0
+    n = pts.shape[1]
+    pv[:, n - 40:] = False
+    pts[:, n - 3:] = cen[:, 1:4]
+    cv[:, -7:] = False
+
+
+@pytest.mark.parametrize("radius,nsample", [(0.5, 16), (0.8, 16), (2.4, 32),
+                                            (4.8, 5)])
+def test_ball_query_kernel_at_vsa_shape(dev, radius, nsample):
+    """B=8 frames of 18,000 points, 2,048 centers drawn from them (the
+    VSA's raw-point call), with the edge cases of ``_ball_edges``:
+    windows of hundreds of positions, nsample reached mid-step. Every G
+    the kernel is built for gives the twin's integers."""
+    pts, pv = _lidar(dev, 8, 18000, 11)
+    cen = pts[:, :2048].clone()
+    cv = pv[:, :2048].clone()
+    _ball_edges(pts, pv, cen, cv)
+    pi, pc = ball_query.ball_query_plain(cen, cv, pts, pv, radius, nsample)
+    ki, kc = ball_query.ball_query_batched(cen, cv, pts, pv, radius, nsample)
+    assert torch.equal(ki, pi) and torch.equal(kc, pc)
+    table = ball_query.pack_table(*ball_query.sort_points_by_y(pts, pv))
+    for group in ball_query.GROUP_LANES:
+        gi, gc = ball_query.ball_query_launch(cen, cv, table, radius,
+                                              nsample, group)
+        assert torch.equal(gi, pi) and torch.equal(gc, pc), group
+    if radius == 0.5:
+        assert int(kc[0, 0]) >= 1 and bool((ki[:, 0] == 0).any())
+
+
+@pytest.mark.parametrize("radius", [0.8, 6.0])
+def test_ball_query_kernel_clustered_centers(dev, radius):
+    """Runs of 50 nearby centers (overlapping windows, as on the RoI
+    grid) in 700 a sample, so that blocks hold centers of two samples at
+    every G; empty balls, invalid centers and points; windows of over a
+    thousand positions at r = 6 m. Every G gives the twin's integers."""
+    pts = _cloud(dev, 3, 5000, 5)
+    pv = torch.ones(3, 5000, dtype=torch.bool, device=dev)
+    pv[1, 2000:] = False
+    pv[2, ::3] = False
+    g = torch.Generator(device=dev).manual_seed(5)
+    seeds = pts[:, torch.randint(0, 5000, (14,), generator=g, device=dev)]
+    offs = torch.rand(3, 14, 50, 3, generator=g, device=dev) * 2 - 1
+    cen = (seeds[:, :, None] + offs).reshape(3, 700, 3).contiguous()
+    cen[:, 100:150] += 200.0  # far from every point
+    cv = torch.ones(3, 700, dtype=torch.bool, device=dev)
+    cv[:, 650:] = False
+    pi, pc = ball_query.ball_query_plain(cen, cv, pts, pv, radius, 16)
+    table = ball_query.pack_table(*ball_query.sort_points_by_y(pts, pv))
+    for group in ball_query.GROUP_LANES:
+        gi, gc = ball_query.ball_query_launch(cen, cv, table, radius, 16,
+                                              group)
+        assert torch.equal(gi, pi) and torch.equal(gc, pc), group
+    assert (pc[:, 100:150] == 0).all() and (pc[:, :100] > 0).any()
+
+
+@pytest.mark.parametrize("radius", [0.8, 1.6])
+def test_ball_query_kernel_at_roi_grid_shape(dev, radius):
+    """The student's RoI-grid call: B=8, 128 RoIs x 216 grid points =
+    27,648 centers over 2,048 keypoints, with the edge cases of
+    ``_ball_edges``, at every G the kernel is built for."""
+    kp, kv = _lidar(dev, 8, 2048, 12)
+    g = torch.Generator(device=dev).manual_seed(12)
+    roi = kp[:, torch.randint(0, 2048, (128,), generator=g, device=dev)]
+    offs = torch.rand(8, 128, 216, 3, generator=g, device=dev) * 3 - 1.5
+    cen = (roi[:, :, None] + offs).reshape(8, 27648, 3).contiguous()
+    cv = torch.ones(8, 27648, dtype=torch.bool, device=dev)
+    _ball_edges(kp, kv, cen, cv)
+    pi, pc = ball_query.ball_query_plain(cen, cv, kp, kv, radius, 16)
+    ki, kc = ball_query.ball_query_batched(cen, cv, kp, kv, radius, 16)
+    assert torch.equal(ki, pi) and torch.equal(kc, pc)
+    table = ball_query.pack_table(*ball_query.sort_points_by_y(kp, kv))
+    for group in ball_query.GROUP_LANES:
+        gi, gc = ball_query.ball_query_launch(cen, cv, table, radius, 16,
+                                              group)
+        assert torch.equal(gi, pi) and torch.equal(gc, pc), group
 
 
 @pytest.mark.parametrize("k,c,co", [(27, 4, 16), (27, 64, 64), (3, 64, 128)])
