@@ -50,7 +50,8 @@ Phases (any failure exits non-zero without printing the result line):
    scores within 1e-4) and on their own (99% of teacher boxes matched);
    Faster R-CNN on the card against the CPU at B=1 (pre-NMS boxes and
    scores within 1e-4 on the card's proposals); CUDA-event timings of
-   the phase, its split and K4, and peak memory;
+   the phase, its split and K4, and peak memory; K4's call: B, K, valid
+   rows, inner steps per element, ms, device ms and µs a step;
 9. one whole SSL iteration (``configs/detmatch/001/detmatch/split_0.py``
    at full width: B=4 labeled frames with the JAX benchmark's GT draw +
    B=4 unlabeled ones, the models' own seeded initialisers): every kernel
@@ -69,7 +70,8 @@ Phases (any failure exits non-zero without printing the result line):
    teacher equal to its formula; ``train_ssl`` for 3 iterations with
    24 / 12 / 24 / 2 / 2 launches per iteration (K1 fwd, K1 bwd, K2, K3,
    K4); the same iteration with ``conv_impl="key"`` (K5 forward within
-   1e-5 of its twin and S exactly on the step's 12 shapes, its 24 K2 and
+   1e-5 of its twin on its 24 calls and bit-equal over two launches on
+   the 12 student calls, S exactly on the step's 12 shapes, its 24 K2 and
    2 K3 calls exactly, 24 / 12 / 0 launches of K5 fwd, K5 bwd, K1, losses
    within 1e-4 of the plain path); the same iteration on the rulebook
    path (``conv_impl="rulebook"``, JAX's ``"xla"``: every K7 call within
@@ -94,7 +96,12 @@ Phases (any failure exits non-zero without printing the result line):
    (K2) its site, shapes, lanes a center, window, positions scanned and
    count, ms and device ms beside its bound; per FPS call (K3) its
    cluster size and µs a step, and K3's step floor (one point a thread,
-   equal to its twin) at B=1 and B=8;
+   equal to its twin) at B=1 and B=8; per K4 call of the iteration (the
+   fusion's, the consistency branch's, and the pinned comparison's) its
+   B, K, valid rows, inner steps, ms, device ms and µs a step, and K4's
+   step floor (the longest augmenting paths, c[i, j] = i * j, at K = 32
+   and 128, equal to its twin); per key-path student conv (K5) its
+   matched pairs, tile rows, ms and device ms beside its bound;
 10. a JSON line of the kernels (per SSL iteration, with their bounds;
    K6 and K8 over the replayed calls, with 0 launches on the model
    path), then the result line.
@@ -567,6 +574,109 @@ def k3_step_floor(b, k, card):
           f"{plan.cluster}), {k} samples, equal to the twin {ok}: "
           f"{ms:.4f} ms, {1e3 * ms / k:.3f} us/step [{card}]")
     return ok
+
+
+def device_ms(fn, reps=20):
+    """Mean device time per call: ``reps`` calls queued behind a spin
+    kernel (``torch.cuda._sleep``, ~10 ms) so that the card runs them back
+    to back whatever the host's time per call, bracketed by CUDA events.
+    (The profiler drops kernel records late in a long run of this script:
+    K1's backward passes print partly empty there.)"""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def k4_line(label, cost, row_valid, card, plan=None, reps=20):
+    """One K4 call: B, K, valid rows, inner steps per element, ms (CUDA
+    events over back-to-back wrapper calls, host time included), device
+    ms (:func:`device_ms`) and µs per step over the largest element's
+    steps;
+    ``plan`` the design the wrapper picks. Returns (ms, device ms)."""
+    from detmatch_tpu_torch.ops.cuda import hungarian
+    steps = hungarian.inner_steps(cost, row_valid)
+    ms = cuda_ms(lambda: hungarian.solve_masked_batched(cost, row_valid),
+                 reps=reps)
+    dev = device_ms(lambda: hungarian.solve_masked_batched(cost, row_valid),
+                    reps=reps)
+    top = int(steps.max())
+    step = f"{1e3 * dev / top:.4f} us/step" if top else "no inner step"
+    print(f"  K4 {label}: B={cost.shape[0]} K={cost.shape[-1]} valid rows "
+          f"{row_valid.sum(1).tolist()}, inner steps {steps.tolist()}"
+          + (f", plan {plan}" if plan is not None else "")
+          + f": {ms:.4f} ms, device {dev:.4f} ms, {step} [{card}]")
+    return ms, dev
+
+
+def k4_chain(k, b=1):
+    """B copies of the K x K problem c[i, j] = i * j, every row valid:
+    inserting row i walks an augmenting path through all i matched
+    columns, K (K + 1) / 2 inner steps in all, the longest possible."""
+    i = torch.arange(k, dtype=torch.float32, device=DEVICE)
+    cost = (i[:, None] * i[None]).expand(b, k, k).contiguous()
+    return cost, torch.ones(b, k, dtype=torch.bool, device=DEVICE)
+
+
+def k4_step_floor(card, plan=None):
+    """K4's step floor: µs per inner step on k4_chain at K = 32 (one
+    column a lane of the warp design) and K = 128, equal to the twin.
+    ``plan(k)`` the design the wrapper picks. Returns whether both are
+    equal."""
+    from detmatch_tpu_torch.ops.cuda import hungarian
+    ok = True
+    for k in (32, 128):
+        cost, rv = k4_chain(k)
+        same = torch.equal(hungarian.solve_masked_batched(cost, rv),
+                           hungarian.solve_masked_plain(cost, rv))
+        dev = device_ms(lambda: hungarian.solve_masked_batched(cost, rv),
+                        reps=10)
+        steps = k * (k + 1) // 2
+        print(f"  K4 step floor K={k}: c[i, j] = i * j, {steps} inner steps"
+              + (f", plan {plan(k)}" if plan is not None else "")
+              + f", equal to the twin {same}: device {dev:.4f} ms, "
+              f"{1e3 * dev / steps:.4f} us/step [{card}]")
+        ok &= same
+    return ok
+
+
+def k5_breakdown(calls, card, rows=None, reps=10):
+    """Per key-path student conv (B=8, ``calls`` the K5 argument tuples):
+    matched pairs and their share of capacity x K, K5 fwd ms (CUDA
+    events) and device ms (:func:`device_ms`), the bound and its share,
+    and ``rows(k, c, co)``, the tile rows the wrapper picks. Returns the
+    (ms, device ms) sums."""
+    from detmatch_tpu_torch.ops.cuda import key_conv as kc
+    tot = dict(ms=0.0, dev=0.0, bound=0.0)
+    for j, args in enumerate(calls):
+        feats, keys, nkeys, w, _ = args
+        pairs = conv_pairs(args)
+        ms = cuda_ms(lambda: kc.key_conv_batched(*args), reps=reps)
+        dev = device_ms(lambda: kc.key_conv_batched(*args), reps=reps)
+        t = {}
+        add_bound(t, *work("key_conv_batched", args, {}), BF16_FLOP_PER_S)
+        tot["ms"] += ms
+        tot["dev"] += dev
+        tot["bound"] += t["bound_ms"]
+        k, c, co = w.shape
+        print(f"  K5 student conv {j}: (B, M, K)={tuple(nkeys.shape)} N="
+              f"{feats.shape[1]} C={c} Co={co}"
+              + (f" rows {rows(k, c, co)}" if rows is not None else "")
+              + f": pairs {pairs} ({pairs / nkeys.numel():.4f} of capacity "
+              f"x K); {ms:.4f} ms, device {dev:.4f} ms (bound "
+              f"{t['bound_ms']:.5f} by {t['bound_by']}, "
+              f"{t['bound_ms'] / ms:.1%}) [{card}]")
+    print(f"  K5 over {len(calls)} student convs: {tot['ms']:.3f} ms, device "
+          f"{tot['dev']:.3f} ms (bound {tot['bound']:.4f}, "
+          f"{tot['bound'] / tot['ms']:.1%}) [{card}]")
+    return tot["ms"], tot["dev"]
 
 
 def compare_dense(out_k, out_p):
@@ -1374,7 +1484,7 @@ def teacher_phases(card, stats):
     from detmatch_tpu_torch.models.frcnn.roi_head2d import decode_rcnn
     from detmatch_tpu_torch.ops import cuda as cuda_ops
     from detmatch_tpu_torch.ops.cuda import KERNELS, PLAIN
-    from detmatch_tpu_torch.ops.cuda.hungarian import inner_steps
+    from detmatch_tpu_torch.ops.cuda.hungarian import inner_steps, jv_plan
     from detmatch_tpu_torch.ops.voxelize import INVALID_KEY
     from detmatch_tpu_torch.ssl import boxset, modules
     from detmatch_tpu_torch.train.ssl_step import (to_device_views,
@@ -1542,6 +1652,8 @@ def teacher_phases(card, stats):
         per = time_kernels(jv_calls, {})["solve_masked_batched"]
     cost, row_valid = jv_calls[0][1]
     steps = inner_steps(cost, row_valid)
+    k4_line("teacher phase", cost, row_valid, card,
+            jv_plan(cost.shape[-1]))
     phase_ms = split.pop("teacher phase")
     print(f"  teacher phase B={SSL_B}: {phase_ms:.3f} ms/call "
           f"({1000.0 * SSL_B / phase_ms:.3f} frames/s), peak memory "
@@ -1689,8 +1801,10 @@ def ssl_phases(card, stats):
     from detmatch_tpu_torch.ops import cuda as cuda_ops
     from detmatch_tpu_torch.ops.cuda import KERNELS, PLAIN
     from detmatch_tpu_torch.ops.cuda import key_conv as kc
+    from detmatch_tpu_torch.ops.cuda.hungarian import jv_plan
     from detmatch_tpu_torch.ops.cuda.window_key_conv import (
-        window_key_conv_bwd, window_key_conv_fwd, window_key_conv_plain)
+        tile_rows, window_key_conv_bwd, window_key_conv_fwd,
+        window_key_conv_plain)
     from detmatch_tpu_torch.ops.voxelize import INVALID_KEY
     from detmatch_tpu_torch.ssl.detector import ema_decay_at
     from detmatch_tpu_torch.train.optim import detmatch_branch_optimizers
@@ -1966,6 +2080,11 @@ def ssl_phases(card, stats):
             if args[0].shape[0] != 2 * SSL_B:
                 continue
             feats, keys, nkeys, w, band = args
+            twice = torch.equal(kc.key_conv_batched(*args),
+                                kc.key_conv_batched(*args))
+            ok &= twice
+            print(f"  key path key_conv_batched[{i}] two launches "
+                  f"bit-equal={twice} {'ok' if twice else 'FAIL'}")
             dout = torch.randn(feats.shape[0], nkeys.shape[1], w.shape[-1],
                                generator=g, device=DEVICE)
             s_k = kc.key_conv_bwd(dout, keys, nkeys)
@@ -1983,7 +2102,8 @@ def ssl_phases(card, stats):
             key_bwd.append(((dout, keys, nkeys), need))
             del s_k, s_p
     if not ok or len(key_bwd) != 12:
-        raise AssertionError("K5, K2 or K3 disagrees with its twin, or K5's "
+        raise AssertionError("K5, K2 or K3 disagrees with its twin, K5 "
+                             "differs between two launches, or K5's "
                              "calls are not 24 per iteration, or K2's and "
                              "K3's not 24 and 2")
     m = copy.deepcopy(key_model).train()
@@ -2043,6 +2163,17 @@ def ssl_phases(card, stats):
         if not all([k3_step_floor(b, k3[0][2], card) for b in (1, 8)]):
             raise AssertionError("K3 at one point a thread disagrees with "
                                  "its twin")
+        k4 = [c[1] for c in calls if c[0] == "solve_masked_batched"]
+        for label, (cost, rv) in zip(("SSL fusion", "SSL consistency"), k4):
+            k4_line(label, cost, rv, card, jv_plan(cost.shape[-1]))
+        cost, rv = k4_calls[0][1]
+        k4_line("pinned consistency", cost, rv, card, jv_plan(cost.shape[-1]))
+        if not k4_step_floor(card, jv_plan):
+            raise AssertionError("K4 on the long chains disagrees with its "
+                                 "twin")
+        k5_breakdown([c[1] for c in kcalls if c[1][0].shape[0] == 2 * SSL_B],
+                     card, lambda k, c, co: tile_rows(*kc.rounded_shapes(
+                         0, 0, k, c, co)[1]))
         per.update(time_kernels(rb_calls, []))
         key_per = time_kernels(kcalls, [])
         t = key_per.setdefault("key_conv_bwd", dict(ms=0.0, plain_ms=0.0))

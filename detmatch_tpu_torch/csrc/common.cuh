@@ -45,4 +45,25 @@ __device__ __forceinline__ float sq_dist(float ax, float ay, float az,
                    __fmul_rn(dz, dz));
 }
 
+// Asynchronous global → shared copies (sm_80+): 16 bytes (L2 only) or 4
+// bytes (cached); each thread waits for its own groups, and a barrier
+// (__syncthreads or __syncwarp) then publishes the data to the others.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
 }  // namespace dm

@@ -1,11 +1,12 @@
 // The sparse-conv gather-GEMM tile shared by K1's forward
-// (csrc/window_key_conv.cu) and its input gradient
-// (csrc/window_key_conv_bwd.cu):
+// (csrc/window_key_conv.cu), its input gradient
+// (csrc/window_key_conv_bwd.cu) and K5's forward (csrc/key_conv.cu, on
+// bf16-rounded operands):
 //   Y[b, r] = sum_k X[b, src(b, r, k)] . W_k        (W_k is Cx x Cy)
 // over the taps k whose source row exists. kSearch = true resolves
 // src(b, r, k) by binary search of the neighbour key idx[b, r, k] in
-// sample b's sorted key table (the forward); kSearch = false reads it from
-// the map idx[b, r, k] (the backward's inverse rulebook; -1 = none).
+// sample b's sorted key table (the forwards); kSearch = false reads it
+// from the map idx[b, r, k] (the backward's inverse rulebook; -1 = none).
 //
 // Order of the sums, per output element: one fp32 accumulator from +0,
 // fmaf over the taps ascending, then over the Cx input channels
@@ -26,7 +27,8 @@
 //   its W_k are copied while the current tap computes. W_k is read once
 //   per block and tap. Dynamic shared memory, up to 227 KB.
 // Needs Cx % 4 == 0, Cy % 4 == 0 and 16-byte aligned X and W (16-byte
-// copies); the callers check it.
+// copies); the callers check it. Y's rows may be narrower than Cy
+// (y_ld < Cy: K5 pads Co up to 4 with zero weights and stores Co).
 #pragma once
 
 #include "common.cuh"
@@ -56,18 +58,9 @@ inline bool tile_ok(int rows, int k, int cx, int cy) {
          tile_smem_bytes(rows, k, cx, cy) <= kMaxSmem;
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
-}
+using dm::cp_async16;
+using dm::cp_async_commit;
+using dm::cp_async_wait;
 
 __device__ __forceinline__ float comp(const float4& v, int i) {
   return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
@@ -83,8 +76,9 @@ __device__ __forceinline__ void fma4(float4& acc, float x, const float4& w) {
 }
 
 // X (b * n_src, cx); idx (b, m_dst, k); keys (b, n_src) if kSearch;
-// W (k, cx, cy); Y (b * m_dst, cy); rb_out (b, m_dst, k) or nullptr: the
-// resolved per-sample source rows (-1 = none), written if given.
+// W (k, cx, cy); Y (b * m_dst, y_ld), y_ld <= cy; rb_out (b, m_dst, k) or
+// nullptr: the resolved per-sample source rows (-1 = none), written if
+// given.
 template <bool kSearch>
 __global__ void __launch_bounds__(kThreads)
     gather_gemm_kernel(const float* __restrict__ x,
@@ -92,7 +86,8 @@ __global__ void __launch_bounds__(kThreads)
                        const int32_t* __restrict__ idx,
                        const float* __restrict__ w, float* __restrict__ y,
                        int32_t* __restrict__ rb_out, int b, int n_src,
-                       int m_dst, int k, int cx, int cy, int rows) {
+                       int m_dst, int k, int cx, int cy, int y_ld,
+                       int rows) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* s_acc = reinterpret_cast<float*>(smem);
   float* s_x[2];
@@ -234,24 +229,37 @@ __global__ void __launch_bounds__(kThreads)
   cp_async_wait<0>();
 
   // 4. the tile's rows, zeros included
-  for (int e = t; e < rows * cy4; e += kThreads) {
-    const int r = e / cy4;
-    const int64_t row = row0 + r;
-    if (row < total) {
-      reinterpret_cast<float4*>(y + row * cy)[e - r * cy4] =
-          reinterpret_cast<const float4*>(s_acc)[e];
+  if (y_ld == cy) {
+    for (int e = t; e < rows * cy4; e += kThreads) {
+      const int r = e / cy4;
+      const int64_t row = row0 + r;
+      if (row < total) {
+        reinterpret_cast<float4*>(y + row * cy)[e - r * cy4] =
+            reinterpret_cast<const float4*>(s_acc)[e];
+      }
+    }
+  } else {
+    for (int e = t; e < rows * y_ld; e += kThreads) {
+      const int r = e / y_ld;
+      const int64_t row = row0 + r;
+      if (row < total) {
+        y[row * y_ld + e - r * y_ld] = s_acc[r * cy + e - r * y_ld];
+      }
     }
   }
 }
 
-// Launches gather_gemm_kernel<kSearch> over b * m_dst output rows.
+// Launches gather_gemm_kernel<kSearch> over b * m_dst output rows; Y's
+// rows hold y_ld floats (0: cy).
 template <bool kSearch>
 cudaError_t launch_gather_gemm(const float* x, const int32_t* keys,
                                const int32_t* idx, const float* w, float* y,
                                int32_t* rb_out, int b, int n_src, int m_dst,
                                int k, int cx, int cy, int rows,
-                               cudaStream_t stream) {
+                               cudaStream_t stream, int y_ld = 0) {
+  y_ld = y_ld > 0 ? y_ld : cy;
   if (b < 0 || n_src <= 0 || m_dst < 0 || !tile_ok(rows, k, cx, cy) ||
+      y_ld > cy ||
       static_cast<int64_t>(b) * n_src > 0x7fffffff ||
       static_cast<int64_t>(b) * m_dst > 0x7fffffff) {
     return cudaErrorInvalidValue;
@@ -271,7 +279,7 @@ cudaError_t launch_gather_gemm(const float* x, const int32_t* keys,
       <<<blocks, kThreads, static_cast<size_t>(tile_smem_bytes(rows, k, cx,
                                                                cy)),
          stream>>>(x, keys, idx, w, y, rb_out, b, n_src, m_dst, k, cx, cy,
-                   rows);
+                   y_ld, rows);
   return cudaGetLastError();
 }
 

@@ -1,5 +1,5 @@
 // Key-compare sparse 3D convolution with bf16 operands and fp32 sums,
-// forward and the backward's scatter:
+// forward (K5) and the backward's scatter:
 //   out[b, m]       = sum_k bf16(F[b, row(b,m,k)]) . bf16(W_k)
 //   S[k, b*n + row] = bf16(dout[b, m])   for each (b, m, k) with a row
 // where row(b,m,k) is the row of nkeys[b,m,k] in sample b's own sorted key
@@ -15,34 +15,53 @@
 // wrapper's flattened table is not sorted across samples), and the one
 // matching row is gathered or scattered.
 //
-// The function is the TPU kernel's to the last bit but for the order of
-// the fp32 sums: keys are unique within a sample, so a tap matches at most
-// one row; a product of two bf16 numbers is exact in fp32; the forward
-// therefore sums the same exact products, and S holds bf16(dout) at the
-// one match and zero elsewhere, with no sum at all. For any conv geometry
+// The function is the TPU kernel's but for the order of the fp32 sums:
+// keys are unique within a sample, so a tap matches at most one row; a
+// product of two bf16 numbers is exact in fp32; the forward therefore
+// sums the same exact products, and S holds bf16(dout) at the one match
+// and zero elsewhere, with no sum at all. For any conv geometry
 // (submanifold, strided, z-compressing) an input row and a tap fix at most
 // one output row, so each S slot is written at most once: a plain store,
 // no atomics.
 //
-// What bounds it on the H100: at the backbone's shapes (up to 8 x 24,000
-// output rows, 27 taps, 4-128 channels) the forward is at most ~2e10
-// multiply-adds on a few MB of features, and the backward's S is written
-// once (up to 27 x 8 x 16,000 rows x 32 floats, ~440 MB at the widest
-// level). Memory latency of the gathers bounds the forward, and the
-// bytes of S (zero fill, then the scattered rows) bound the scatter.
+// What bounds the forward on the H100: the products of the matched
+// (row, tap) pairs only, 5-21% of rows x 27 taps at the backbone's shapes
+// (up to 8 x 24,000 output rows, 4-128 channels), against the bytes of
+// the features, key tables and outputs, a few MB a call: bytes, by the
+// bound's count; in practice the gathers' latency and the fp32 FMA
+// rate. The backward's S is written once (up to 27 x 8 x 16,000 rows x
+// 32 floats, ~440 MB at the widest level): its bytes bound the scatter.
 //
-// Design, simple first. Forward: one block per 32 output rows; the block
-// resolves its 32 x K (row, tap) pairs into shared memory, then per tap
-// stages bf16-rounded W_k and the 32 gathered bf16-rounded input rows in
-// shared memory (as fp32 values) and accumulates fp32 FMAs in registers,
-// up to 16 outputs a thread. The tensor cores are not used: an mma over
-// 32-row tiles would sum the same exact products, and the kernel waits on
-// gathers, not on arithmetic. Backward: a grid-stride zero fill of S, then
-// one block per 32 output rows resolves its pairs and copies each matched
-// bf16-rounded dout row into S, channels across threads.
+// Forward: a prologue rounds F and W once per call to bf16 values kept in
+// fp32 scratch that the wrapper allocates ((B * N, C4) and (K, C4, Co4):
+// C and Co up to multiples of 4, zeros in the pads, so every row is 16
+// bytes aligned); then K1's gather-GEMM tile (csrc/gather_gemm.cuh) runs
+// on them in search mode: per block of output rows the (row, tap) keys
+// are searched once, per tap only the rows with a source are gathered
+// (cp.async, two stages) and multiplied into fp32 accumulators by fmaf,
+// taps ascending, then channels. That is the order of the twin's fp32
+// matmul over the (tap, channel) rows, and a zero pad adds nothing, so
+// the forward equals the twin bit for bit on the card (and every launch
+// gives the same bits). Rounding F once costs one pass over it; rounding
+// in the tile would repeat it for every tap that gathers a row.
+// Why not the tensor cores: bf16 mma.sync on this tile (zero-padded
+// m16n8k16 fragments) took the 12 key-path student convs at B=8 to 2.65
+// ms on an H100 (this design: 4.02 ms; the earlier per-block kernel:
+// 24.07 ms), within 7.7e-7 of the twin's largest magnitude. But an MMA
+// sums its products in its own order and rounding, and on the key path
+// each conv's output is rounded to bf16 again at the next conv's input,
+// where a one-ulp difference flips a rounding: the SSL iteration's
+// losses moved by up to 2.5e-3 against the twin's, past the 1e-4 the key
+// path is held to, whether the accumulators were the MMA's C operand or
+// zeroed fragments were added to them by IEEE adds. Only the twin's
+// sequential fp32 sums keep the key path's losses.
+//
+// Backward: a grid-stride zero fill of S, then one block per 32 output
+// rows resolves its pairs and copies each matched bf16-rounded dout row
+// into S, channels across threads.
 #include <cuda_bf16.h>
 
-#include "common.cuh"
+#include "gather_gemm.cuh"
 
 namespace {
 
@@ -52,7 +71,6 @@ constexpr int kMaxTaps = 27;
 constexpr int kMaxCin = 64;
 constexpr int kMaxCout = 128;
 constexpr int kMaxW = 8192;                        // C * Co floats per tap
-constexpr int kAcc = kRows * kMaxCout / kThreads;  // outputs per thread
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -82,61 +100,29 @@ __device__ __forceinline__ void resolve(const int32_t* __restrict__ keys,
   }
 }
 
+// bf16(feats) (rows, c) → fr (rows, c4) and bf16(W) (k, c, co) → wr
+// (k, c4, co4), both fp32 with zero pads: the feature entries first, then
+// the weights', one grid-stride loop.
 __global__ void __launch_bounds__(kThreads)
-    key_conv_fwd_kernel(const float* __restrict__ feats,
-                        const int32_t* __restrict__ keys,
-                        const int32_t* __restrict__ nkeys,
-                        const float* __restrict__ weights,
-                        float* __restrict__ out, int b, int n, int m, int k,
-                        int c, int co) {
-  __shared__ int s_src[kRows][kMaxTaps];
-  __shared__ float s_w[kMaxW];
-  __shared__ float s_f[kRows * kMaxCin];
-
-  const int t = threadIdx.x;
-  const int64_t rows = static_cast<int64_t>(b) * m;
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kRows;
-  resolve(keys, nkeys, s_src, row0, rows, n, m, k);
-
-  float acc[kAcc];
-#pragma unroll
-  for (int j = 0; j < kAcc; ++j) acc[j] = 0.f;
-
-  const int cw = c * co;
-  for (int tap = 0; tap < k; ++tap) {
-    __syncthreads();  // s_src ready / previous tap's tiles consumed
-    const float* wk = weights + static_cast<size_t>(tap) * cw;
-    for (int e = t; e < cw; e += kThreads) s_w[e] = bf16_round(wk[e]);
-    for (int e = t; e < kRows * c; e += kThreads) {
-      const int r = e / c;
-      const int ci = e - r * c;
-      const int src = s_src[r][tap];
-      s_f[e] = src >= 0 ? bf16_round(feats[static_cast<size_t>(src) * c + ci])
-                        : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < kAcc; ++j) {
-      const int o = t + j * kThreads;
-      if (o < kRows * co) {
-        const int r = o / co;
-        const int oc = o - r * co;
-        const float* f = s_f + r * c;
-        float a = acc[j];
-        for (int ci = 0; ci < c; ++ci) a = fmaf(f[ci], s_w[ci * co + oc], a);
-        acc[j] = a;
-      }
-    }
-  }
-
-#pragma unroll
-  for (int j = 0; j < kAcc; ++j) {
-    const int o = t + j * kThreads;
-    if (o < kRows * co) {
-      const int r = o / co;
-      const int oc = o - r * co;
-      const int64_t row = row0 + r;
-      if (row < rows) out[row * co + oc] = acc[j];
+    round_operands_kernel(const float* __restrict__ feats,
+                          const float* __restrict__ w, float* __restrict__ fr,
+                          float* __restrict__ wr, int64_t rows, int k, int c,
+                          int co, int c4, int co4) {
+  const int64_t nf = rows * c4;
+  const int64_t total = nf + static_cast<int64_t>(k) * c4 * co4;
+  for (int64_t e = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+       e < total; e += static_cast<int64_t>(gridDim.x) * kThreads) {
+    if (e < nf) {
+      const int64_t r = e / c4;
+      const int ci = static_cast<int>(e - r * c4);
+      fr[e] = ci < c ? bf16_round(feats[r * c + ci]) : 0.f;
+    } else {
+      const int64_t f = e - nf;
+      const int n = static_cast<int>(f % co4);
+      const int64_t tc = f / co4;  // tap * c4 + ci
+      const int ci = static_cast<int>(tc % c4);
+      const int64_t tap = tc / c4;
+      wr[f] = ci < c && n < co ? bf16_round(w[(tap * c + ci) * co + n]) : 0.f;
     }
   }
 }
@@ -186,17 +172,33 @@ bool bad_args(int b, int n, int m, int k, int c, int co) {
 
 // feats (b, n, c) f32; keys (b, n) int32 sorted per sample, INVALID_KEY
 // padded; nkeys (b, m, k) int32; weights (k, c, co) f32 → out (b, m, co).
+// fr, wr: scratch for the rounded operands, b * n * C4 and k * C4 * Co4
+// floats (C, Co up to multiples of 4; ops/cuda/key_conv.rounded_shapes);
+// rows: output rows per block (ops/cuda/window_key_conv.tile_rows(k, C4,
+// Co4)).
 DM_EXPORT int dm_key_conv_fwd(const float* feats, const int32_t* keys,
                               const int32_t* nkeys, const float* weights,
-                              float* out, int b, int n, int m, int k, int c,
-                              int co, cudaStream_t stream) {
+                              float* fr, float* wr, float* out, int b, int n,
+                              int m, int k, int c, int co, int rows,
+                              cudaStream_t stream) {
   if (bad_args(b, n, m, k, c, co)) return cudaErrorInvalidValue;
-  const int64_t rows = static_cast<int64_t>(b) * m;
-  if (rows == 0) return cudaSuccess;
-  const unsigned blocks = static_cast<unsigned>((rows + kRows - 1) / kRows);
-  key_conv_fwd_kernel<<<blocks, kThreads, 0, stream>>>(
-      feats, keys, nkeys, weights, out, b, n, m, k, c, co);
-  return cudaGetLastError();
+  if (static_cast<int64_t>(b) * m == 0) return cudaSuccess;
+  const int c4 = (c + 3) / 4 * 4;
+  const int co4 = (co + 3) / 4 * 4;
+  const int64_t total = static_cast<int64_t>(b) * n * c4 +
+                        static_cast<int64_t>(k) * c4 * co4;
+  const int64_t blocks = (total + kThreads - 1) / kThreads;
+  round_operands_kernel<<<static_cast<unsigned>(blocks < 132 * 16
+                                                    ? blocks
+                                                    : 132 * 16),
+                          kThreads, 0, stream>>>(
+      feats, weights, fr, wr, static_cast<int64_t>(b) * n, k, c, co, c4,
+      co4);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return dm::gemm::launch_gather_gemm<true>(fr, keys, nkeys, wr, out,
+                                            nullptr, b, n, m, k, c4, co4,
+                                            rows, stream, co);
 }
 
 // dout (b, m, co) f32 → s (k, b * n, co) f32; co must be a multiple of 4

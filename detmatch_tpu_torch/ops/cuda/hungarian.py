@@ -6,9 +6,14 @@ PyTorch twin :func:`solve_masked_plain`, the JAX package's
 
 On a CPU tensor the wrapper runs the twin; on a CUDA tensor it launches
 the kernel or raises. The kernel reproduces the twin's matching exactly
-for finite costs.
+for finite costs. :func:`jv_plan` picks the kernel's design from K
+before the launch: one warp per problem, ``cols`` columns a lane, up to
+K = 128; one block per problem above.
 """
 from __future__ import annotations
+
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -16,7 +21,30 @@ from . import build
 
 BIG = 1e9    # cost of a padded (invalid) column
 INF = 1e18   # "no path yet" (fp32)
-MAX_K = 1024  # csrc/hungarian_jv.cu: one thread per column
+# csrc/hungarian_jv.cu: K up to 1,024 (the block design's thread a
+# column); the warp design's columns a lane (kWarpMaxCols)
+MAX_K = 1024
+WARP_MAX_COLS = 4
+
+
+class JvPlan(NamedTuple):
+    cols: int   # columns a lane of the warp design; 0 = the block design
+    smem: int   # dynamic shared bytes of a block
+
+
+def jv_plan(k):
+    """K4's design for K columns, as ``csrc/hungarian_jv.cu`` sizes it:
+    one warp a problem with ceil(K / 32) columns a lane while K <= 128
+    (the valid rows' costs staged at a row stride of 32 * cols floats,
+    then u, p and way by column); above, one thread a column (u, p and
+    way in shared memory)."""
+    if not 0 < k <= MAX_K:
+        raise ValueError(f"solve_masked_batched: needs 0 < K <= {MAX_K}, "
+                         f"got K={k}")
+    cols = math.ceil(k / 32)
+    if cols <= WARP_MAX_COLS:
+        return JvPlan(cols, 4 * (k * 32 * cols + 3 * k))
+    return JvPlan(0, 4 * 3 * k)
 
 
 def solve_masked_plain(cost, row_valid):
@@ -125,7 +153,7 @@ def solve_masked_batched(cost, row_valid):
     if cost.device.type == "cpu":
         return solve_masked_plain(cost, row_valid)
     name = "solve_masked_batched"
-    dev = build.require_cuda(name, cost, row_valid)
+    build.require_cuda(name, cost, row_valid)
     build.require_dtype(name, cost, torch.float32, "cost")
     build.require_dtype(name, row_valid, torch.bool, "row_valid")
     if cost.dim() != 3 or cost.shape[1] != cost.shape[2] or \
@@ -133,15 +161,20 @@ def solve_masked_batched(cost, row_valid):
         raise ValueError(f"{name}: cost (B, K, K) and row_valid (B, K) "
                          f"expected, got {tuple(cost.shape)} and "
                          f"{tuple(row_valid.shape)}")
+    return solve_masked_launch(cost, row_valid, jv_plan(cost.shape[-1]))
+
+
+def solve_masked_launch(cost, row_valid, plan):
+    """Launch K4 with ``plan`` (:func:`jv_plan`, or another design for
+    measurement: ``cols`` 1-4 with 32 * cols >= K, or 0)."""
     b, k, _ = cost.shape
-    if not 0 < k <= MAX_K:
-        raise ValueError(f"{name}: needs 0 < K <= {MAX_K}, got K={k}")
-    out = torch.empty((b, k), dtype=torch.int32, device=dev)
+    out = torch.empty((b, k), dtype=torch.int32, device=cost.device)
     lib = build.load_library()
     err = lib.dm_hungarian_jv(build.ptr(cost), build.ptr(row_valid),
-                              build.ptr(out), b, k, build.stream(dev))
+                              build.ptr(out), b, k, plan.cols,
+                              build.stream(cost.device))
     solve_masked_batched.launches += 1
-    build.check(lib, err, name)
+    build.check(lib, err, "solve_masked_batched")
     return out
 
 

@@ -14,7 +14,12 @@ would give dW = bf16(F)^T dout instead, a different function.
 
 On a CPU tensor the wrapper runs the twins; on a CUDA tensor it launches
 the kernels or raises, with no fallback. ``key_conv_plain`` runs the
-twins on any device (for verification).
+twins on any device (for verification). The forward kernel is K1's
+gather-GEMM tile on operands that a prologue rounds to bf16: it sums
+the exact products in the twin's fp32 order, so it equals the twin on
+the card; the wrapper allocates the rounded operands' scratch
+(:func:`rounded_shapes`) and picks the tile rows
+(``window_key_conv.tile_rows`` at C and Co up to multiples of 4).
 """
 from __future__ import annotations
 
@@ -22,7 +27,7 @@ import torch
 
 from .. import spconv
 from . import build
-from .window_key_conv import _check_args, _check_band
+from .window_key_conv import _check_args, _check_band, tile_rows
 
 
 def _bf16(x):
@@ -59,19 +64,37 @@ def key_conv_grads(s, feats, weights, need_dfeats=True):
     return dfeats, dw
 
 
-def _launch_fwd(feats, keys, nkeys, weights):
+def rounded_shapes(b, n, k, c, co):
+    """The forward's float32 scratch of bf16-rounded features and weights
+    (csrc/key_conv.cu): C and Co up to multiples of 4, zeros in the pads
+    (the tile copies 16-byte vectors)."""
+    c4, co4 = -(-c // 4) * 4, -(-co // 4) * 4
+    return (b, n, c4), (k, c4, co4)
+
+
+def _launch_fwd(feats, keys, nkeys, weights, rows=None):
     name = "key_conv_batched"
     dev, (b, n, m, k, c, co) = _check_args(name, feats, keys, nkeys,
                                            weights, 0)
     out = torch.empty((b, m, co), dtype=torch.float32, device=dev)
+    f_shape, w_shape = rounded_shapes(b, n, k, c, co)
+    fr = torch.empty(f_shape, dtype=torch.float32, device=dev)
+    wr = torch.empty(w_shape, dtype=torch.float32, device=dev)
     lib = build.load_library()
     err = lib.dm_key_conv_fwd(
         build.ptr(feats), build.ptr(keys), build.ptr(nkeys),
-        build.ptr(weights), build.ptr(out), b, n, m, k, c, co,
+        build.ptr(weights), build.ptr(fr), build.ptr(wr), build.ptr(out), b,
+        n, m, k, c, co, tile_rows(*w_shape) if rows is None else rows,
         build.stream(dev))
     key_conv_batched.launches += 1
     build.check(lib, err, name)
     return out
+
+
+def key_conv_fwd(feats, keys, nkeys, weights, rows):
+    """The forward kernel on the card at ``rows`` output rows a block
+    (for measurement; the model's calls take ``tile_rows``)."""
+    return _launch_fwd(feats, keys, nkeys, weights, rows)
 
 
 def key_conv_bwd(dout, keys, nkeys):

@@ -513,6 +513,53 @@ def test_hungarian_kernel_matches_twin(dev, b, k, n_rows, n_cols):
     assert matched.tolist() == [min(r, c) for r, c in zip(n_rows, n_cols)]
 
 
+def _jv_signed_zeros(b, k, seed):
+    """Small integer costs times +-1, so that many entries are -0.0 or
+    +0.0 and the argmin ties between zeros of either sign (and between
+    equal integers); rows in order of validity as ``_jv_problem``."""
+    g = torch.Generator().manual_seed(seed)
+    mag = torch.randint(0, 3, (b, k, k), generator=g).float()
+    sign = torch.where(torch.rand(b, k, k, generator=g) < 0.5, -1.0, 1.0)
+    cost = (mag * sign).contiguous()
+    assert bool((cost == 0).any() & torch.signbit(cost).any())
+    return cost
+
+
+@pytest.mark.parametrize("case", [
+    "signed_zeros_k128", "signed_zeros_k33", "k32", "k33", "k129",
+    "chain_k32", "chain_k128", "empty_beside_full"])
+def test_hungarian_kernel_edge_cases(dev, case):
+    """K4's warp design at one column a lane (K = 32), one past a warp
+    (33) and four a lane (128), the block design past 128 (129): -0.0 /
+    +0.0 ties (the order key must tie them so that the lower column
+    wins), the longest augmenting paths (c[i, j] = i * j: K (K + 1) / 2
+    inner steps), and problems with no valid row beside full ones. Exact
+    equality with the twin (run on the CPU)."""
+    k = int(case.rsplit("k", 1)[1]) if case[-1].isdigit() else 128
+    if case.startswith("signed_zeros"):
+        cost = _jv_signed_zeros(3, k, seed=k)
+        rv = torch.ones(3, k, dtype=torch.bool)
+        rv[1, k // 2:] = False
+    elif case.startswith("chain"):
+        i = torch.arange(k, dtype=torch.float32)
+        cost = (i[:, None] * i[None]).expand(2, k, k).contiguous()
+        rv = torch.ones(2, k, dtype=torch.bool)
+        assert hungarian.inner_steps(cost, rv).tolist() == [
+            k * (k + 1) // 2] * 2
+    elif case == "empty_beside_full":
+        cost, rv = _jv_problem(4, 128, [0, 128, 0, 128], [128] * 4, seed=3)
+    else:
+        cost, rv = _jv_problem(3, k, [k, k // 2, 1], [k, k, k // 3 + 1],
+                               seed=k)
+    k = cost.shape[-1]
+    assert hungarian.jv_plan(k).cols == (0 if k > 128 else -(-k // 32))
+    got = hungarian.solve_masked_batched(cost.to(dev), rv.to(dev))
+    torch.cuda.synchronize()
+    want = hungarian.solve_masked_plain(cost, rv)
+    assert torch.equal(got.cpu(), want)
+    assert (want[~rv.any(1)] == -1).all()
+
+
 def test_hungarian_kernel_checks_its_arguments(dev):
     cost, rv = _jv_problem(2, 16, [16, 8], [16, 16], seed=0)
     cost, rv = cost.to(dev), rv.to(dev)
@@ -598,6 +645,70 @@ def test_key_conv_kernels_match_twins(dev, kind, c, co, need_dfeats,
     for a, r in zip(got, want):
         err = float((a - r).abs().max())
         assert err <= 1e-5 * max(float(r.abs().max()), 1e-30), err
+
+
+# (N input rows, M output rows, K, C, Co) of the backbone's 12 convs at
+# the voxel caps (16,000 input voxels; 24,000 / 16,000 / 10,000 rows at
+# x_conv2 / 3 / 4 and out)
+BACKBONE_CONVS = (
+    (16000, 16000, 27, 4, 16), (16000, 16000, 27, 16, 16),
+    (16000, 24000, 27, 16, 32), (24000, 24000, 27, 32, 32),
+    (24000, 24000, 27, 32, 32), (24000, 16000, 27, 32, 64),
+    (16000, 16000, 27, 64, 64), (16000, 16000, 27, 64, 64),
+    (16000, 10000, 27, 64, 64), (10000, 10000, 27, 64, 64),
+    (10000, 10000, 27, 64, 64), (10000, 10000, 3, 64, 128))
+
+
+def _random_key_case(dev, b, n, m, k, c, co, seed):
+    """B samples of sorted random keys (up to 10% INVALID_KEY pads) in a
+    band of 4N, neighbour keys drawn from the band with a third INVALID:
+    about 15% of rows x K taps find a row, as on the backbone."""
+    g = torch.Generator().manual_seed(seed)
+    band = 4 * n
+    keys = []
+    for _ in range(b):
+        n_valid = n - int(torch.randint(0, n // 10 + 1, (1,), generator=g))
+        kk = torch.sort(torch.randperm(band, generator=g)[:n_valid]).values
+        keys.append(torch.cat([kk.to(torch.int32), torch.full(
+            (n - n_valid,), voxelize.INVALID_KEY, dtype=torch.int32)]))
+    nk = torch.randint(0, band, (b, m, k), generator=g, dtype=torch.int32)
+    nk[torch.rand(b, m, k, generator=g) < 1 / 3] = voxelize.INVALID_KEY
+    feats = torch.randn(b, n, c, generator=g)
+    w = torch.randn(k, c, co, generator=g) / np.sqrt(k * c)
+    return (feats.to(dev), torch.stack(keys).to(dev), nk.to(dev), w.to(dev),
+            band + 1)
+
+
+@pytest.mark.parametrize("n,m,k,c,co", BACKBONE_CONVS)
+def test_key_conv_forward_at_backbone_shapes(dev, n, m, k, c, co):
+    """K5's forward (the gather-GEMM tile, rows rounded to bf16) at the
+    12 backbone convs' shapes, B=8, random keys at the caps: within 1e-5
+    of the twin's largest magnitude, and bit-equal over two launches."""
+    feats, keys, nk, w, band = _random_key_case(dev, 8, n, m, k, c, co,
+                                                seed=m + c)
+    out = key_conv.key_conv_batched(feats, keys, nk, w, band)
+    again = key_conv.key_conv_batched(feats, keys, nk, w, band)
+    ref = key_conv.key_conv_forward_plain(feats, keys, nk, w)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    _close(out, ref, 1e-5)
+
+
+@pytest.mark.parametrize("c,co", [(3, 5), (6, 10), (4, 16), (13, 128),
+                                  (64, 6), (64, 128)])
+def test_key_conv_forward_channels_off_the_vector_width(dev, c, co):
+    """C and Co that are not multiples of 4 (4-byte copies into rows
+    padded with zero channels, zero-padded weights, scalar stores), C = 4
+    with Co = 16 (conv_input) and the widest weight tap (64 x 128):
+    within 1e-5 and bit-equal over two launches."""
+    feats, keys, nk, w, band = _random_key_case(dev, 3, 3000, 2500, 27, c,
+                                                co, seed=c * co)
+    out = key_conv.key_conv_batched(feats, keys, nk, w, band)
+    again = key_conv.key_conv_batched(feats, keys, nk, w, band)
+    ref = key_conv.key_conv_forward_plain(feats, keys, nk, w)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    _close(out, ref, 1e-5)
 
 
 def _key_grads(fn, feats, keys, nk, w, dout, band, need_dfeats):
