@@ -71,11 +71,15 @@ Phases (any failure exits non-zero without printing the result line):
    24 / 12 / 24 / 2 / 2 launches per iteration (K1 fwd, K1 bwd, K2, K3,
    K4); the same iteration with ``conv_impl="key"`` (K5 forward within
    1e-5 of its twin on its 24 calls and bit-equal over two launches on
-   the 12 student calls, S exactly on the step's 12 shapes, its 24 K2 and
-   2 K3 calls exactly, 24 / 12 / 0 launches of K5 fwd, K5 bwd, K1, losses
-   within 1e-4 of the plain path); the same iteration on the rulebook
-   path (``conv_impl="rulebook"``, JAX's ``"xla"``: every K7 call within
-   1e-5 of its twin, its K2 and K3 calls exactly, 24 / 0 / 0 / 0
+   the 12 student calls, the rulebook it writes for the backward equal
+   to the plain one; K5's backward on that rulebook: S exactly the
+   twin's on the step's 12 shapes and bit-equal over two launches; its
+   24 K2 and 2 K3 calls exactly, 24 / 12 / 0 launches of K5 fwd, K5 bwd,
+   K1, losses within 1e-4 of the plain path); the same iteration on the
+   rulebook path (``conv_impl="rulebook"``, JAX's ``"xla"``: every K7
+   call within 1e-5 of its twin (and whether bit-equal to it), bit-equal
+   over two launches on the 12 student calls, its K2 and K3 calls
+   exactly, 24 / 0 / 0 / 0
    launches of K7, K1 fwd, K1 bwd, K5, losses and BN statistics within
    1e-4 of the plain path's and of the window path's, the five backbone
    levels within 1e-5 of the window path's on the same B=8 student
@@ -101,7 +105,11 @@ Phases (any failure exits non-zero without printing the result line):
    B, K, valid rows, inner steps, ms, device ms and µs a step, and K4's
    step floor (the longest augmenting paths, c[i, j] = i * j, at K = 32
    and 128, equal to its twin); per key-path student conv (K5) its
-   matched pairs, tile rows, ms and device ms beside its bound;
+   matched pairs, tile rows, ms and device ms beside its bound, and K5's
+   backward: ms, device ms, its passes (profiler kernel times) and the
+   library call (``new_zeros`` + ``index_put_`` of the rounded rows)
+   beside its bound; per rulebook-path student conv (K7) its matched
+   pairs, tile rows, ms and device ms beside its bound;
 10. a JSON line of the kernels (per SSL iteration, with their bounds;
    K6 and K8 over the replayed calls, with 0 launches on the model
    path), then the result line.
@@ -351,6 +359,8 @@ def check_kernels(calls, label, stats):
             rb = args[1] if name == "gather_conv_batched" else args[2]
             desc = (f"rel_err={err:.3e} shape={tuple(k_out.shape)} "
                     f"taps={rb.shape[-1]}")
+            if name == "gather_conv_batched":
+                desc += f" bit-equal to the twin={torch.equal(k_out, p_out)}"
         else:
             k_out = k_out if isinstance(k_out, tuple) else (k_out,)
             p_out = p_out if isinstance(p_out, tuple) else (p_out,)
@@ -407,14 +417,33 @@ K1_BWD_PASSES = (("Memset", "inv fill"), ("pair_count", "count"),
                  ("transpose_taps", "W^T"), ("gather_gemm", "dF"))
 
 
+def kernel_passes(fn, passes, reps=1):
+    """Device ms per call of each pass of ``fn`` (``passes``: (a piece of
+    the kernel's or memset's name, label)), from the profiler's kernel
+    times over ``reps`` calls; a pass the trace did not record is
+    missing."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = (getattr(ev, "device_time_total", None)
+              or getattr(ev, "cuda_time_total", 0))
+        for key, label in passes:
+            if key in ev.key and us:
+                out[label] = out.get(label, 0.0) + us / 1e3 / reps
+    return out
+
+
 def k1_breakdown(bwd_cases, card):
     """Per student conv of the SSL iteration (B=8): matched pairs and
     their share of capacity x K, K1 fwd (writing its rulebook, as the
     student's forward does) and K1 bwd ms (CUDA events) beside their
     bounds, and the backward's passes from the profiler's kernel times
     of one launch."""
-    from torch.profiler import ProfilerActivity, profile
-
     from detmatch_tpu_torch.ops.cuda.window_key_conv import (
         window_key_conv_bwd, window_key_conv_fwd)
     tot = dict(fwd=0.0, bwd=0.0, fwd_bound=0.0, bwd_bound=0.0)
@@ -428,17 +457,8 @@ def k1_breakdown(bwd_cases, card):
         fb, bb = {}, {}
         add_bound(fb, *work("window_key_conv_batched", args, {}))
         add_bound(bb, *work("window_key_conv_bwd", args, {}, need))
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            window_key_conv_bwd(dout, feats, rb, w, need_dfeats=need)
-            torch.cuda.synchronize()
-        passes = {}
-        for ev in prof.key_averages():
-            us = (getattr(ev, "device_time_total", None)
-                  or getattr(ev, "cuda_time_total", 0))
-            for key, label in K1_BWD_PASSES:
-                if key in ev.key and us:
-                    passes[label] = passes.get(label, 0.0) + us / 1e3
+        passes = kernel_passes(lambda: window_key_conv_bwd(
+            dout, feats, rb, w, need_dfeats=need), K1_BWD_PASSES)
         for k, v in (("fwd", fwd), ("bwd", bwd), ("fwd_bound", fb[
                 "bound_ms"]), ("bwd_bound", bb["bound_ms"])):
             tot[k] += v
@@ -677,6 +697,134 @@ def k5_breakdown(calls, card, rows=None, reps=10):
           f"{tot['dev']:.3f} ms (bound {tot['bound']:.4f}, "
           f"{tot['bound'] / tot['ms']:.1%}) [{card}]")
     return tot["ms"], tot["dev"]
+
+
+# K5 backward's kernels (csrc/key_conv.cu) by their passes: the earlier
+# design (a zero fill of S, then a key search and a scatter of the
+# matched rows) and the current one (the inverse map from the forward's
+# rulebook, then one pass that writes every row of S)
+K5_BWD_PASSES = (("zero_kernel", "zero fill"),
+                 ("key_scatter_kernel", "search + scatter"),
+                 ("Memset", "inverse fill"), ("invert_rulebook", "inverse"),
+                 ("write_s", "S write"))
+
+
+def k5_bwd_breakdown(cases, card, scatter, reps=10):
+    """Per key-path student conv (B=8; ``cases`` the (dout, keys, nkeys,
+    rb) of each, rb the forward's rulebook): ``scatter(dout, keys, nkeys,
+    rb)``'s ms (CUDA events), device ms (:func:`device_ms`) and passes
+    (profiler), the library call's ms (``new_zeros`` and ``index_put_``
+    of the bf16-rounded dout rows at slots prepared outside the timing),
+    and the bound and its share. Returns the sums (ms, dev, lib, bound)."""
+    tot = dict(ms=0.0, dev=0.0, lib=0.0, bound=0.0)
+    for j, (dout, keys, nkeys, rb) in enumerate(cases):
+        b, n = keys.shape
+        k, co = nkeys.shape[2], dout.shape[-1]
+        ms = cuda_ms(lambda: scatter(dout, keys, nkeys, rb), reps=reps)
+        dev = device_ms(lambda: scatter(dout, keys, nkeys, rb), reps=reps)
+        passes = kernel_passes(lambda: scatter(dout, keys, nkeys, rb),
+                               K5_BWD_PASSES, reps=3)
+        bi, mi, ki = (rb >= 0).nonzero(as_tuple=True)
+        slots = ki * (b * n) + bi * n + rb[bi, mi, ki].long()
+        rounded = dout[bi, mi].to(torch.bfloat16).to(torch.float32)
+        lib = cuda_ms(lambda: dout.new_zeros((k * b * n, co)).index_put_(
+            (slots,), rounded), reps=reps)
+        del bi, mi, ki, slots, rounded
+        t = {}
+        add_bound(t, *work("key_conv_bwd", (dout, rb, n), {}))
+        for key, v in (("ms", ms), ("dev", dev), ("lib", lib),
+                       ("bound", t["bound_ms"])):
+            tot[key] += v
+        pairs = int((rb >= 0).sum())
+        print(f"  K5 bwd student conv {j}: (B, M, K)={tuple(nkeys.shape)} "
+              f"N={n} Co={co}: pairs {pairs}, S {k * b * n * co * 4 / 1e6:.1f}"
+              f" MB; {ms:.4f} ms, device {dev:.4f} ms (bound "
+              f"{t['bound_ms']:.5f}, {t['bound_ms'] / ms:.1%}); passes "
+              "(profiler): " + ", ".join(f"{key} {v:.4f}" for key, v in
+                                          passes.items())
+              + f" ms; library {lib:.4f} ms [{card}]")
+    print(f"  K5 bwd over {len(cases)} student convs: {tot['ms']:.3f} ms, "
+          f"device {tot['dev']:.3f} ms, library {tot['lib']:.3f} ms (bound "
+          f"{tot['bound']:.4f}, {tot['bound'] / tot['ms']:.1%}) [{card}]")
+    return tot
+
+
+def k7_breakdown(calls, card, rows=None, reps=10):
+    """Per rulebook-path student conv (B=8, ``calls`` the K7 argument
+    tuples (feats, rb, w)): matched pairs and their share of capacity x
+    K, ``rows(k, c, co)``, the tile rows the wrapper picks, K7 ms (CUDA
+    events) and device ms (:func:`device_ms`) beside the bound and its
+    share. Returns the (ms, device ms) sums."""
+    from detmatch_tpu_torch.ops.cuda import gather_conv as gc
+    tot = dict(ms=0.0, dev=0.0, bound=0.0)
+    for j, args in enumerate(calls):
+        feats, rb, w = args
+        pairs = int((rb >= 0).sum())
+        ms = cuda_ms(lambda: gc.gather_conv_batched(*args), reps=reps)
+        dev = device_ms(lambda: gc.gather_conv_batched(*args), reps=reps)
+        t = {}
+        add_bound(t, *work("gather_conv_batched", args, {}))
+        tot["ms"] += ms
+        tot["dev"] += dev
+        tot["bound"] += t["bound_ms"]
+        k, c, co = w.shape
+        print(f"  K7 student conv {j}: (B, M, K)={tuple(rb.shape)} N="
+              f"{feats.shape[1]} C={c} Co={co}"
+              + (f" rows {rows(k, c, co)}" if rows is not None else "")
+              + f": pairs {pairs} ({pairs / rb.numel():.4f} of capacity x "
+              f"K); {ms:.4f} ms, device {dev:.4f} ms (bound "
+              f"{t['bound_ms']:.5f} by {t['bound_by']}, "
+              f"{t['bound_ms'] / ms:.1%}) [{card}]")
+    print(f"  K7 over {len(calls)} student convs: {tot['ms']:.3f} ms, device "
+          f"{tot['dev']:.3f} ms (bound {tot['bound']:.4f}, "
+          f"{tot['bound'] / tot['ms']:.1%}) [{card}]")
+    return tot["ms"], tot["dev"]
+
+
+def k5_student_checks(kcalls, stats, g):
+    """On the student's (B=8) K5 calls of ``kcalls``: the forward
+    bit-equal over two launches, with its rulebook written (as the
+    student's forward writes it) bit-equal again and that rulebook equal
+    to the plain one; the backward on that rulebook, for a cotangent
+    drawn from ``g``, S exactly the twin's and bit-equal over two
+    launches. Returns (all held, the (dout, keys, nkeys, rb) of each)."""
+    from detmatch_tpu_torch.ops import spconv
+    from detmatch_tpu_torch.ops.cuda import key_conv as kc
+    st = stats.setdefault("key_conv_bwd", dict(max_abs_err=0.0, cases=0))
+    ok, key_bwd = True, []
+    for i, (_, args, _, _) in enumerate(kcalls):
+        if args[0].shape[0] != 2 * SSL_B:
+            continue
+        feats, keys, nkeys, w, band = args
+        out = kc.key_conv_batched(*args)
+        twice = torch.equal(out, kc.key_conv_batched(*args))
+        out_rb, rb = kc.key_conv_fwd(feats, keys, nkeys, w, rulebook=True)
+        rb_same = (torch.equal(out_rb, out) and torch.equal(
+            rb, spconv.rulebook_batched(keys, nkeys)))
+        ok &= twice and rb_same
+        print(f"  key path key_conv_batched[{i}] two launches "
+              f"bit-equal={twice}, with its rulebook written bit-equal "
+              f"and that rulebook equal to the plain one={rb_same} "
+              f"{'ok' if twice and rb_same else 'FAIL'}")
+        dout = torch.randn(feats.shape[0], nkeys.shape[1], w.shape[-1],
+                           generator=g, device=DEVICE)
+        n = keys.shape[1]
+        s_k = kc.key_conv_bwd(dout, rb, n)
+        again = torch.equal(s_k, kc.key_conv_bwd(dout, rb, n))
+        s_p = kc.key_scatter_plain(dout, keys, nkeys)
+        torch.cuda.synchronize()
+        exact = torch.equal(s_k, s_p)
+        st["cases"] += 1
+        st["max_abs_err"] = max(st["max_abs_err"],
+                                float((s_k - s_p).abs().max()))
+        ok &= exact and again
+        print(f"  key path key_conv_bwd[{i}] S exact={exact}, two "
+              f"launches bit-equal={again}, S {tuple(s_k.shape)} "
+              f"nonzero rows {int(s_k.abs().amax(-1).gt(0).sum())} "
+              f"{'ok' if exact and again else 'FAIL'}")
+        key_bwd.append((dout, keys, nkeys, rb))
+        del s_k, s_p, out, out_rb
+    return ok, key_bwd
 
 
 def compare_dense(out_k, out_p):
@@ -961,12 +1109,12 @@ def work(name, args, kwargs, need_dfeats=True, out=None):
         # bf16 multiply-adds, one per (matched pair, c, co)
         return 4 * (inputs + b * m * co), 2 * conv_pairs(args) * c * co
     if name == "key_conv_bwd":
-        dout, keys, nkeys = args
-        b, n = keys.shape
-        k, co = nkeys.shape[2], dout.shape[-1]
-        # reads dout, keys, nkeys; writes S (K, B * N, Co); no arithmetic
-        return 4 * (dout.numel() + keys.numel() + nkeys.numel()
-                    + k * b * n * co), 0
+        dout, rb, n = args
+        b, _, k = rb.shape
+        # reads dout and the forward's rulebook; writes S (K, B * N, Co);
+        # no arithmetic
+        return 4 * (dout.numel() + rb.numel() + k * b * n
+                    * dout.shape[-1]), 0
     if name in ("window_key_conv_batched", "window_key_conv_bwd"):
         feats, _, nkeys, _, w, _ = args
         b, n, c = feats.shape
@@ -1799,7 +1947,7 @@ def ssl_phases(card, stats):
     from detmatch_tpu_torch.config import Config
     from detmatch_tpu_torch.models.pvrcnn import pvrcnn as pvrcnn_mod
     from detmatch_tpu_torch.ops import cuda as cuda_ops
-    from detmatch_tpu_torch.ops.cuda import KERNELS, PLAIN
+    from detmatch_tpu_torch.ops.cuda import KERNELS, PLAIN, gather_conv
     from detmatch_tpu_torch.ops.cuda import key_conv as kc
     from detmatch_tpu_torch.ops.cuda.hungarian import jv_plan
     from detmatch_tpu_torch.ops.cuda.window_key_conv import (
@@ -2070,42 +2218,17 @@ def ssl_phases(card, stats):
     point_calls = [c for c in kcalls if c[0] in POINT_KERNELS]
     kcalls = [c for c in kcalls if c[0] == "key_conv_batched"]
     ok = len(kcalls) == 24 and len(point_calls) == POINT_CALLS
-    st = stats.setdefault("key_conv_bwd", dict(max_abs_err=0.0, cases=0))
     with torch.no_grad():
         ok &= check_kernels(kcalls, "key path", stats)
         ok &= check_kernels(point_calls, "key path", stats)
-        g = gen()
-        key_bwd = []
-        for i, (_, args, _, need) in enumerate(kcalls):
-            if args[0].shape[0] != 2 * SSL_B:
-                continue
-            feats, keys, nkeys, w, band = args
-            twice = torch.equal(kc.key_conv_batched(*args),
-                                kc.key_conv_batched(*args))
-            ok &= twice
-            print(f"  key path key_conv_batched[{i}] two launches "
-                  f"bit-equal={twice} {'ok' if twice else 'FAIL'}")
-            dout = torch.randn(feats.shape[0], nkeys.shape[1], w.shape[-1],
-                               generator=g, device=DEVICE)
-            s_k = kc.key_conv_bwd(dout, keys, nkeys)
-            s_p = kc.key_scatter_plain(dout, keys, nkeys)
-            torch.cuda.synchronize()
-            exact = torch.equal(s_k, s_p)
-            st["cases"] += 1
-            st["max_abs_err"] = max(st["max_abs_err"],
-                                    float((s_k - s_p).abs().max()))
-            ok &= exact
-            print(f"  key path key_conv_bwd[{i}] S exact={exact} S "
-                  f"{tuple(s_k.shape)} nonzero rows "
-                  f"{int(s_k.abs().amax(-1).gt(0).sum())} "
-                  f"{'ok' if exact else 'FAIL'}")
-            key_bwd.append(((dout, keys, nkeys), need))
-            del s_k, s_p
+        good, key_bwd = k5_student_checks(kcalls, stats, gen())
+        ok &= good
     if not ok or len(key_bwd) != 12:
-        raise AssertionError("K5, K2 or K3 disagrees with its twin, K5 "
-                             "differs between two launches, or K5's "
-                             "calls are not 24 per iteration, or K2's and "
-                             "K3's not 24 and 2")
+        raise AssertionError("K5, K2 or K3 disagrees with its twin, K5 or "
+                             "its backward differs between two launches, "
+                             "K5's rulebook differs from the plain one, or "
+                             "K5's calls are not 24 per iteration, or K2's "
+                             "and K3's not 24 and 2")
     m = copy.deepcopy(key_model).train()
     opts = detmatch_branch_optimizers(m, 0.04, 0.16)
     cuda_ops.reset_launch_counts()
@@ -2174,15 +2297,20 @@ def ssl_phases(card, stats):
         k5_breakdown([c[1] for c in kcalls if c[1][0].shape[0] == 2 * SSL_B],
                      card, lambda k, c, co: tile_rows(*kc.rounded_shapes(
                          0, 0, k, c, co)[1]))
+        k7_breakdown([c[1] for c in rb_calls
+                      if c[1][0].shape[0] == 2 * SSL_B], card,
+                     gather_conv.k7_tile_rows)
         per.update(time_kernels(rb_calls, []))
         key_per = time_kernels(kcalls, [])
-        t = key_per.setdefault("key_conv_bwd", dict(ms=0.0, plain_ms=0.0))
-        for (dout, keys, nkeys), _ in key_bwd:
-            t["ms"] += cuda_ms(lambda: kc.key_conv_bwd(dout, keys, nkeys),
-                               reps=5)
+        tot = k5_bwd_breakdown(key_bwd, card, lambda dout, keys, nkeys, rb:
+                               kc.key_conv_bwd(dout, rb, keys.shape[1]))
+        t = key_per.setdefault("key_conv_bwd", dict(
+            ms=tot["ms"], plain_ms=0.0, library_ms=tot["lib"]))
+        for dout, keys, nkeys, rb in key_bwd:
             t["plain_ms"] += cuda_ms(
                 lambda: kc.key_scatter_plain(dout, keys, nkeys), reps=2)
-            add_bound(t, *work("key_conv_bwd", (dout, keys, nkeys), {}))
+            add_bound(t, *work("key_conv_bwd", (dout, rb, keys.shape[1]),
+                               {}))
     per.update(key_per)
     jv = [(c[1][0].shape[-1], int((c[1][1]).sum())) for c in calls
           if c[0] == "solve_masked_batched"]
@@ -2292,8 +2420,18 @@ def rulebook_phase(cfg, model, batch, pseudo, pinned, window_ref, stats):
     print(f"  K7 calls per iteration (teacher + student forward): "
           f"{len(calls)}; rulebooks of the student's 12 convs {shared}; "
           f"gather_rows calls of the student forward {len(row_calls)}")
+    with torch.no_grad():
+        for i, (_, args, _, _) in enumerate(calls):
+            if args[0].shape[0] != 2 * SSL_B:
+                continue
+            twice = torch.equal(KERNELS.gather_conv_batched(*args),
+                                KERNELS.gather_conv_batched(*args))
+            ok &= twice
+            print(f"  rulebook path gather_conv_batched[{i}] two launches "
+                  f"bit-equal={twice} {'ok' if twice else 'FAIL'}")
     if not ok or len(calls) != 24 or shared != 8:
-        raise AssertionError("K7, K2 or K3 disagrees with its twin, or K7's "
+        raise AssertionError("K7, K2 or K3 disagrees with its twin, K7 "
+                             "differs between two launches, or K7's "
                              "calls are not 24 per iteration on 8 student "
                              "rulebooks, or K2's and K3's not 24 and 2")
 

@@ -1,18 +1,21 @@
 // The sparse-conv gather-GEMM tile shared by K1's forward
 // (csrc/window_key_conv.cu), its input gradient
-// (csrc/window_key_conv_bwd.cu) and K5's forward (csrc/key_conv.cu, on
-// bf16-rounded operands):
+// (csrc/window_key_conv_bwd.cu), K5's forward (csrc/key_conv.cu, on
+// bf16-rounded operands) and K7 (csrc/gather_conv.cu, the rulebook
+// conv):
 //   Y[b, r] = sum_k X[b, src(b, r, k)] . W_k        (W_k is Cx x Cy)
 // over the taps k whose source row exists. kSearch = true resolves
 // src(b, r, k) by binary search of the neighbour key idx[b, r, k] in
-// sample b's sorted key table (the forwards); kSearch = false reads it
-// from the map idx[b, r, k] (the backward's inverse rulebook; -1 = none).
+// sample b's sorted key table (K1 and K5); kSearch = false reads it from
+// the map idx[b, r, k] (-1 or any entry outside [0, n_src) = none): K7's
+// rulebook, and K1 backward's inverse rulebook.
 //
 // Order of the sums, per output element: one fp32 accumulator from +0,
 // fmaf over the taps ascending, then over the Cx input channels
 // ascending. A tap without a source row is skipped, which leaves the
-// same bits as adding (+0) * w, so the forward is bit-equal to K7
-// (csrc/gather_conv.cu), which walks every tap in the same order.
+// same bits as adding (+0) * w: K1's forward in search mode and K7 in
+// map mode on the same rulebook give the same bits, and so did the
+// earlier K7 kernel, which walked every tap in this order.
 //
 // Design (what bounds it is the fp32 FMA rate on matched pairs only):
 // - A block owns `rows` (32-128) consecutive output rows. It resolves
@@ -28,8 +31,14 @@
 //   per block and tap. Dynamic shared memory, up to 227 KB.
 // Needs Cx % 4 == 0, Cy % 4 == 0 and 16-byte aligned X and W (16-byte
 // copies); the callers check it. Y's rows may be narrower than Cy
-// (y_ld < Cy: K5 pads Co up to 4 with zero weights and stores Co).
+// (y_ld < Cy: K5 and K7 pad Co up to 4 with zero weights and store Co).
+// pad_operands_kernel copies X and W into such widths, zeros in the pads,
+// and for K5 rounds them to bf16 on the way. A zero pad changes no bit
+// of the sums: an accumulator that starts at +0 is never -0, so fmaf(0,
+// 0, a) == a.
 #pragma once
+
+#include <cuda_bf16.h>
 
 #include "common.cuh"
 
@@ -56,6 +65,10 @@ inline bool tile_ok(int rows, int k, int cx, int cy) {
   return rows > 0 && rows % 32 == 0 && rows <= kMaxRows && k > 0 &&
          k <= kMaxTaps && cx > 0 && cx % 4 == 0 && cy > 0 && cy % 4 == 0 &&
          tile_smem_bytes(rows, k, cx, cy) <= kMaxSmem;
+}
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 using dm::cp_async16;
@@ -280,6 +293,52 @@ cudaError_t launch_gather_gemm(const float* x, const int32_t* keys,
                                                                cy)),
          stream>>>(x, keys, idx, w, y, rb_out, b, n_src, m_dst, k, cx, cy,
                    y_ld, rows);
+  return cudaGetLastError();
+}
+
+// x (rows, cx) → xp (rows, cx4) and w (k, cx, cy) → wp (k, cx4, cy4),
+// fp32, zeros in the pads; kRoundBf16 rounds every value to bf16. One
+// grid-stride loop, the feature entries first.
+template <bool kRoundBf16>
+__global__ void __launch_bounds__(kThreads)
+    pad_operands_kernel(const float* __restrict__ x,
+                        const float* __restrict__ w, float* __restrict__ xp,
+                        float* __restrict__ wp, int64_t rows, int k, int cx,
+                        int cy, int cx4, int cy4) {
+  const int64_t nx = rows * cx4;
+  const int64_t total = nx + static_cast<int64_t>(k) * cx4 * cy4;
+  for (int64_t e = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+       e < total; e += static_cast<int64_t>(gridDim.x) * kThreads) {
+    float v = 0.f;
+    if (e < nx) {
+      const int64_t r = e / cx4;
+      const int ci = static_cast<int>(e - r * cx4);
+      if (ci < cx) v = x[r * cx + ci];
+      xp[e] = kRoundBf16 ? bf16_round(v) : v;
+    } else {
+      const int64_t f = e - nx;
+      const int o = static_cast<int>(f % cy4);
+      const int64_t tc = f / cy4;  // tap * cx4 + ci
+      const int ci = static_cast<int>(tc % cx4);
+      const int64_t tap = tc / cx4;
+      if (ci < cx && o < cy) v = w[(tap * cx + ci) * cy + o];
+      wp[f] = kRoundBf16 ? bf16_round(v) : v;
+    }
+  }
+}
+
+// Launches pad_operands_kernel<kRoundBf16> over x's rows and w's taps.
+template <bool kRoundBf16>
+cudaError_t launch_pad_operands(const float* x, const float* w, float* xp,
+                                float* wp, int64_t rows, int k, int cx,
+                                int cy, int cx4, int cy4,
+                                cudaStream_t stream) {
+  const int64_t total = rows * cx4 + static_cast<int64_t>(k) * cx4 * cy4;
+  if (total == 0) return cudaSuccess;
+  const int64_t blocks = (total + kThreads - 1) / kThreads;
+  pad_operands_kernel<kRoundBf16>
+      <<<static_cast<unsigned>(blocks < 132 * 16 ? blocks : 132 * 16),
+         kThreads, 0, stream>>>(x, w, xp, wp, rows, k, cx, cy, cx4, cy4);
   return cudaGetLastError();
 }
 

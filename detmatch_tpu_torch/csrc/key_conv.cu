@@ -10,10 +10,11 @@
 // Those compare every (row, tap) neighbour key against the whole flattened
 // key table and feed the 0/1 match matrix to the MXU in bf16, which costs
 // O(M * N * K) compares and answers the TPU's slow row gathers. Gathers are
-// cheap here, so neither kernel compares tables: each (row, tap) key is
-// found by binary search in its own sample's sorted segment (the TPU
-// wrapper's flattened table is not sorted across samples), and the one
-// matching row is gathered or scattered.
+// cheap here, so nothing compares tables: the forward finds each
+// (row, tap) key by binary search in its own sample's sorted segment (the
+// TPU wrapper's flattened table is not sorted across samples), gathers
+// the one matching row and writes the rulebook of what it found; the
+// backward scatters by that rulebook.
 //
 // The function is the TPU kernel's but for the order of the fp32 sums:
 // keys are unique within a sample, so a tap matches at most one row; a
@@ -29,8 +30,8 @@
 // (up to 8 x 24,000 output rows, 4-128 channels), against the bytes of
 // the features, key tables and outputs, a few MB a call: bytes, by the
 // bound's count; in practice the gathers' latency and the fp32 FMA
-// rate. The backward's S is written once (up to 27 x 8 x 16,000 rows x
-// 32 floats, ~440 MB at the widest level): its bytes bound the scatter.
+// rate. The backward's S is written once (up to 27 x 8 x 24,000 rows x
+// 64 floats, ~1.3 GB at x_conv3's strided conv): its bytes bound it.
 //
 // Forward: a prologue rounds F and W once per call to bf16 values kept in
 // fp32 scratch that the wrapper allocates ((B * N, C4) and (K, C4, Co4):
@@ -56,107 +57,80 @@
 // zeroed fragments were added to them by IEEE adds. Only the twin's
 // sequential fp32 sums keep the key path's losses.
 //
-// Backward: a grid-stride zero fill of S, then one block per 32 output
-// rows resolves its pairs and copies each matched bf16-rounded dout row
-// into S, channels across threads.
-#include <cuda_bf16.h>
-
+// Backward: S is written once, from the rulebook that the forward's tile
+// resolved and wrote (rb_out), so nothing is searched again. An inverse
+// map inv[k, b * n + row] (the output row b * m + m' whose tap k reads
+// input row `row`, -1 = none; 1/Co of S's bytes) is filled with -1 and
+// written from the rulebook, one writer a slot (the property above; an
+// integer atomicMax where a malformed rulebook repeats one), one thread
+// an output row over its taps; then one streaming pass writes
+// every row of S, bf16(dout[inv]) or zeros, 16 bytes a thread, rows
+// consecutive across a block (coalesced stores, no separate zero fill,
+// no matched row written twice). No float atomics: deterministic.
 #include "gather_gemm.cuh"
 
 namespace {
 
-constexpr int kRows = 32;                          // output rows per block
+using dm::gemm::bf16_round;
+
 constexpr int kThreads = 256;
 constexpr int kMaxTaps = 27;
 constexpr int kMaxCin = 64;
 constexpr int kMaxCout = 128;
-constexpr int kMaxW = 8192;                        // C * Co floats per tap
+constexpr int kMaxW = 8192;   // C * Co floats per tap
+constexpr int kUnroll = 4;    // S rows a thread has in flight
 
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
+// inv[tap * b * n + bi * n + rb[row, tap]] = row for each output row
+// (one thread a row) and tap with an input row; the caller fills inv
+// with -1 first. Every conv gives a slot one writer; atomicMax keeps a
+// rulebook that repeats one deterministic (the largest row wins).
+__global__ void __launch_bounds__(kThreads)
+    invert_rulebook_kernel(const int32_t* __restrict__ rb,
+                           int32_t* __restrict__ inv, int b, int n, int m,
+                           int k) {
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * kThreads +
+                      threadIdx.x;
+  if (row >= static_cast<int64_t>(b) * m) return;
+  const int64_t base = row / m * n;  // bi * n
+  const int64_t slab = static_cast<int64_t>(b) * n;
+  for (int tap = 0; tap < k; ++tap) {
+    const int32_t v = rb[row * k + tap];
+    if (v >= 0 && v < n) {
+      atomicMax(inv + tap * slab + base + v, static_cast<int32_t>(row));
+    }
+  }
 }
 
-// Resolve the block's 32 x k (row, tap) pairs into s_src: the global input
-// row b*n + pos, or -1.
-__device__ __forceinline__ void resolve(const int32_t* __restrict__ keys,
-                                        const int32_t* __restrict__ nkeys,
-                                        int (*s_src)[kMaxTaps], int64_t row0,
-                                        int64_t rows, int n, int m, int k) {
-  for (int p = threadIdx.x; p < kRows * k; p += kThreads) {
-    const int r = p / k;
-    const int tap = p - r * k;
-    const int64_t row = row0 + r;
-    int src = -1;
-    if (row < rows) {
-      const int32_t q = nkeys[row * k + tap];
-      if (q != dm::kInvalidKey) {
-        const int bi = static_cast<int>(row / m);
-        const int32_t* tbl = keys + static_cast<size_t>(bi) * n;
-        const int pos = dm::lower_bound(tbl, n, q);
-        if (pos < n && tbl[pos] == q) src = bi * n + pos;
+// S row `slot` (co4 float4s) = bf16(dout[inv[slot]]) or zeros. A block
+// step covers kThreads / co4 consecutive rows, a thread one float4 of a
+// row, kUnroll block steps at a time.
+__global__ void __launch_bounds__(kThreads)
+    write_s_kernel(const float4* __restrict__ dout,
+                   const int32_t* __restrict__ inv, float4* __restrict__ s,
+                   int64_t slots, int co4) {
+  const int per_step = kThreads / co4;  // rows a block step
+  const int r = threadIdx.x / co4;
+  const int q = threadIdx.x - r * co4;
+  if (r >= per_step) return;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * per_step;
+  for (int64_t first = static_cast<int64_t>(blockIdx.x) * per_step + r;
+       first < slots; first += kUnroll * stride) {
+    int src[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t slot = first + u * stride;
+      src[u] = slot < slots ? inv[slot] : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t slot = first + u * stride;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (src[u] >= 0) {
+        v = dout[static_cast<int64_t>(src[u]) * co4 + q];
+        v = make_float4(bf16_round(v.x), bf16_round(v.y), bf16_round(v.z),
+                        bf16_round(v.w));
       }
-    }
-    s_src[r][tap] = src;
-  }
-}
-
-// bf16(feats) (rows, c) → fr (rows, c4) and bf16(W) (k, c, co) → wr
-// (k, c4, co4), both fp32 with zero pads: the feature entries first, then
-// the weights', one grid-stride loop.
-__global__ void __launch_bounds__(kThreads)
-    round_operands_kernel(const float* __restrict__ feats,
-                          const float* __restrict__ w, float* __restrict__ fr,
-                          float* __restrict__ wr, int64_t rows, int k, int c,
-                          int co, int c4, int co4) {
-  const int64_t nf = rows * c4;
-  const int64_t total = nf + static_cast<int64_t>(k) * c4 * co4;
-  for (int64_t e = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-       e < total; e += static_cast<int64_t>(gridDim.x) * kThreads) {
-    if (e < nf) {
-      const int64_t r = e / c4;
-      const int ci = static_cast<int>(e - r * c4);
-      fr[e] = ci < c ? bf16_round(feats[r * c + ci]) : 0.f;
-    } else {
-      const int64_t f = e - nf;
-      const int n = static_cast<int>(f % co4);
-      const int64_t tc = f / co4;  // tap * c4 + ci
-      const int ci = static_cast<int>(tc % c4);
-      const int64_t tap = tc / c4;
-      wr[f] = ci < c && n < co ? bf16_round(w[(tap * c + ci) * co + n]) : 0.f;
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-    zero_kernel(float4* __restrict__ s, int64_t n4) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-       i < n4; i += stride) {
-    s[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-    key_scatter_kernel(const float* __restrict__ dout,
-                       const int32_t* __restrict__ keys,
-                       const int32_t* __restrict__ nkeys,
-                       float* __restrict__ s, int b, int n, int m, int k,
-                       int co) {
-  __shared__ int s_src[kRows][kMaxTaps];
-  const int64_t rows = static_cast<int64_t>(b) * m;
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kRows;
-  resolve(keys, nkeys, s_src, row0, rows, n, m, k);
-  __syncthreads();
-  const int64_t slab = static_cast<int64_t>(b) * n * co;  // one tap of S
-  for (int e = threadIdx.x; e < kRows * k * co; e += kThreads) {
-    const int pair = e / co;
-    const int oc = e - pair * co;
-    const int r = pair / k;
-    const int tap = pair - r * k;
-    const int src = s_src[r][tap];
-    if (src >= 0) {
-      s[tap * slab + static_cast<int64_t>(src) * co + oc] =
-          bf16_round(dout[(row0 + r) * co + oc]);
+      if (slot < slots) __stcs(s + slot * co4 + q, v);
     }
   }
 }
@@ -165,62 +139,67 @@ bool bad_args(int b, int n, int m, int k, int c, int co) {
   return b < 0 || n <= 0 || m < 0 || k <= 0 || k > kMaxTaps || c <= 0 ||
          c > kMaxCin || co <= 0 || co > kMaxCout || c * co > kMaxW ||
          static_cast<int64_t>(b) * n > 0x7fffffff ||
-         (static_cast<int64_t>(b) * m + kRows - 1) / kRows > 0x7fffffff;
+         static_cast<int64_t>(b) * m > 0x7fffffff;
 }
 
 }  // namespace
 
 // feats (b, n, c) f32; keys (b, n) int32 sorted per sample, INVALID_KEY
-// padded; nkeys (b, m, k) int32; weights (k, c, co) f32 → out (b, m, co).
-// fr, wr: scratch for the rounded operands, b * n * C4 and k * C4 * Co4
-// floats (C, Co up to multiples of 4; ops/cuda/key_conv.rounded_shapes);
-// rows: output rows per block (ops/cuda/window_key_conv.tile_rows(k, C4,
-// Co4)).
+// padded; nkeys (b, m, k) int32; weights (k, c, co) f32 → out (b, m, co);
+// rb (b, m, k) int32 per-sample input rows, -1 = none (nullptr = not
+// wanted): the rulebook the backward reads. fr, wr: scratch for the
+// rounded operands, b * n * C4 and k * C4 * Co4 floats (C, Co up to
+// multiples of 4; ops/cuda/key_conv.rounded_shapes); rows: output rows
+// per block (ops/cuda/window_key_conv.tile_rows(k, C4, Co4)).
 DM_EXPORT int dm_key_conv_fwd(const float* feats, const int32_t* keys,
                               const int32_t* nkeys, const float* weights,
-                              float* fr, float* wr, float* out, int b, int n,
-                              int m, int k, int c, int co, int rows,
-                              cudaStream_t stream) {
+                              float* fr, float* wr, float* out, int32_t* rb,
+                              int b, int n, int m, int k, int c, int co,
+                              int rows, cudaStream_t stream) {
   if (bad_args(b, n, m, k, c, co)) return cudaErrorInvalidValue;
   if (static_cast<int64_t>(b) * m == 0) return cudaSuccess;
   const int c4 = (c + 3) / 4 * 4;
   const int co4 = (co + 3) / 4 * 4;
-  const int64_t total = static_cast<int64_t>(b) * n * c4 +
-                        static_cast<int64_t>(k) * c4 * co4;
-  const int64_t blocks = (total + kThreads - 1) / kThreads;
-  round_operands_kernel<<<static_cast<unsigned>(blocks < 132 * 16
-                                                    ? blocks
-                                                    : 132 * 16),
-                          kThreads, 0, stream>>>(
+  const cudaError_t err = dm::gemm::launch_pad_operands<true>(
       feats, weights, fr, wr, static_cast<int64_t>(b) * n, k, c, co, c4,
-      co4);
-  const cudaError_t err = cudaGetLastError();
+      co4, stream);
   if (err != cudaSuccess) return err;
-  return dm::gemm::launch_gather_gemm<true>(fr, keys, nkeys, wr, out,
-                                            nullptr, b, n, m, k, c4, co4,
-                                            rows, stream, co);
+  return dm::gemm::launch_gather_gemm<true>(fr, keys, nkeys, wr, out, rb, b,
+                                            n, m, k, c4, co4, rows, stream,
+                                            co);
 }
 
-// dout (b, m, co) f32 → s (k, b * n, co) f32; co must be a multiple of 4
-// (the zero fill writes float4).
-DM_EXPORT int dm_key_conv_bwd_scatter(const float* dout, const int32_t* keys,
-                                      const int32_t* nkeys, float* s, int b,
-                                      int n, int m, int k, int co,
+// dout (b, m, co) f32 and rb (b, m, k) int32, the forward's rulebook →
+// s (k, b * n, co) f32; inv: scratch of k * b * n int32. co must be a
+// multiple of 4 (S is written as float4).
+DM_EXPORT int dm_key_conv_bwd_scatter(const float* dout, const int32_t* rb,
+                                      int32_t* inv, float* s, int b, int n,
+                                      int m, int k, int co,
                                       cudaStream_t stream) {
   if (bad_args(b, n, m, k, 1, co) || co % 4 != 0) {
     return cudaErrorInvalidValue;
   }
-  const int64_t n4 = static_cast<int64_t>(k) * b * n * co / 4;
-  if (n4 == 0) return cudaSuccess;
-  const int64_t zb = (n4 + kThreads - 1) / kThreads;
-  zero_kernel<<<static_cast<unsigned>(zb < 132 * 16 ? zb : 132 * 16),
-                kThreads, 0, stream>>>(reinterpret_cast<float4*>(s), n4);
-  const cudaError_t err = cudaGetLastError();
+  const int64_t slots = static_cast<int64_t>(k) * b * n;
+  if (slots == 0) return cudaSuccess;
+  cudaError_t err = cudaMemsetAsync(
+      inv, 0xff, static_cast<size_t>(slots) * sizeof(int32_t), stream);
   if (err != cudaSuccess) return err;
   const int64_t rows = static_cast<int64_t>(b) * m;
-  if (rows == 0) return cudaSuccess;
-  const unsigned blocks = static_cast<unsigned>((rows + kRows - 1) / kRows);
-  key_scatter_kernel<<<blocks, kThreads, 0, stream>>>(dout, keys, nkeys, s,
-                                                      b, n, m, k, co);
+  if (rows > 0) {
+    invert_rulebook_kernel<<<static_cast<unsigned>(
+                                 (rows + kThreads - 1) / kThreads),
+                             kThreads, 0, stream>>>(rb, inv, b, n, m, k);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  const int co4 = co / 4;
+  const int per_step = kThreads / co4;
+  const int64_t steps = (slots + per_step - 1) / per_step;
+  const int64_t blocks = (steps + kUnroll - 1) / kUnroll;
+  write_s_kernel<<<static_cast<unsigned>(blocks < 132 * 64 ? blocks
+                                                             : 132 * 64),
+                   kThreads, 0, stream>>>(
+      reinterpret_cast<const float4*>(dout), inv,
+      reinterpret_cast<float4*>(s), slots, co4);
   return cudaGetLastError();
 }

@@ -19,15 +19,24 @@ gather-GEMM tile on operands that a prologue rounds to bf16: it sums
 the exact products in the twin's fp32 order, so it equals the twin on
 the card; the wrapper allocates the rounded operands' scratch
 (:func:`rounded_shapes`) and picks the tile rows
-(``window_key_conv.tile_rows`` at C and Co up to multiples of 4).
+(``window_key_conv.tile_rows`` at C and Co up to multiples of 4). When
+autograd will want a gradient, the forward kernel also writes the
+rulebook it resolved (as K1's does), and the backward kernel builds S
+from it with no key search: an inverse map, then one pass that writes
+every row of S once. The twins' backward resolves the keys again
+(:func:`key_scatter_plain`); :func:`key_scatter_from_rulebook_plain` is
+the twin of the kernel's own signature.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from .. import spconv
 from . import build
-from .window_key_conv import _check_args, _check_band, tile_rows
+from .window_key_conv import (MAX_COUT, MAX_TAPS, _check_args, _check_band,
+                              tile_rows)
 
 
 def _bf16(x):
@@ -40,18 +49,33 @@ def key_conv_forward_plain(feats, keys, nkeys, weights):
         _bf16(feats), spconv.rulebook_batched(keys, nkeys), _bf16(weights))
 
 
+def key_scatter_from_rulebook_plain(dout, rb, n):
+    """Plain twin of the backward kernel: S (K, B * N, Co) float32 whose
+    row k * B * N + b * N + rb[b, m, k] is bf16(dout[b, m]) for each entry
+    of the rulebook (B, M, K) in [0, N), zero elsewhere. Keys are unique
+    in a sample, so each row has at most one writer and S is the JAX
+    one-hot sum; where a rulebook repeats one, the largest output row
+    b * M + m wins, as in the kernel's inverse map."""
+    b, m, k = rb.shape
+    dev = rb.device
+    ok = (rb >= 0) & (rb < n)
+    slot = (torch.arange(k, device=dev) * (b * n)
+            + (torch.arange(b, device=dev) * n)[:, None, None] + rb)[ok]
+    row = torch.arange(b * m, device=dev).view(b, m, 1).expand(b, m, k)[ok]
+    inv = torch.full((k * b * n,), -1, dtype=torch.long,
+                     device=dev).scatter_reduce_(0, slot.long(), row, "amax")
+    rows = torch.cat([_bf16(dout).reshape(b * m, -1),
+                      dout.new_zeros(1, dout.shape[-1])])  # -1: zeros
+    return rows[inv].view(k, b * n, -1)
+
+
 def key_scatter_plain(dout, keys, nkeys):
-    """Plain twin of the backward kernel: S (K, B * N, Co) float32 with
-    bf16(dout[b, m]) at (k, b * N + row(b, m, k)). Each slot has at most
-    one writer (keys are unique in a sample), so a plain indexed store
-    gives the JAX one-hot sum."""
-    b, n = keys.shape
-    k = nkeys.shape[2]
-    rb = spconv.rulebook_batched(keys, nkeys)
-    bi, mi, ki = (rb >= 0).nonzero(as_tuple=True)
-    s = dout.new_zeros((k, b * n, dout.shape[-1]))
-    s[ki, bi * n + rb[bi, mi, ki].long()] = _bf16(dout[bi, mi])
-    return s
+    """Plain twin of the backward from the keys, JAX's
+    ``_key_scatter_all_taps``: S (K, B * N, Co) of
+    :func:`key_scatter_from_rulebook_plain` on the rulebook of ``nkeys``
+    in ``keys``."""
+    return key_scatter_from_rulebook_plain(
+        dout, spconv.rulebook_batched(keys, nkeys), keys.shape[1])
 
 
 def key_conv_grads(s, feats, weights, need_dfeats=True):
@@ -72,69 +96,97 @@ def rounded_shapes(b, n, k, c, co):
     return (b, n, c4), (k, c4, co4)
 
 
-def _launch_fwd(feats, keys, nkeys, weights, rows=None):
+def key_conv_fwd(feats, keys, nkeys, weights, rows=None, rulebook=False):
+    """The forward kernel on the card (arguments as
+    :func:`key_conv_batched`, without the band), at ``rows`` output rows a
+    block (None: the tile rows the wrapper plans; other values for
+    measurement).
+
+    Returns:
+        (out (B, M, Co) float32, rb (B, M, K) int32 or None): with
+        ``rulebook`` the per-sample input row each (output row, tap)
+        resolved to, -1 where none, as ``spconv.rulebook_batched`` gives
+        it; the backward reads it.
+    """
     name = "key_conv_batched"
     dev, (b, n, m, k, c, co) = _check_args(name, feats, keys, nkeys,
                                            weights, 0)
     out = torch.empty((b, m, co), dtype=torch.float32, device=dev)
+    rb = (torch.empty((b, m, k), dtype=torch.int32, device=dev)
+          if rulebook else None)
     f_shape, w_shape = rounded_shapes(b, n, k, c, co)
     fr = torch.empty(f_shape, dtype=torch.float32, device=dev)
     wr = torch.empty(w_shape, dtype=torch.float32, device=dev)
     lib = build.load_library()
     err = lib.dm_key_conv_fwd(
         build.ptr(feats), build.ptr(keys), build.ptr(nkeys),
-        build.ptr(weights), build.ptr(fr), build.ptr(wr), build.ptr(out), b,
-        n, m, k, c, co, tile_rows(*w_shape) if rows is None else rows,
-        build.stream(dev))
+        build.ptr(weights), build.ptr(fr), build.ptr(wr), build.ptr(out),
+        build.ptr(rb), b, n, m, k, c, co,
+        tile_rows(*w_shape) if rows is None else rows, build.stream(dev))
     key_conv_batched.launches += 1
     build.check(lib, err, name)
-    return out
+    return out, rb
 
 
-def key_conv_fwd(feats, keys, nkeys, weights, rows):
-    """The forward kernel on the card at ``rows`` output rows a block
-    (for measurement; the model's calls take ``tile_rows``)."""
-    return _launch_fwd(feats, keys, nkeys, weights, rows)
-
-
-def key_conv_bwd(dout, keys, nkeys):
+def key_conv_bwd(dout, rb, n):
     """The backward kernel on the card: S (K, B * N, Co) float32 from
-    dout (B, M, Co) (Co a multiple of 4)."""
+    dout (B, M, Co) (Co a multiple of 4) and the rulebook (B, M, K) int32
+    that :func:`key_conv_fwd` wrote, over N input rows a sample."""
     name = "key_conv_bwd"
-    dev = build.require_cuda(name, dout, keys, nkeys)
+    dev = build.require_cuda(name, dout, rb)
     build.require_dtype(name, dout, torch.float32, "dout")
-    build.require_dtype(name, keys, torch.int32, "keys")
-    build.require_dtype(name, nkeys, torch.int32, "nkeys")
-    b, n = keys.shape
-    m, k = nkeys.shape[1], nkeys.shape[2]
+    build.require_dtype(name, rb, torch.int32, "rb")
+    b, m, k = rb.shape
     co = dout.shape[-1]
-    if nkeys.shape[0] != b or dout.shape != (b, m, co) or co % 4:
-        raise ValueError(f"{name}: needs dout (B, M, Co) with Co % 4 == 0, "
-                         "keys (B, N), nkeys (B, M, K)")
+    if (dout.shape != (b, m, co) or co % 4 or n <= 0 or k > MAX_TAPS
+            or co > MAX_COUT or b * n >= 2 ** 31 or b * m >= 2 ** 31):
+        raise ValueError(f"{name}: needs dout (B, M, Co) with Co % 4 == 0 "
+                         f"and Co <= {MAX_COUT}, rb (B, M, K) with K <= "
+                         f"{MAX_TAPS}, N > 0, B * N and B * M below 2^31")
+    inv = torch.empty(k * b * n, dtype=torch.int32, device=dev)
     s = torch.empty((k, b * n, co), dtype=torch.float32, device=dev)
     lib = build.load_library()
     err = lib.dm_key_conv_bwd_scatter(
-        build.ptr(dout), build.ptr(keys), build.ptr(nkeys), build.ptr(s), b,
-        n, m, k, co, build.stream(dev))
+        build.ptr(dout), build.ptr(rb), build.ptr(inv), build.ptr(s), b, n,
+        m, k, co, build.stream(dev))
     key_conv_bwd.launches += 1
     build.check(lib, err, name)
     return s
 
 
+def _kernel_forward(feats, keys, nkeys, weights, rulebook):
+    out, rb = key_conv_fwd(feats, keys, nkeys, weights, rulebook=rulebook)
+    return out, (() if rb is None else (rb,))
+
+
+def _kernel_scatter(dout, n, rb):
+    return key_conv_bwd(dout, rb, n)
+
+
+def _plain_forward(feats, keys, nkeys, weights):
+    return key_conv_forward_plain(feats, keys, nkeys, weights), (keys, nkeys)
+
+
+def _plain_scatter(dout, n, keys, nkeys):
+    return key_scatter_plain(dout, keys, nkeys)
+
+
 class KeyConv(torch.autograd.Function):
-    """``forward`` computes the output, ``scatter`` S in the backward:
-    the kernels or their twins."""
+    """``forward`` computes the output and the tensors that ``scatter``
+    reads besides dout for S in the backward: the kernels (the rulebook
+    the forward kernel wrote) or their twins (the keys)."""
 
     @staticmethod
     def forward(ctx, feats, keys, nkeys, weights, forward, scatter):
-        ctx.save_for_backward(feats, keys, nkeys, weights)
+        out, index = forward(feats, keys, nkeys, weights)
+        ctx.save_for_backward(feats, weights, *index)
         ctx.scatter = scatter
-        return forward(feats, keys, nkeys, weights)
+        return out
 
     @staticmethod
     def backward(ctx, dout):
-        feats, keys, nkeys, weights = ctx.saved_tensors
-        s = ctx.scatter(dout.contiguous(), keys, nkeys)
+        feats, weights, *index = ctx.saved_tensors
+        s = ctx.scatter(dout.contiguous(), feats.shape[1], *index)
         dfeats, dw = key_conv_grads(s, feats, weights, ctx.needs_input_grad[0])
         return dfeats, None, None, dw, None, None
 
@@ -142,8 +194,8 @@ class KeyConv(torch.autograd.Function):
 def key_conv_plain(feats, keys, nkeys, weights, band):
     """Plain twin of :func:`key_conv_batched` (same arguments)."""
     _check_band(feats.shape[0], band)
-    return KeyConv.apply(feats, keys, nkeys, weights, key_conv_forward_plain,
-                         key_scatter_plain)
+    return KeyConv.apply(feats, keys, nkeys, weights, _plain_forward,
+                         _plain_scatter)
 
 
 def key_conv_batched(feats, keys, nkeys, weights, band):
@@ -164,8 +216,11 @@ def key_conv_batched(feats, keys, nkeys, weights, band):
     if feats.device.type == "cpu":
         return key_conv_plain(feats, keys, nkeys, weights, band)
     _check_band(feats.shape[0], band)
-    return KeyConv.apply(feats, keys, nkeys, weights, _launch_fwd,
-                         key_conv_bwd)
+    grad = torch.is_grad_enabled() and (feats.requires_grad
+                                        or weights.requires_grad)
+    return KeyConv.apply(feats, keys, nkeys, weights,
+                         functools.partial(_kernel_forward, rulebook=grad),
+                         _kernel_scatter)
 
 
 key_conv_batched.launches = 0

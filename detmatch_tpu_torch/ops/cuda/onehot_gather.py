@@ -1,6 +1,6 @@
 """Rulebook sparse conv with bf16 operands and fp32 sums (K6): the CUDA
-kernels ``csrc/gather_conv.cu`` with its bf16 flag (replacing the TPU
-kernel ``detmatch_tpu/ops/pallas/onehot_gather.py:_onehot_gather_conv_fwd``)
+kernels ``csrc/gather_conv.cu`` (``dm_onehot_gather_conv_fwd``; replacing
+the TPU kernel ``detmatch_tpu/ops/pallas/onehot_gather.py:_onehot_gather_conv_fwd``)
 and ``csrc/onehot_gather.cu`` with ``csrc/segment_sum.cu`` (replacing
 ``_scatter_all_taps`` there), their plain PyTorch twins, and one
 ``torch.autograd.Function`` whose backward is JAX's ``_vjp_bwd``, with
@@ -63,9 +63,19 @@ def onehot_gather_scatter_plain(dout, rulebook, n_total):
 
 
 def _launch_fwd(feats, rulebook, weights):
-    out = gather_conv.launch("onehot_gather_conv", feats[None],
-                             rulebook[None], weights, True)[0]
+    """The forward kernel on the card: (M, Co) float32 from feats (N, C),
+    rulebook (M, K) int32 (-1 and any other entry outside [0, N) = none)
+    and weights (K, C, Co)."""
+    name = "onehot_gather_conv"
+    dev, (_, n, m, k, c, co) = gather_conv.check_args(
+        name, feats[None], rulebook[None], weights)
+    out = torch.empty((m, co), dtype=torch.float32, device=dev)
+    lib = build.load_library()
+    err = lib.dm_onehot_gather_conv_fwd(
+        build.ptr(feats), build.ptr(rulebook), build.ptr(weights),
+        build.ptr(out), n, m, k, c, co, build.stream(dev))
     onehot_gather_conv.launches += 1
+    build.check(lib, err, name)
     return out
 
 

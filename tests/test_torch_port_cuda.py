@@ -4,8 +4,11 @@ samples, the size limits, argument checks), the sparse conv's backward
 kernel against autograd through its twin, the JV assignment kernel (K4)
 at sizes and validity patterns the teacher phase does not give it, and
 the key-compare conv (K5) forward and backward against their twins, the
-rulebook gather-GEMM (K7, and with its bf16 flag K6's forward), K6's
-backward scatter and K8's row gather and scatter-add against theirs.
+rulebook gather-GEMM (K7) and K6's forward, K6's backward scatter and
+K8's row gather and scatter-add against theirs. K5's backward, on the
+rulebook its forward writes, is held to the twin exactly and to itself
+over two launches at the 12 backbone shapes. K7 is held bit-equal to
+K1's forward, at channel counts and alignments it pads for too.
 K1's forward is held bit-equal to K7 (dense, sparse and pad-only tiles),
 the rulebook it writes to the plain one, and its backward, which reads
 that rulebook, to itself over two launches. K2 (ball query) and K3 (FPS)
@@ -619,8 +622,10 @@ def _dense_conv_case(dev, kind, c, co, all_invalid=False):
     ("stride2", 32, 64, False, False), ("subm", 16, 32, True, True)])
 def test_key_conv_kernels_match_twins(dev, kind, c, co, need_dfeats,
                                       all_invalid):
-    """K5: the forward within 1e-5 of the twin's largest magnitude, S of
-    the backward kernel equal to the twin's exactly, and dF / dW through
+    """K5: the forward within 1e-5 of the twin's largest magnitude, the
+    rulebook it writes equal to the plain one (writing it changes no bit),
+    S of the backward kernel on that rulebook equal to the twin's exactly,
+    and dF / dW through
     the autograd Function within 1e-5; C * Co up to the 8,192 limit, an
     empty sample, all-INVALID neighbour keys, and the input gradient
     skipped (one backward launch either way)."""
@@ -633,7 +638,10 @@ def test_key_conv_kernels_match_twins(dev, kind, c, co, need_dfeats,
     assert not out[2].any()
     if all_invalid:
         assert scale == 0.0
-    s = key_conv.key_conv_bwd(dout, keys, nk)
+    again, rb = key_conv.key_conv_fwd(feats, keys, nk, w, rulebook=True)
+    assert torch.equal(again, out)
+    assert torch.equal(rb, spconv.rulebook_batched(keys, nk))
+    s = key_conv.key_conv_bwd(dout, rb, keys.shape[1])
     assert torch.equal(s, key_conv.key_scatter_plain(dout, keys, nk))
     key_conv.key_conv_bwd.launches = 0
     got = _key_grads(key_conv.key_conv_batched, feats, keys, nk, w, dout,
@@ -711,6 +719,26 @@ def test_key_conv_forward_channels_off_the_vector_width(dev, c, co):
     _close(out, ref, 1e-5)
 
 
+@pytest.mark.parametrize("n,m,k,c,co", BACKBONE_CONVS)
+def test_key_conv_backward_at_backbone_shapes(dev, n, m, k, c, co):
+    """K5's backward at the 12 backbone convs' shapes, B=8, random keys
+    at the caps, on the rulebook the forward wrote: S exactly the twin's
+    (from the keys and from that rulebook) and bit-equal over two
+    launches. Random neighbour keys repeat within a tap, which no conv
+    does: kernel and twin both keep the largest output row there."""
+    feats, keys, nk, w, band = _random_key_case(dev, 8, n, m, k, c, co,
+                                                seed=m + c + 1)
+    _, rb = key_conv.key_conv_fwd(feats, keys, nk, w, rulebook=True)
+    dout = torch.randn(8, m, co, device=dev)
+    s = key_conv.key_conv_bwd(dout, rb, n)
+    again = key_conv.key_conv_bwd(dout, rb, n)
+    torch.cuda.synchronize()
+    assert torch.equal(s, again)
+    assert torch.equal(s, key_conv.key_scatter_from_rulebook_plain(dout, rb,
+                                                                   n))
+    assert torch.equal(s, key_conv.key_scatter_plain(dout, keys, nk))
+
+
 def _key_grads(fn, feats, keys, nk, w, dout, band, need_dfeats):
     feats = feats.clone().requires_grad_(need_dfeats)
     w = w.clone().requires_grad_(True)
@@ -729,10 +757,13 @@ def test_key_conv_wrappers_check_their_arguments(dev):
         key_conv.key_conv_batched(
             torch.zeros(3, 2000, 65, device=dev), keys, nk,
             torch.zeros(27, 65, 8, device=dev), band)
+    rb = spconv.rulebook_batched(keys, nk)
     with pytest.raises(ValueError):  # Co not a multiple of 4
-        key_conv.key_conv_bwd(dout[..., :6].contiguous(), keys, nk)
+        key_conv.key_conv_bwd(dout[..., :6].contiguous(), rb, keys.shape[1])
     with pytest.raises(TypeError):
-        key_conv.key_conv_bwd(dout.double(), keys, nk)
+        key_conv.key_conv_bwd(dout.double(), rb, keys.shape[1])
+    with pytest.raises(TypeError):  # the rulebook, not the keys' dtype
+        key_conv.key_conv_bwd(dout, rb.long(), keys.shape[1])
 
 
 def _close(a, r, tol):
@@ -766,6 +797,48 @@ def test_gather_conv_kernel_matches_twin(dev, kind, c, co, need_dfeats,
                      need_dfeats)
     for a, r in zip(got, want):
         _close(a, r, 1e-5)
+
+
+def _padded(t, c4, co4):
+    """(feats (B, N, C) or weights (K, C, Co)) with zero channels up to
+    C4 (and zero output columns up to Co4 for weights)."""
+    if co4 is None:
+        return torch.nn.functional.pad(t, (0, c4 - t.shape[-1]))
+    return torch.nn.functional.pad(t, (0, co4 - t.shape[-1],
+                                       0, c4 - t.shape[-2]))
+
+
+@pytest.mark.parametrize("kind,c,co,offset", [
+    ("subm", 4, 16, 0), ("subm", 64, 64, 0), ("z3", 64, 128, 0),
+    ("stride2", 16, 32, 1), ("subm", 3, 5, 0), ("stride2", 6, 10, 0),
+    ("z3", 13, 128, 0), ("subm", 64, 6, 0)])
+def test_gather_conv_is_bit_equal_to_k1(dev, kind, c, co, offset):
+    """K7 (the gather-GEMM tile in map mode) gives K1's forward bits on
+    the same rulebook: directly where C and Co are multiples of 4 and
+    the data start on 16 bytes; where they do not (C or Co off the
+    vector width, or features 4 bytes off), K7 pads and K1 runs on the
+    zero-padded operands, and K7 keeps Co of its columns. Within 1e-5 of
+    the twin, and the same bits on every launch."""
+    feats, keys, nk, w, _, band = _dense_conv_case(dev, kind, c, co)
+    if offset:  # a contiguous view 4 bytes past a 16-byte boundary
+        buf = torch.empty(feats.numel() + offset, device=dev)
+        buf[offset:] = feats.reshape(-1)
+        feats = buf[offset:].view(feats.shape)
+    rb = spconv.rulebook_batched(keys, nk)
+    assert gather_conv.needs_pad(feats, w) == bool(c % 4 or co % 4
+                                                   or offset)
+    out = gather_conv.gather_conv_batched(feats, rb, w)
+    again = gather_conv.gather_conv_batched(feats, rb, w)
+    c4, co4 = -(-c // 4) * 4, -(-co // 4) * 4
+    fp = _padded(feats, c4, None).contiguous()
+    out_keys = torch.zeros(nk.shape[:2], dtype=torch.int32, device=dev)
+    k1, _ = window_key_conv.window_key_conv_fwd(
+        fp, keys, nk, out_keys, _padded(w, c4, co4).contiguous(), band)
+    ref = spconv.gather_conv_batched(feats, rb, w)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    assert torch.equal(out, k1[..., :co])
+    _close(out, ref, 1e-5)
 
 
 def _rb_grads(fn, feats, rb, w, dout, need_dfeats):

@@ -195,11 +195,12 @@ def test_backward_wrapper_raises_off_cuda():
 def test_key_conv_backward_wrapper_raises_off_cuda():
     """The key-compare conv's backward kernel has no CPU path either."""
     _, keys, nkeys, _, _ = _cpu_inputs()["key_conv_batched"]
+    rb = spconv.rulebook_batched(keys, nkeys)
     dout = torch.zeros(2, 64, 8)
     cuda_ops.reset_launch_counts()
     for dev in ("cpu", "meta"):
         with pytest.raises((ValueError, TypeError, RuntimeError)):
-            cuda_ops.key_conv_bwd(dout.to(dev), keys.to(dev), nkeys.to(dev))
+            cuda_ops.key_conv_bwd(dout.to(dev), rb.to(dev), keys.shape[1])
     assert cuda_ops.launch_counts()["key_conv_bwd"] == 0
 
 

@@ -156,14 +156,14 @@ def k5_tiles(cs, k5, card):
         k, c, co = w.shape
         shape = kc.rounded_shapes(0, 0, k, c, co)[1]
         want = wkc.tile_rows(*shape)
-        ref = kc.key_conv_fwd(feats, keys, nkeys, w, want)
+        ref, _ = kc.key_conv_fwd(feats, keys, nkeys, w, want)
         cells = []
         for rows in wkc.TILE_ROWS:
             if wkc.tile_smem_bytes(rows, *shape) > wkc.MAX_SMEM:
                 continue
-            a = kc.key_conv_fwd(feats, keys, nkeys, w, rows)
+            a, _ = kc.key_conv_fwd(feats, keys, nkeys, w, rows)
             same = torch.equal(a, kc.key_conv_fwd(feats, keys, nkeys, w,
-                                                  rows))
+                                                  rows)[0])
             diff = float((a - ref).abs().max())
             ms = cs.cuda_ms(lambda: kc.key_conv_fwd(feats, keys, nkeys, w,
                                                     rows), reps=10)
