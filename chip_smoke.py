@@ -16,7 +16,10 @@ Phases (any failure exits non-zero without printing the result line):
    (B=4 synthetic KITTI frames of 16,384 points, 16,000-voxel cap, the
    first of them alone, and a B=3 batch with uneven valid counts), kernel
    against twin on the same inputs: integer outputs exactly equal, conv
-   max relative error <= 1e-5;
+   max relative error <= 1e-5; then, off the main path, K1, K5 and K7 with
+   gradients on neighbour keys that repeat within a tap (every writer
+   summed, as in JAX) and at C = 5 and 128 against their twins, K1's and
+   K5's backward bit-equal over two launches, K5's S exactly its twin's;
 5. end to end — full-width PV-RCNN from
    ``configs/detmatch/001/pretrain_pvrcnn/split_0.py`` with seeded random
    weights runs ``detect`` (all launch counters must move, outputs
@@ -85,7 +88,8 @@ Phases (any failure exits non-zero without printing the result line):
    levels within 1e-5 of the window path's on the same B=8 student
    input); the one-hot ops K6 and K8, which no model calls, replayed on
    that forward's operands (K6 on its 12 student rulebooks: forward
-   within 1e-5, S exactly and every call through the direct path, dF and
+   within 1e-5 and bit-equal over two launches, S exactly and every call
+   through the direct path, dF and
    dW equal given the same S; a rulebook with repeats through the sorted
    path, S equal to the CPU twin's; K8 on every ``pointnet.gather_rows``
    call: the gather exactly, the scatter-add within 1e-5 and, where a
@@ -205,7 +209,7 @@ KERNEL_META = {
         source="detmatch_tpu_torch/csrc/key_conv.cu",
         replaces="detmatch_tpu/ops/pallas/onehot_key_conv.py:150"),
     "onehot_gather_conv": dict(
-        source="detmatch_tpu_torch/csrc/gather_conv.cu",
+        source="detmatch_tpu_torch/csrc/onehot_gather_conv.cu",
         replaces="detmatch_tpu/ops/pallas/onehot_gather.py:68"),
     "onehot_gather_scatter": dict(
         source="detmatch_tpu_torch/csrc/onehot_gather.cu",
@@ -414,7 +418,8 @@ def check_k1_exact(calls, label):
 K1_BWD_PASSES = (("Memset", "inv fill"), ("pair_count", "count"),
                  ("pair_scan", "scan"), ("pair_fill", "fill"),
                  ("dweight_partial", "dW"), ("dweight_reduce", "dW reduce"),
-                 ("transpose_taps", "W^T"), ("gather_gemm", "dF"))
+                 ("transpose_taps", "W^T"), ("gather_gemm", "dF"),
+                 ("repeat_rows", "repeat pass"))
 
 
 def kernel_passes(fn, passes, reps=1):
@@ -443,10 +448,10 @@ def k1_breakdown(bwd_cases, card):
     their share of capacity x K, K1 fwd (writing its rulebook, as the
     student's forward does) and K1 bwd ms (CUDA events) beside their
     bounds, and the backward's passes from the profiler's kernel times
-    of one launch."""
+    of one launch. Returns the sums (ms; the repeat pass's device ms)."""
     from detmatch_tpu_torch.ops.cuda.window_key_conv import (
         window_key_conv_bwd, window_key_conv_fwd)
-    tot = dict(fwd=0.0, bwd=0.0, fwd_bound=0.0, bwd_bound=0.0)
+    tot = dict(fwd=0.0, bwd=0.0, fwd_bound=0.0, bwd_bound=0.0, repeat=0.0)
     for j, (args, need, dout, rb) in enumerate(bwd_cases):
         feats, _, nkeys, _, w, _ = args
         pairs = int((rb >= 0).sum())
@@ -460,7 +465,8 @@ def k1_breakdown(bwd_cases, card):
         passes = kernel_passes(lambda: window_key_conv_bwd(
             dout, feats, rb, w, need_dfeats=need), K1_BWD_PASSES)
         for k, v in (("fwd", fwd), ("bwd", bwd), ("fwd_bound", fb[
-                "bound_ms"]), ("bwd_bound", bb["bound_ms"])):
+                "bound_ms"]), ("bwd_bound", bb["bound_ms"]),
+                     ("repeat", passes.get("repeat pass", 0.0))):
             tot[k] += v
         print(f"  student conv {j}: (B, M, K)={tuple(nkeys.shape)} N="
               f"{feats.shape[1]} C={w.shape[1]} Co={w.shape[2]}: pairs "
@@ -474,7 +480,10 @@ def k1_breakdown(bwd_cases, card):
     print(f"  student convs together: fwd {tot['fwd']:.3f} ms (bound "
           f"{tot['fwd_bound']:.4f}, {tot['fwd_bound'] / tot['fwd']:.1%}), "
           f"bwd {tot['bwd']:.3f} ms (bound {tot['bwd_bound']:.4f}, "
-          f"{tot['bwd_bound'] / tot['bwd']:.1%}) [{card}]")
+          f"{tot['bwd_bound'] / tot['bwd']:.1%}); the bwd's repeat pass "
+          f"(no flag: returns at once) {1e3 * tot['repeat']:.1f} µs of "
+          f"device time over the {len(bwd_cases)} (profiler) [{card}]")
+    return tot
 
 
 def k2_scan(args):
@@ -706,7 +715,7 @@ def k5_breakdown(calls, card, rows=None, reps=10):
 K5_BWD_PASSES = (("zero_kernel", "zero fill"),
                  ("key_scatter_kernel", "search + scatter"),
                  ("Memset", "inverse fill"), ("invert_rulebook", "inverse"),
-                 ("write_s", "S write"))
+                 ("write_s", "S write"), ("repeat_sums", "repeat pass"))
 
 
 def k5_bwd_breakdown(cases, card, scatter, reps=10):
@@ -716,7 +725,7 @@ def k5_bwd_breakdown(cases, card, scatter, reps=10):
     (profiler), the library call's ms (``new_zeros`` and ``index_put_``
     of the bf16-rounded dout rows at slots prepared outside the timing),
     and the bound and its share. Returns the sums (ms, dev, lib, bound)."""
-    tot = dict(ms=0.0, dev=0.0, lib=0.0, bound=0.0)
+    tot = dict(ms=0.0, dev=0.0, lib=0.0, bound=0.0, repeat=0.0)
     for j, (dout, keys, nkeys, rb) in enumerate(cases):
         b, n = keys.shape
         k, co = nkeys.shape[2], dout.shape[-1]
@@ -733,7 +742,8 @@ def k5_bwd_breakdown(cases, card, scatter, reps=10):
         t = {}
         add_bound(t, *work("key_conv_bwd", (dout, rb, n), {}))
         for key, v in (("ms", ms), ("dev", dev), ("lib", lib),
-                       ("bound", t["bound_ms"])):
+                       ("bound", t["bound_ms"]),
+                       ("repeat", passes.get("repeat pass", 0.0))):
             tot[key] += v
         pairs = int((rb >= 0).sum())
         print(f"  K5 bwd student conv {j}: (B, M, K)={tuple(nkeys.shape)} "
@@ -745,7 +755,9 @@ def k5_bwd_breakdown(cases, card, scatter, reps=10):
               + f" ms; library {lib:.4f} ms [{card}]")
     print(f"  K5 bwd over {len(cases)} student convs: {tot['ms']:.3f} ms, "
           f"device {tot['dev']:.3f} ms, library {tot['lib']:.3f} ms (bound "
-          f"{tot['bound']:.4f}, {tot['bound'] / tot['ms']:.1%}) [{card}]")
+          f"{tot['bound']:.4f}, {tot['bound'] / tot['ms']:.1%}); the repeat "
+          f"pass (no flag: returns at once) {1e3 * tot['repeat']:.1f} µs of "
+          f"device time over the {len(cases)} (profiler) [{card}]")
     return tot
 
 
@@ -952,6 +964,12 @@ def run():
     if not ok:
         raise AssertionError("a kernel disagrees with its plain twin")
 
+    phase("kernels against plain twins (repeated writers, C = 5 and 128)")
+    if not conv_edge_cases():
+        raise AssertionError("a sparse conv disagrees with its twin on "
+                             "repeated writers or at C = 5 / 128, or its "
+                             "backward differs between two launches")
+
     phase("end to end (kernel path)")
     with torch.inference_mode():
         cuda_ops.reset_launch_counts()
@@ -1048,6 +1066,89 @@ def run():
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def conv_edge_cases():
+    """Off the main path, at a small dense shape (B=2, 2,000 and 700
+    voxels): a submanifold conv whose neighbour keys repeat within a tap
+    (two writers a slot at tap 4, one slot of 2,000 at tap 22) at C = Co
+    = 16, and convs at C = 5 (Co = 3) and C = Co = 128, through K1, K5 and
+    K7 and their twins: outputs and dF, dW within 1e-5 of each tensor's
+    largest magnitude, K1's and K5's backward the same bits over two
+    launches, K5's S exactly its twin's. Returns whether all held."""
+    from detmatch_tpu_torch.ops import spconv, voxelize
+    from detmatch_tpu_torch.ops.cuda import gather_conv as gc
+    from detmatch_tpu_torch.ops.cuda import key_conv as kc
+    from detmatch_tpu_torch.ops.cuda import window_key_conv as wkc
+
+    g = torch.Generator().manual_seed(SEED)
+    shape, n = (11, 40, 36), 2000
+    band = int(np.prod(shape)) + 1
+    keys = []
+    for n_valid in (n, 700):
+        kk = torch.sort(torch.randperm(band - 1, generator=g)[:n_valid]
+                        ).values.to(torch.int32)
+        keys.append(torch.cat([kk, torch.full(
+            (n - n_valid,), voxelize.INVALID_KEY, dtype=torch.int32)]))
+    keys = torch.stack(keys).to(DEVICE)
+    base = spconv.subm_neighbor_keys(keys, shape)
+
+    def grads(fn, feats, w, dout, *extra):
+        f = feats.clone().requires_grad_()
+        ww = w.clone().requires_grad_()
+        out = fn(f, *extra, ww)
+        return (out, *torch.autograd.grad(out, (f, ww), dout))
+
+    ok = True
+    for label, c, co, repeat in (("repeats", 16, 16, True),
+                                 ("C=5", 5, 3, False),
+                                 ("C=128", 128, 128, False)):
+        nk = base.clone()
+        if repeat:
+            nk[:, 0::2, 4] = keys[:, 0::2]
+            nk[:, 1::2, 4] = keys[:, 0::2]
+            nk[:, :, 22] = keys[:, 3:4]
+        nk = nk.contiguous()
+        feats = torch.randn(2, n, c, generator=g).to(DEVICE)
+        w = (torch.randn(27, c, co, generator=g)
+             / np.sqrt(27 * c)).to(DEVICE)
+        dout = torch.randn(2, n, co, generator=g).to(DEVICE)
+        rb = spconv.rulebook_batched(keys, nk)
+        cases = (
+            ("K1", lambda f, ww: wkc.window_key_conv_batched(
+                f, keys, nk, keys, ww, band),
+             lambda f, ww: wkc.window_key_conv_plain(f, keys, nk, keys, ww,
+                                                     band)),
+            ("K5", lambda f, ww: kc.key_conv_batched(f, keys, nk, ww, band),
+             lambda f, ww: kc.key_conv_plain(f, keys, nk, ww, band)),
+            ("K7", lambda f, ww: gc.gather_conv_batched(f, rb, ww),
+             lambda f, ww: gc.gather_conv_plain(f, rb, ww)))
+        for name, kern, plain in cases:
+            got, want = grads(kern, feats, w, dout), grads(plain, feats, w,
+                                                           dout)
+            torch.cuda.synchronize()
+            errs = [rel_err(a.detach(), r.detach())
+                    for a, r in zip(got, want)]
+            good = max(errs) <= CONV_RTOL
+            ok &= good
+            print(f"  {label} {name}: out, dF, dW rel_err "
+                  + ", ".join(f"{e:.3e}" for e in errs)
+                  + f" {'ok' if good else 'FAIL'}")
+        _, rb_k = wkc.window_key_conv_fwd(feats, keys, nk, keys, w, band,
+                                          rulebook=True)
+        k1 = [wkc.window_key_conv_bwd(dout, feats, rb_k, w)
+              for _ in range(2)]
+        s = [kc.key_conv_bwd(dout, rb_k, n) for _ in range(2)]
+        twin = kc.key_scatter_from_rulebook_plain(dout, rb, n)
+        torch.cuda.synchronize()
+        same = (torch.equal(rb_k, rb)
+                and all(torch.equal(a, b) for a, b in zip(*k1))
+                and torch.equal(s[0], s[1]) and torch.equal(s[0], twin))
+        ok &= same
+        print(f"  {label}: K1 bwd and K5 bwd the same bits over two "
+              f"launches, K5's S exactly its twin's={same} "
+              f"{'ok' if same else 'FAIL'}")
+    return ok
 
 
 def conv_pairs(args):
@@ -2547,6 +2648,9 @@ def onehot_phase(card, stats, rb_calls, row_calls, main_launches):
             flat = torch.where(rb >= 0, rb + base, -1).reshape(b * m, k)
             fl = (feats.reshape(b * n, c), flat, w, dout.reshape(b * m, co))
             flats.append(fl)
+            # a second launch on the flattened operands: the same bits
+            twice = torch.equal(og.onehot_gather_conv(*fl[:3]),
+                                out.reshape(b * m, co))
             ref = og.onehot_gather_forward_plain(*fl[:3])
             direct = og.onehot_gather_scatter.direct
             s_k = og.onehot_gather_scatter(fl[3], flat, b * n)
@@ -2558,7 +2662,8 @@ def onehot_phase(card, stats, rb_calls, row_calls, main_launches):
         exact = torch.equal(s_k, s_p)
         same = (torch.equal(d_f.reshape(b * n, c), p_f[0])
                 and torch.equal(d_w, p_w))
-        good = err <= CONV_RTOL and exact and same and direct == 1
+        good = (err <= CONV_RTOL and twice and exact and same
+                and direct == 1)
         ok &= good
         for name, e in (
                 ("onehot_gather_conv", (out.reshape(b * m, co) - ref).abs()
@@ -2568,7 +2673,8 @@ def onehot_phase(card, stats, rb_calls, row_calls, main_launches):
             st["cases"] += 1
             st["max_abs_err"] = max(st["max_abs_err"], float(e))
         print(f"  K6 student conv[{i}] feats {tuple(feats.shape)} rulebook "
-              f"{tuple(rb.shape)} Co={co}: forward rel_err={err:.3e}, S "
+              f"{tuple(rb.shape)} Co={co}: forward rel_err={err:.3e}, "
+              f"two launches bit-equal={twice}, S "
               f"exact={exact} ({'direct' if direct else 'sorted'} path), "
               f"autograd dF and dW equal to the twin's S einsums={same} "
               f"{'ok' if good else 'FAIL'}")
@@ -2610,13 +2716,14 @@ def onehot_phase(card, stats, rb_calls, row_calls, main_launches):
     launches = cuda_ops.launch_counts()
     paths = dict(direct=og.onehot_gather_scatter.direct,
                  sorted=og.onehot_gather_scatter.sorted)
-    # S once in the autograd backward, once more for its exact check; the
-    # hot K8 calls' scatter once more for their second launch
+    # K6's forward and S once more each, for their bit-equality and exact
+    # checks; the hot K8 calls' scatter once more for their second launch
     replayed = dict(onehot_gather_conv=len(convs),
                     onehot_gather_scatter=len(convs),
                     onehot_take_rows_batched=len(rows),
                     onehot_scatter_rows=len(rows))
-    expect = dict(replayed, onehot_gather_scatter=2 * len(convs),
+    expect = dict(replayed, onehot_gather_conv=2 * len(convs),
+                  onehot_gather_scatter=2 * len(convs),
                   onehot_scatter_rows=len(rows) + hot)
     print(f"  launches in the replay: "
           f"{ {n: launches[n] for n in ONEHOT_KERNELS} }; expected {expect}; "
@@ -2626,8 +2733,9 @@ def onehot_phase(card, stats, rb_calls, row_calls, main_launches):
     if (not ok or any(launches[n] != c for n, c in expect.items())
             or paths != dict(direct=2 * len(convs), sorted=0)):
         raise AssertionError("K6 or K8 disagrees with its twin on the main "
-                             "path's operands, was not launched once a "
-                             "call, or K6's S left the direct path")
+                             "path's operands, K6's forward differs between "
+                             "two launches, a kernel was not launched as "
+                             "counted, or K6's S left the direct path")
 
     # K6's sorted path: a rulebook with repeated rows (up to ~60 writers a
     # slot), -1 and out-of-range entries, against the CPU twin

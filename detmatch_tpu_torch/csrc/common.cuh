@@ -16,6 +16,10 @@ namespace dm {
 
 constexpr int32_t kInvalidKey = 0x7fffffff;  // ops/voxelize.INVALID_KEY
 
+__host__ __device__ inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
 // First position in the sorted keys[0, n) whose key is >= q.
 __device__ __forceinline__ int lower_bound(const int32_t* keys, int n,
                                            int32_t q) {

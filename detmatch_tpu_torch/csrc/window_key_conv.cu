@@ -28,24 +28,51 @@
 // the resolved rows are also written out, the rulebook that the backward
 // (csrc/window_key_conv_bwd.cu) reads instead of searching again.
 //
+// Any C and Co: the tile copies 16-byte vectors, so where C or Co is not
+// a multiple of 4, or feats or weights does not start on 16 bytes, a
+// prologue copies them into fp (b * n, C4) and wp (k, C4, Co4) with zero
+// pads (K7's, csrc/gather_gemm.cuh:pad_operands_kernel; C, Co up to
+// multiples of 4), and the tile stores Co of its Co4 columns.
+//
 // Order of the sums, per output element: fp32 from +0, fmaf over the taps
 // ascending, then the input channels ascending. Taps without a row are
-// skipped, which changes no bit, so the result is bit-equal to K7
-// (csrc/gather_conv.cu) on spconv.rulebook_batched's rulebook.
+// skipped and zero pads add nothing, which changes no bit, so the result
+// is bit-equal to K7 (csrc/gather_conv.cu) on spconv.rulebook_batched's
+// rulebook.
 #include "gather_gemm.cuh"
 
 // feats (b, n, c) f32; keys (b, n) int32 sorted per sample, INVALID_KEY
 // padded; nkeys (b, m, k) int32; weights (k, c, co) f32 → out (b, m, co);
 // rb (b, m, k) int32 per-sample input rows, -1 = none (nullptr = not
-// wanted). rows: output rows per block (a multiple of 32, <= 128, whose
-// tile fits the shared memory; ops/cuda/window_key_conv.tile_rows).
+// wanted). fp, wp: the padded scratch, or both nullptr where no pad is
+// needed (ops/cuda/window_key_conv.needs_pad). rows: output rows per
+// block (a multiple of 32, <= 128, whose tile fits the shared memory at
+// C4 x Co4; ops/cuda/window_key_conv.tile_rows).
 DM_EXPORT int dm_window_key_conv_fwd(const float* feats, const int32_t* keys,
                                      const int32_t* nkeys,
-                                     const float* weights, float* out,
-                                     int32_t* rb, int b, int n, int m, int k,
-                                     int c, int co, int rows,
-                                     cudaStream_t stream) {
+                                     const float* weights, float* fp,
+                                     float* wp, float* out, int32_t* rb,
+                                     int b, int n, int m, int k, int c,
+                                     int co, int rows, cudaStream_t stream) {
+  if (b < 0 || n <= 0 || c <= 0 || co <= 0 ||
+      (fp == nullptr) != (wp == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
+  const int c4 = (c + 3) / 4 * 4;
+  const int co4 = (co + 3) / 4 * 4;
+  if (fp != nullptr) {
+    if (static_cast<int64_t>(b) * m == 0) return cudaSuccess;
+    const cudaError_t err = dm::gemm::launch_pad_operands<false>(
+        feats, weights, fp, wp, static_cast<int64_t>(b) * n, k, c, co, c4,
+        co4, stream);
+    if (err != cudaSuccess) return err;
+    feats = fp;
+    weights = wp;
+  } else if (c != c4 || co != co4 || !dm::aligned16(feats) ||
+             !dm::aligned16(weights)) {
+    return cudaErrorInvalidValue;
+  }
   return dm::gemm::launch_gather_gemm<true>(feats, keys, nkeys, weights, out,
-                                            rb, b, n, m, k, c, co, rows,
-                                            stream);
+                                            rb, b, n, m, k, c4, co4, rows,
+                                            stream, co);
 }

@@ -42,17 +42,18 @@ SIGNATURES = {
     "dm_fps": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "dm_fps_active_clusters": (_I, _I, _P),
     "dm_ball_query": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _P),
-    "dm_window_key_conv_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _I, _I, _P),
-    "dm_window_key_conv_bwd": (_P, _P, _P, _P, _P, _L, _P, _P, _P, _P, _I,
-                               _I, _I, _I, _I, _I, _I, _I, _P),
+    "dm_window_key_conv_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _I, _I, _I, _I, _P),
+    "dm_window_key_conv_bwd": (_P, _P, _P, _P, _P, _L, _P, _P, _P, _P, _P,
+                               _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "dm_hungarian_jv": (_P, _P, _P, _I, _I, _I, _P),
     "dm_key_conv_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                         _I, _I, _I, _P),
     "dm_key_conv_bwd_scatter": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "dm_gather_conv_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _I, _P),
-    "dm_onehot_gather_conv_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "dm_onehot_gather_conv_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                  _P),
     "dm_onehot_gather_direct": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "dm_onehot_take_rows": (_P, _P, _P, _I, _I, _I, _I, _P),
     "dm_slot_keys": (_P, _P, _I, _I, _I, _I, _P),

@@ -17,7 +17,8 @@ then K5's two einsums, dF = sum_k S_k W_k^T and dW_k = F^T S_k.
 The tile gathers and multiplies matched (row, tap) pairs only and sums
 in K1's order, so K7 equals K1's forward on the same rulebook bit for
 bit. It copies 16-byte vectors: where C or Co is not a multiple of 4, or
-the features or weights do not start on 16 bytes (:func:`needs_pad`),
+the features or weights do not start on 16 bytes
+(``window_key_conv.needs_pad``),
 the wrapper allocates zero-padded scratch (``key_conv.rounded_shapes``)
 that a prologue fills. On a CPU tensor the wrapper runs the twin; on a
 CUDA tensor it launches the kernel or raises, with no fallback.
@@ -30,10 +31,10 @@ import torch
 from .. import spconv
 from . import build
 from .key_conv import key_conv_grads, rounded_shapes
-from .window_key_conv import tile_rows
+from .window_key_conv import needs_pad, tile_rows
 
 # csrc/gather_conv.cu limits (any C and Co within them: the wrapper pads)
-MAX_TAPS, MAX_CIN, MAX_COUT, MAX_W = 27, 64, 128, 8192
+MAX_TAPS, MAX_CIN, MAX_COUT, MAX_W = 27, 128, 128, 16384
 
 
 def check_args(name, feats, rulebook, weights):
@@ -58,14 +59,6 @@ def check_args(name, feats, rulebook, weights):
                          f"{MAX_COUT}, C * Co <= {MAX_W}; got B={b} N={n} "
                          f"M={m} K={k} C={c} Co={co}")
     return dev, (b, n, m, k, c, co)
-
-
-def needs_pad(feats, weights):
-    """Whether K7 copies feats and weights into zero-padded scratch
-    first: the tile reads 16-byte vectors of rows of C and Co floats."""
-    c, co = feats.shape[-1], weights.shape[-1]
-    return bool(c % 4 or co % 4 or feats.data_ptr() % 16
-                or weights.data_ptr() % 16)
 
 
 def k7_tile_rows(k, c, co):

@@ -6,8 +6,10 @@ kernels ``csrc/key_conv.cu`` (replacing the TPU kernels
 
 The function is the JAX ``key_conv_batched``: the forward rounds the
 gathered features and the weights to bf16 and sums their products in
-fp32; the backward forms S[k, n] = bf16(dout[m]) at the one output row m
-whose tap k reads input row n (zero elsewhere), and takes
+fp32; the backward forms S[k, n], the fp32 sum of bf16(dout[m]) over the
+output rows m whose tap k reads input row n (from +0, in ascending
+b * M + m; zero where none, and one term on every conv, where an input
+row and a tap fix at most one output row), and takes
 dF = sum_k S_k W_k^T and dW_k = F^T S_k in fp32 from the unrounded F and
 W, outside the kernel as JAX does. Autograd through the rounded forward
 would give dW = bf16(F)^T dout instead, a different function.
@@ -23,7 +25,9 @@ the card; the wrapper allocates the rounded operands' scratch
 autograd will want a gradient, the forward kernel also writes the
 rulebook it resolved (as K1's does), and the backward kernel builds S
 from it with no key search: an inverse map, then one pass that writes
-every row of S once. The twins' backward resolves the keys again
+every row of S once, then a pass that adds the later writers of a
+repeated slot, which returns at once unless the map flagged one on the
+card. The twins' backward resolves the keys again
 (:func:`key_scatter_plain`); :func:`key_scatter_from_rulebook_plain` is
 the twin of the kernel's own signature.
 """
@@ -36,7 +40,10 @@ import torch
 from .. import spconv
 from . import build
 from .window_key_conv import (MAX_COUT, MAX_TAPS, _check_args, _check_band,
-                              tile_rows)
+                              tile_rows, vec4)
+
+# csrc/key_conv.cu kUnclaimed: the inverse map's fill, above any output row
+UNCLAIMED = 0x7F7F7F7F
 
 
 def _bf16(x):
@@ -49,24 +56,39 @@ def key_conv_forward_plain(feats, keys, nkeys, weights):
         _bf16(feats), spconv.rulebook_batched(keys, nkeys), _bf16(weights))
 
 
+def ordered_slot_sum(rows, slot, slots):
+    """(slots, C) float32: out[s] is the fp32 sum, from +0, of ``rows[j]``
+    over the j with ``slot[j] == s``, in ascending j (zero where none),
+    on any device: the j of a slot are taken rank by rank, each rank one
+    indexed add with no repeated slot."""
+    order = torch.argsort(slot, stable=True)
+    slot = slot[order]
+    pos = torch.arange(slot.numel(), device=slot.device)
+    first = torch.ones_like(slot, dtype=torch.bool)
+    first[1:] = slot[1:] != slot[:-1]
+    rank = pos - torch.cummax(torch.where(first, pos, 0), 0).values
+    out = rows.new_zeros((slots, rows.shape[-1]))
+    for r in range(int(rank.max()) + 1 if rank.numel() else 0):
+        sel = rank == r
+        out[slot[sel]] += rows[order[sel]]
+    return out
+
+
 def key_scatter_from_rulebook_plain(dout, rb, n):
     """Plain twin of the backward kernel: S (K, B * N, Co) float32 whose
-    row k * B * N + b * N + rb[b, m, k] is bf16(dout[b, m]) for each entry
-    of the rulebook (B, M, K) in [0, N), zero elsewhere. Keys are unique
-    in a sample, so each row has at most one writer and S is the JAX
-    one-hot sum; where a rulebook repeats one, the largest output row
-    b * M + m wins, as in the kernel's inverse map."""
+    row k * B * N + b * N + r is the fp32 sum, from +0, of bf16(dout[b, m])
+    over the entries rb[b, m, k] == r in [0, N), in ascending b * M + m
+    (zero where none), as in the kernel. Keys are unique in a sample, so
+    on a conv each row has at most one term; a rulebook that repeats one
+    gets JAX's one-hot sum."""
     b, m, k = rb.shape
     dev = rb.device
     ok = (rb >= 0) & (rb < n)
     slot = (torch.arange(k, device=dev) * (b * n)
             + (torch.arange(b, device=dev) * n)[:, None, None] + rb)[ok]
     row = torch.arange(b * m, device=dev).view(b, m, 1).expand(b, m, k)[ok]
-    inv = torch.full((k * b * n,), -1, dtype=torch.long,
-                     device=dev).scatter_reduce_(0, slot.long(), row, "amax")
-    rows = torch.cat([_bf16(dout).reshape(b * m, -1),
-                      dout.new_zeros(1, dout.shape[-1])])  # -1: zeros
-    return rows[inv].view(k, b * n, -1)
+    rows = _bf16(dout).reshape(b * m, -1)[row]
+    return ordered_slot_sum(rows, slot.long(), k * b * n).view(k, b * n, -1)
 
 
 def key_scatter_plain(dout, keys, nkeys):
@@ -92,8 +114,7 @@ def rounded_shapes(b, n, k, c, co):
     """The forward's float32 scratch of bf16-rounded features and weights
     (csrc/key_conv.cu): C and Co up to multiples of 4, zeros in the pads
     (the tile copies 16-byte vectors)."""
-    c4, co4 = -(-c // 4) * 4, -(-co // 4) * 4
-    return (b, n, c4), (k, c4, co4)
+    return (b, n, vec4(c)), (k, vec4(c), vec4(co))
 
 
 def key_conv_fwd(feats, keys, nkeys, weights, rows=None, rulebook=False):
@@ -130,20 +151,21 @@ def key_conv_fwd(feats, keys, nkeys, weights, rows=None, rulebook=False):
 
 def key_conv_bwd(dout, rb, n):
     """The backward kernel on the card: S (K, B * N, Co) float32 from
-    dout (B, M, Co) (Co a multiple of 4) and the rulebook (B, M, K) int32
-    that :func:`key_conv_fwd` wrote, over N input rows a sample."""
+    dout (B, M, Co) and the rulebook (B, M, K) int32 that
+    :func:`key_conv_fwd` wrote, over N input rows a sample."""
     name = "key_conv_bwd"
     dev = build.require_cuda(name, dout, rb)
     build.require_dtype(name, dout, torch.float32, "dout")
     build.require_dtype(name, rb, torch.int32, "rb")
     b, m, k = rb.shape
     co = dout.shape[-1]
-    if (dout.shape != (b, m, co) or co % 4 or n <= 0 or k > MAX_TAPS
-            or co > MAX_COUT or b * n >= 2 ** 31 or b * m >= 2 ** 31):
-        raise ValueError(f"{name}: needs dout (B, M, Co) with Co % 4 == 0 "
-                         f"and Co <= {MAX_COUT}, rb (B, M, K) with K <= "
-                         f"{MAX_TAPS}, N > 0, B * N and B * M below 2^31")
-    inv = torch.empty(k * b * n, dtype=torch.int32, device=dev)
+    if (dout.shape != (b, m, co) or n <= 0 or k > MAX_TAPS
+            or co > MAX_COUT or b * n >= 2 ** 31 or b * m >= UNCLAIMED):
+        raise ValueError(f"{name}: needs dout (B, M, Co) with Co <= "
+                         f"{MAX_COUT}, rb (B, M, K) with K <= {MAX_TAPS}, "
+                         f"N > 0, B * N below 2^31 and B * M below "
+                         f"{UNCLAIMED}")
+    inv = torch.empty(k * b * n + 1, dtype=torch.int32, device=dev)  # + flag
     s = torch.empty((k, b * n, co), dtype=torch.float32, device=dev)
     lib = build.load_library()
     err = lib.dm_key_conv_bwd_scatter(

@@ -1,6 +1,7 @@
 """Rulebook sparse conv with bf16 operands and fp32 sums (K6): the CUDA
-kernels ``csrc/gather_conv.cu`` (``dm_onehot_gather_conv_fwd``; replacing
-the TPU kernel ``detmatch_tpu/ops/pallas/onehot_gather.py:_onehot_gather_conv_fwd``)
+kernels ``csrc/onehot_gather_conv.cu`` (``dm_onehot_gather_conv_fwd``, bf16
+tensor cores on the matched pairs; replacing the TPU kernel
+``detmatch_tpu/ops/pallas/onehot_gather.py:_onehot_gather_conv_fwd``)
 and ``csrc/onehot_gather.cu`` with ``csrc/segment_sum.cu`` (replacing
 ``_scatter_all_taps`` there), their plain PyTorch twins, and one
 ``torch.autograd.Function`` whose backward is JAX's ``_vjp_bwd``, with
@@ -62,6 +63,14 @@ def onehot_gather_scatter_plain(dout, rulebook, n_total):
                              k * n_total).reshape(k, n_total, co)
 
 
+def mma_shapes(n, k, c, co):
+    """The forward's bf16 scratch (csrc/onehot_gather_conv.cu): the rounded
+    features (N, C16) and the rounded, transposed weights (K, Co8, C16),
+    C up to a multiple of 16 (the mma's k-step) and Co up to one of 8."""
+    c16, co8 = -(-c // 16) * 16, -(-co // 8) * 8
+    return (n, c16), (k, co8, c16)
+
+
 def _launch_fwd(feats, rulebook, weights):
     """The forward kernel on the card: (M, Co) float32 from feats (N, C),
     rulebook (M, K) int32 (-1 and any other entry outside [0, N) = none)
@@ -69,11 +78,17 @@ def _launch_fwd(feats, rulebook, weights):
     name = "onehot_gather_conv"
     dev, (_, n, m, k, c, co) = gather_conv.check_args(
         name, feats[None], rulebook[None], weights)
+    f_shape, w_shape = mma_shapes(n, k, c, co)
+    if n * f_shape[1] >= 2 ** 31:
+        raise ValueError(f"{name}: needs N * C16 below 2^31")
+    fb = torch.empty(f_shape, dtype=torch.bfloat16, device=dev)
+    wt = torch.empty(w_shape, dtype=torch.bfloat16, device=dev)
     out = torch.empty((m, co), dtype=torch.float32, device=dev)
     lib = build.load_library()
     err = lib.dm_onehot_gather_conv_fwd(
         build.ptr(feats), build.ptr(rulebook), build.ptr(weights),
-        build.ptr(out), n, m, k, c, co, build.stream(dev))
+        build.ptr(fb), build.ptr(wt), build.ptr(out), n, m, k, c, co,
+        build.stream(dev))
     onehot_gather_conv.launches += 1
     build.check(lib, err, name)
     return out

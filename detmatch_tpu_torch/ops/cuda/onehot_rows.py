@@ -10,7 +10,8 @@ The function is JAX's: the forward is ``bf16(x)[idx]`` as float32, zero
 where ``idx`` lies outside [0, N); the backward is
 ``dx[n] = sum_q 1[idx[q] == n] * bf16(dout[q])`` in float32, dropping
 out-of-range indices. JAX runs both as one-hot matmuls because TPU row
-gathers are slow; here the gather reads by index and the scatter is the
+gathers are slow; here the gather reads by index (16-byte vectors a lane
+where C and the data allow) and the scatter is the
 chunked segment sum that K6's backward shares (:func:`segment_sum`), with
 no float atomics, in one stated order: within a slot the pairs keep
 ascending q and are cut into consecutive chunks of at most :data:`CHUNK`;
@@ -138,8 +139,9 @@ def _launch_take(x, idx):
     dev = _check(name, x, idx)
     b, n, c = x.shape
     q = idx.shape[1]
-    if n == 0:
-        raise ValueError(f"{name}: needs N > 0")
+    if n == 0 or n * c >= 2 ** 31 or q * c >= 2 ** 31 or b > 65535:
+        raise ValueError(f"{name}: needs N > 0, N * C and Q * C below "
+                         "2^31 and B at most 65,535")
     out = torch.empty((b, q, c), dtype=torch.float32, device=dev)
     lib = build.load_library()
     err = lib.dm_onehot_take_rows(build.ptr(x), build.ptr(idx),

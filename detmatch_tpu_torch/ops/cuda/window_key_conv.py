@@ -16,6 +16,17 @@ tensor it launches the forward kernel, its backward launches the
 backward kernel, and either raises rather than fall back. fp32
 throughout. The forward sums in K7's order (``csrc/gather_conv.cu``) and
 is bit-equal to it; kernel and twin differ only in summation order.
+Where several output rows of one tap read the same input row (no conv
+does; the public op's neighbour keys may repeat), dF sums every writer,
+as JAX's does: the backward kernel flags such a slot on the card and a
+pass that is always launched, and returns at once without the flag,
+recomputes those rows.
+
+Any C and Co up to ``MAX_CIN`` and ``MAX_COUT`` (C * Co up to
+``MAX_W``): the tiles copy 16-byte vectors, so where C or Co is not a
+multiple of 4, or the data do not start on 16 bytes (:func:`needs_pad`),
+the wrappers allocate zero-padded scratch that a prologue fills, and the
+kernels store C or Co of the padded columns.
 
 Host-side plan: :func:`tile_rows` picks the rows of a block for a
 (K, Cx, Cy) tile, :func:`bwd_workspace` and :func:`dw_chunks` size the
@@ -30,9 +41,8 @@ import torch
 from .. import spconv
 from . import build
 
-# csrc/window_key_conv.cu and window_key_conv_bwd.cu limits (C and Co
-# also multiples of 4: the tiles copy 16-byte vectors)
-MAX_TAPS, MAX_CIN, MAX_COUT, MAX_W = 27, 64, 128, 8192
+# csrc/window_key_conv_bwd.cu limits (the forward's tile takes them too)
+MAX_TAPS, MAX_CIN, MAX_COUT, MAX_W = 27, 128, 128, 16384
 # matched pairs per dW partial (csrc/window_key_conv_bwd.cu kPairChunk)
 PAIR_CHUNK = 2048
 # rows of a counting chunk in the backward (its kThreads)
@@ -69,6 +79,20 @@ def tile_rows(k, cx, cy):
     raise ValueError(f"no gather-GEMM tile fits K={k} Cx={cx} Cy={cy}")
 
 
+def vec4(x):
+    """x up to a multiple of 4: the tiles' widths for x channels."""
+    return -(-x // 4) * 4
+
+
+def needs_pad(x, weights):
+    """Whether the kernels copy ``x`` (rows of C floats) and ``weights``
+    (rows of Co floats) into zero-padded scratch first: the tiles read
+    16-byte vectors of rows."""
+    c, co = x.shape[-1], weights.shape[-1]
+    return bool(c % 4 or co % 4 or x.data_ptr() % 16
+                or weights.data_ptr() % 16)
+
+
 def dw_chunks(rows):
     """dW partials per tap for ``rows`` output rows: a tap has at most one
     pair per row, in chunks of PAIR_CHUNK pairs."""
@@ -78,9 +102,11 @@ def dw_chunks(rows):
 def bwd_workspace(b, n, m, k, need_dfeats):
     """int32 entries of the backward's workspace: per-chunk pair counts
     and offsets (K x ceil(B * M / 256) each), 32 tap starts, the pair
-    lists (B * M * K) and, for dF, the inverse map (B * N * K)."""
+    lists (B * M * K) and, for dF, the inverse map (B * N * K), the
+    repeat flag (1) and the repeat pass's row marks (B * N)."""
     n_rc = math.ceil(b * m / COUNT_ROWS)
-    return 2 * k * n_rc + 32 + b * m * k + (b * n * k if need_dfeats else 0)
+    return (2 * k * n_rc + 32 + b * m * k
+            + (b * n * (k + 1) + 1 if need_dfeats else 0))
 
 
 def _check_band(b, band):
@@ -122,21 +148,10 @@ def _check_args(name, feats, keys, nkeys, weights, band):
     return dev, (b, n, m, k, c, co)
 
 
-def _check_vectors(name, c, co, *tensors):
-    """The kernels copy 16-byte vectors of the feature, gradient and
-    weight rows: C and Co multiples of 4, the data 16-byte aligned."""
-    if c % 4 or co % 4:
-        raise ValueError(f"{name}: C and Co must be multiples of 4 (the "
-                         f"kernels copy 16-byte vectors); got C={c} Co={co}")
-    if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError(f"{name}: feature, gradient and weight data must "
-                         "start on 16 bytes")
-
-
 def window_key_conv_fwd(feats, keys, nkeys, out_keys, weights, band,
                         rulebook=False):
     """The forward kernel on the card (arguments as
-    :func:`window_key_conv_batched`; C and Co multiples of 4).
+    :func:`window_key_conv_batched`).
 
     Returns:
         (out (B, M, Co) float32, rb (B, M, K) int32 or None): with
@@ -147,7 +162,6 @@ def window_key_conv_fwd(feats, keys, nkeys, out_keys, weights, band,
     name = "window_key_conv_batched"
     dev, (b, n, m, k, c, co) = _check_args(name, feats, keys, nkeys,
                                            weights, band)
-    _check_vectors(name, c, co, feats, weights)
     build.require_cuda(name, feats, out_keys)
     build.require_dtype(name, out_keys, torch.int32, "out_keys")
     if out_keys.shape != (b, m):
@@ -155,11 +169,18 @@ def window_key_conv_fwd(feats, keys, nkeys, out_keys, weights, band,
     out = torch.empty((b, m, co), dtype=torch.float32, device=dev)
     rb = (torch.empty((b, m, k), dtype=torch.int32, device=dev)
           if rulebook else None)
+    c4, co4 = vec4(c), vec4(co)
+    pad = needs_pad(feats, weights)
+    fp = (torch.empty((b, n, c4), dtype=torch.float32, device=dev)
+          if pad else None)
+    wp = (torch.empty((k, c4, co4), dtype=torch.float32, device=dev)
+          if pad else None)
     lib = build.load_library()
     err = lib.dm_window_key_conv_fwd(
         build.ptr(feats), build.ptr(keys), build.ptr(nkeys),
-        build.ptr(weights), build.ptr(out), build.ptr(rb), b, n, m, k, c,
-        co, tile_rows(k, c, co), build.stream(dev))
+        build.ptr(weights), build.ptr(fp), build.ptr(wp), build.ptr(out),
+        build.ptr(rb), b, n, m, k, c, co, tile_rows(k, c4, co4),
+        build.stream(dev))
     window_key_conv_batched.launches += 1
     build.check(lib, err, name)
     return out, rb
@@ -196,15 +217,20 @@ def window_key_conv_bwd(dout, feats, rb, weights, need_dfeats=True):
                          f"C <= {MAX_CIN}, Co <= {MAX_COUT}, "
                          f"C * Co <= {MAX_W}; got N={n} K={k} C={c} "
                          f"Co={co}")
-    _check_vectors(name, c, co, dout, feats, weights)
+    c4, co4 = vec4(c), vec4(co)
     chunks = dw_chunks(b * m)
     ws_len = bwd_workspace(b, n, m, k, need_dfeats)
     ws = torch.empty(ws_len, dtype=torch.int32, device=dev)
-    partial = torch.empty((k, chunks, c, co), dtype=torch.float32,
+    partial = torch.empty((k, chunks, c4, co4), dtype=torch.float32,
                           device=dev)
     dw = torch.empty((k, c, co), dtype=torch.float32, device=dev)
+    # zero-padded copies of feats and dout where the tiles need them
+    fp = (torch.empty((b, n, c4), dtype=torch.float32, device=dev)
+          if c % 4 or feats.data_ptr() % 16 else None)
+    dp = (torch.empty((b, m, co4), dtype=torch.float32, device=dev)
+          if co % 4 or dout.data_ptr() % 16 else None)
     if need_dfeats:
-        wt = torch.empty((k, co, c), dtype=torch.float32, device=dev)
+        wt = torch.empty((k, co4, c4), dtype=torch.float32, device=dev)
         dfeats = torch.empty((b, n, c), dtype=torch.float32, device=dev)
     else:
         wt = dfeats = None
@@ -212,8 +238,9 @@ def window_key_conv_bwd(dout, feats, rb, weights, need_dfeats=True):
     err = lib.dm_window_key_conv_bwd(
         build.ptr(feats), build.ptr(rb), build.ptr(weights),
         build.ptr(dout), build.ptr(ws), ws_len, build.ptr(partial),
-        build.ptr(wt), build.ptr(dfeats), build.ptr(dw), b, n, m, k, c, co,
-        tile_rows(k, co, c), chunks, build.stream(dev))
+        build.ptr(wt), build.ptr(fp), build.ptr(dp), build.ptr(dfeats),
+        build.ptr(dw), b, n, m, k, c, co, tile_rows(k, co4, c4), chunks,
+        build.stream(dev))
     window_key_conv_bwd.launches += 1
     build.check(lib, err, name)
     return dfeats, dw
@@ -249,9 +276,8 @@ def window_key_conv_batched(feats, keys, nkeys, out_keys, weights, band):
             INVALID_KEY padded; nkeys: (B, M, K) int32 neighbour keys of
             each output row (INVALID_KEY = no tap); out_keys: (B, M) the
             output keys (not needed by the kernels; kept for the JAX
-            signature); weights: (K, C, Co) float32 (on the card C and Co
-            multiples of 4); band: per-sample key space size, ``B * band``
-            must stay below 2^31.
+            signature); weights: (K, C, Co) float32; band: per-sample key
+            space size, ``B * band`` must stay below 2^31.
     Returns:
         (B, M, Co) float32.
     """

@@ -4,8 +4,11 @@ samples, the size limits, argument checks), the sparse conv's backward
 kernel against autograd through its twin, the JV assignment kernel (K4)
 at sizes and validity patterns the teacher phase does not give it, and
 the key-compare conv (K5) forward and backward against their twins, the
-rulebook gather-GEMM (K7) and K6's forward, K6's backward scatter and
-K8's row gather and scatter-add against theirs. K5's backward, on the
+rulebook gather-GEMM (K7) and K6's forward (bf16 tensor cores, bit-equal
+over two launches), K6's backward scatter and K8's row gather (exactly,
+at any width and alignment) and scatter-add against theirs. K1's and
+K5's backward sum repeated writers of a slot as JAX does, and K1, K5 and
+K7 take any C and Co up to 128. K5's backward, on the
 rulebook its forward writes, is held to the twin exactly and to itself
 over two launches at the 12 backbone shapes. K7 is held bit-equal to
 K1's forward, at channel counts and alignments it pads for too.
@@ -453,19 +456,19 @@ def test_wrappers_check_their_arguments(dev):
                                    device=dev), 8)
     keys = torch.zeros(1, 4, dtype=torch.int32, device=dev)
     nkeys = torch.zeros(1, 4, 27, dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError):  # C = 65 above the kernel's limit
+    with pytest.raises(ValueError):  # C = 129 above the kernel's limit
         window_key_conv.window_key_conv_batched(
-            torch.zeros(1, 4, 65, device=dev), keys, nkeys, keys,
-            torch.zeros(27, 65, 8, device=dev), 100)
-    with pytest.raises(ValueError):  # C = 6 not a multiple of 4
+            torch.zeros(1, 4, 129, device=dev), keys, nkeys, keys,
+            torch.zeros(27, 129, 8, device=dev), 100)
+    with pytest.raises(ValueError):  # Co = 129 above it
         window_key_conv.window_key_conv_batched(
-            torch.zeros(1, 4, 6, device=dev), keys, nkeys, keys,
-            torch.zeros(27, 6, 8, device=dev), 100)
-    shifted = torch.zeros(17, device=dev)[1:].view(1, 4, 4)  # 4 bytes in
-    with pytest.raises(ValueError):  # not 16-byte aligned
-        window_key_conv.window_key_conv_batched(
-            shifted, keys, nkeys, keys, torch.zeros(27, 4, 8, device=dev),
-            100)
+            torch.zeros(1, 4, 8, device=dev), keys, nkeys, keys,
+            torch.zeros(27, 8, 129, device=dev), 100)
+    # C = 6 (off the 4-wide vectors) and data 4 bytes off 16: padded
+    shifted = torch.zeros(25, device=dev)[1:].view(1, 4, 6)
+    out = window_key_conv.window_key_conv_batched(
+        shifted, keys, nkeys, keys, torch.zeros(27, 6, 8, device=dev), 100)
+    assert out.shape == (1, 4, 8) and not out.any()
     rb = torch.zeros(1, 4, 27, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):  # dout of the wrong shape
         window_key_conv.window_key_conv_bwd(
@@ -725,7 +728,8 @@ def test_key_conv_backward_at_backbone_shapes(dev, n, m, k, c, co):
     at the caps, on the rulebook the forward wrote: S exactly the twin's
     (from the keys and from that rulebook) and bit-equal over two
     launches. Random neighbour keys repeat within a tap, which no conv
-    does: kernel and twin both keep the largest output row there."""
+    does: kernel and twin both sum every writer there, from +0 in
+    ascending output row (the kernel's flagged repeat pass)."""
     feats, keys, nk, w, band = _random_key_case(dev, 8, n, m, k, c, co,
                                                 seed=m + c + 1)
     _, rb = key_conv.key_conv_fwd(feats, keys, nk, w, rulebook=True)
@@ -749,17 +753,23 @@ def _key_grads(fn, feats, keys, nk, w, dout, band, need_dfeats):
 
 def test_key_conv_wrappers_check_their_arguments(dev):
     """The size guard JAX's flattening needs (B * band < 2^31), the
-    kernels' channel limits, and the backward's Co % 4."""
+    kernels' channel limits (C, Co up to 128), and the backward's Co
+    limit; the backward takes Co off the 4-wide vectors."""
     feats, keys, nk, w, dout, band = _dense_conv_case(dev, "subm", 16, 16)
     with pytest.raises(ValueError, match="2\\^31"):
         key_conv.key_conv_batched(feats, keys, nk, w, 2 ** 30)
-    with pytest.raises(ValueError):  # C = 65 above the kernel's limit
+    with pytest.raises(ValueError):  # C = 129 above the kernel's limit
         key_conv.key_conv_batched(
-            torch.zeros(3, 2000, 65, device=dev), keys, nk,
-            torch.zeros(27, 65, 8, device=dev), band)
+            torch.zeros(3, 2000, 129, device=dev), keys, nk,
+            torch.zeros(27, 129, 8, device=dev), band)
     rb = spconv.rulebook_batched(keys, nk)
-    with pytest.raises(ValueError):  # Co not a multiple of 4
-        key_conv.key_conv_bwd(dout[..., :6].contiguous(), rb, keys.shape[1])
+    with pytest.raises(ValueError):  # Co = 129 above the kernel's limit
+        key_conv.key_conv_bwd(torch.zeros(*dout.shape[:2], 129, device=dev),
+                              rb, keys.shape[1])
+    d6 = dout[..., :6].contiguous()
+    assert torch.equal(key_conv.key_conv_bwd(d6, rb, keys.shape[1]),
+                       key_conv.key_scatter_from_rulebook_plain(
+                           d6, rb, keys.shape[1]))
     with pytest.raises(TypeError):
         key_conv.key_conv_bwd(dout.double(), rb, keys.shape[1])
     with pytest.raises(TypeError):  # the rulebook, not the keys' dtype
@@ -985,10 +995,14 @@ def test_onehot_wrappers_check_their_arguments(dev):
     """Types, shapes and the rulebook kernels' channel limits."""
     feats, keys, nk, w, dout, _ = _dense_conv_case(dev, "subm", 16, 16)
     rb = spconv.rulebook_batched(keys, nk)
-    with pytest.raises(ValueError):  # C = 65 above the kernel's limit
+    with pytest.raises(ValueError):  # C = 129 above the kernel's limit
         gather_conv.gather_conv_batched(
-            torch.zeros(3, 2000, 65, device=dev), rb,
-            torch.zeros(27, 65, 8, device=dev))
+            torch.zeros(3, 2000, 129, device=dev), rb,
+            torch.zeros(27, 129, 8, device=dev))
+    with pytest.raises(ValueError):  # the same limit for K6's forward
+        onehot_gather.onehot_gather_conv(
+            torch.zeros(2000, 129, device=dev), rb[0],
+            torch.zeros(27, 129, 8, device=dev))
     with pytest.raises(TypeError):
         gather_conv.gather_conv_batched(feats, rb.long(), w)
     with pytest.raises(ValueError):  # weights do not match K
@@ -1007,3 +1021,160 @@ def test_onehot_wrappers_check_their_arguments(dev):
     with pytest.raises(ValueError):
         onehot_rows.onehot_scatter_rows(torch.zeros(2, 8, 8, device=dev),
                                         idx, 40)
+
+
+def _repeat_case(dev, c, co, offset=0):
+    """_dense_conv_case's submanifold case with neighbour keys that repeat
+    within a tap (no conv has them; the public ops take them): tap 4 of
+    rows 2j and 2j + 1 reads voxel 2j (two writers a slot) and tap 22 of
+    every 8th row voxel 3 (one slot, 250 writers: dF's one fmaf chain
+    over a slot of 2,000 writers at Co = 64 is ~1e-5 from the twin's
+    order of sums); ``offset`` floats moves dout off 16 bytes."""
+    feats, keys, nk, w, dout, band = _dense_conv_case(dev, "subm", c, co)
+    nk = nk.clone()
+    nk[:, 0::2, 4] = keys[:, 0::2]
+    nk[:, 1::2, 4] = keys[:, 0::2]
+    nk[:, ::8, 22] = keys[:, 3:4]
+    if offset:
+        buf = torch.empty(dout.numel() + offset, device=dev)
+        buf[offset:] = dout.reshape(-1)
+        dout = buf[offset:].view(dout.shape)
+    return feats, keys, nk.contiguous(), w, dout, band
+
+
+@pytest.mark.parametrize("c,co,offset", [(16, 16, 0), (5, 3, 0),
+                                         (32, 64, 1)])
+def test_backward_kernels_sum_repeated_writers(dev, c, co, offset):
+    """K1's and K5's backward where a tap's neighbour keys repeat: the
+    claim flags the slot and the repeat pass sums every writer, as JAX
+    does. K1: dF and dW within 1e-5 of autograd through the twin, the
+    same bits over two launches; K5: S exactly the twin's (from +0 in
+    ascending output row, on the card and on the CPU) and the same bits
+    over two launches, dF and dW through the autograd Function within
+    1e-5; Co off the 4-wide vectors and dout off 16 bytes included."""
+    feats, keys, nk, w, dout, band = _repeat_case(dev, c, co, offset)
+    rb = spconv.rulebook_batched(keys, nk)
+    n = keys.shape[1]
+    _, rb_k1 = window_key_conv.window_key_conv_fwd(feats, keys, nk, keys, w,
+                                                   band, rulebook=True)
+    assert torch.equal(rb_k1, rb)
+    first = window_key_conv.window_key_conv_bwd(dout, feats, rb, w)
+    second = window_key_conv.window_key_conv_bwd(dout, feats, rb, w)
+    want = _grads(window_key_conv.window_key_conv_plain, feats, keys, nk,
+                  keys, w, dout, band, True)
+    s1 = key_conv.key_conv_bwd(dout, rb, n)
+    s2 = key_conv.key_conv_bwd(dout, rb, n)
+    s_twin = key_conv.key_scatter_from_rulebook_plain(dout, rb, n)
+    got5 = _key_grads(key_conv.key_conv_batched, feats, keys, nk, w, dout,
+                      band, True)
+    want5 = _key_grads(key_conv.key_conv_plain, feats, keys, nk, w, dout,
+                       band, True)
+    torch.cuda.synchronize()
+    for a, a2, r in zip(first, second, want):
+        assert torch.equal(a, a2)
+        _close(a, r, 1e-5)
+    assert torch.equal(s1, s2) and torch.equal(s1, s_twin)
+    assert torch.equal(s1.cpu(), key_conv.key_scatter_from_rulebook_plain(
+        dout.cpu(), rb.cpu(), n))
+    assert int((rb[0, ::8, 22] == 3).sum()) == 250  # the hot slot
+    for a, r in zip(got5, want5):
+        _close(a, r, 1e-5)
+
+
+@pytest.mark.parametrize("kind,c,co", [
+    ("subm", 3, 5), ("stride2", 5, 16), ("subm", 128, 128),
+    ("z3", 128, 128), ("stride2", 128, 64), ("subm", 1, 1)])
+def test_sparse_convs_take_any_channel_count(dev, kind, c, co):
+    """K1, K5 and K7 at C, Co off the 4-wide vectors and at 128 (UNet's
+    ``_m`` convs; the 32-row tile, ~185 KB, and dW's 64-column groups),
+    forward and gradients: within 1e-5 of their twins, K1's forward
+    bit-equal to K7 on the same rulebook and K1's backward the same bits
+    over two launches."""
+    feats, keys, nk, w, dout, band = _dense_conv_case(dev, kind, c, co)
+    rb = spconv.rulebook_batched(keys, nk)
+    out_keys = torch.zeros(nk.shape[:2], dtype=torch.int32, device=dev)
+    k1 = window_key_conv.window_key_conv_batched(feats, keys, nk, out_keys,
+                                                 w, band)
+    k7 = gather_conv.gather_conv_batched(feats, rb, w)
+    torch.cuda.synchronize()
+    assert torch.equal(k1, k7)
+    _close(k1, spconv.gather_conv_batched(feats, rb, w), 1e-5)
+    for got, want in (
+            (_grads(window_key_conv.window_key_conv_batched, feats, keys, nk,
+                    out_keys, w, dout, band, True),
+             _grads(window_key_conv.window_key_conv_plain, feats, keys, nk,
+                    out_keys, w, dout, band, True)),
+            (_key_grads(key_conv.key_conv_batched, feats, keys, nk, w, dout,
+                        band, True),
+             _key_grads(key_conv.key_conv_plain, feats, keys, nk, w, dout,
+                        band, True)),
+            (_rb_grads(gather_conv.gather_conv_batched, feats, rb, w, dout,
+                       True),
+             _rb_grads(spconv.gather_conv_batched, feats, rb, w, dout,
+                       True))):
+        for a, r in zip(got, want):
+            _close(a, r, 1e-5)
+    _close(key_conv.key_conv_batched(feats, keys, nk, w, band),
+           key_conv.key_conv_forward_plain(feats, keys, nk, w), 1e-5)
+    again = [window_key_conv.window_key_conv_bwd(dout, feats, rb, w)
+             for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*again))
+
+
+@pytest.mark.parametrize("kind,c,co,all_invalid", [
+    ("subm", 16, 16, False), ("stride2", 64, 128, False),
+    ("z3", 128, 128, False), ("subm", 3, 5, False), ("stride2", 13, 20,
+                                                     False),
+    ("subm", 32, 32, True)])
+def test_onehot_gather_forward_tensor_core_tile(dev, kind, c, co,
+                                                all_invalid):
+    """K6's forward (bf16 operands rounded once, mma.sync on the matched
+    pairs' tile): within 1e-5 of the twin's largest magnitude, the same
+    bits over two launches; C off the mma's 16-deep steps and Co off its
+    8-wide tiles (zero pads), an all-absent rulebook (zeros) and entries
+    at and beyond N (none)."""
+    feats, keys, nk, w, _, _ = _dense_conv_case(dev, kind, c, co,
+                                                all_invalid)
+    rb = spconv.rulebook_batched(keys, nk)
+    b, m, k = rb.shape
+    flat = torch.where(rb >= 0, rb + 2000 * torch.arange(
+        b, device=dev, dtype=torch.int32)[:, None, None], -1).reshape(-1, k)
+    flat[::7, k // 2] = b * 2000 + 3  # beyond N: none
+    f2 = feats.reshape(-1, c)
+    cuda_ops.reset_launch_counts()
+    out = onehot_gather.onehot_gather_conv(f2, flat, w)
+    again = onehot_gather.onehot_gather_conv(f2, flat, w)
+    ref = onehot_gather.onehot_gather_forward_plain(f2, flat, w)
+    torch.cuda.synchronize()
+    assert onehot_gather.onehot_gather_conv.launches == 2
+    assert torch.equal(out, again)
+    _close(out, ref, 1e-5)
+    if all_invalid:
+        assert not out.any()
+
+
+@pytest.mark.parametrize("c", [1, 3, 4, 64, 128, 200])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_onehot_take_rows_exact_at_any_width(dev, c, offset):
+    """K8's gather (16-byte vectors where C and the data allow, one float
+    a lane else): exactly the twin, with indices -1, N, N + 7 and far
+    beyond giving zero rows, and the table ``offset`` floats off 16
+    bytes."""
+    g = torch.Generator().manual_seed(c + offset)
+    b, n, q = 3, 700, 5000
+    x = torch.randn(b, n, c, generator=g)
+    idx = torch.randint(-1, n, (b, q), generator=g, dtype=torch.int32)
+    idx[:, ::11] = n
+    idx[:, 5::13] = n + 7
+    idx[:, 7::17] = 2 ** 30
+    buf = torch.empty(x.numel() + offset, device=dev)
+    buf[offset:] = x.reshape(-1).to(dev)
+    xd = buf[offset:].view(b, n, c)
+    idd = idx.to(dev)
+    onehot_rows.onehot_take_rows_batched.launches = 0
+    out = onehot_rows.onehot_take_rows_batched(xd, idd)
+    torch.cuda.synchronize()
+    assert onehot_rows.onehot_take_rows_batched.launches == 1
+    assert torch.equal(out, onehot_rows.take_rows_plain(xd, idd))
+    assert torch.equal(out.cpu(), onehot_rows.take_rows_plain(x, idx))
+    assert not out[idd >= n].any()

@@ -10,9 +10,10 @@ submanifold, stride-2 and (3, 1, 1) convs, and K7's twin against JAX's
 the kernel pads). Runs on the CPU: the plans are plain Python and the
 wrappers take the twins on CPU tensors.
 
-Tolerances: S exactly (one bf16-rounded row a slot, no sum); K7's twin
-within 1e-5 of the reference's largest magnitude (fp32, sums in another
-order).
+Tolerances: S exactly on convs (one bf16-rounded row a slot, no sum),
+within 1e-5 of the reference's largest magnitude where a rulebook
+repeats a slot (fp32 sums in another order); K7's twin within 1e-5 (fp32,
+sums in another order).
 """
 import functools
 import re
@@ -60,27 +61,44 @@ def _arity(name):
 
 
 def test_constants_match_the_sources():
+    """K5, K6 and K7 take C and Co up to 128 with C * Co up to 16,384,
+    as K1 does; K1's and K5's backward share the inverse map's fill."""
     gc = CSRC / "gather_conv.cu"
-    for const, value in (("kMaxTaps", gather_conv.MAX_TAPS),
-                         ("kMaxCin", gather_conv.MAX_CIN),
-                         ("kMaxCout", gather_conv.MAX_COUT),
-                         ("kMaxW", gather_conv.MAX_W)):
-        assert _constant(gc, const) == value
+    for const, value, k1 in (
+            ("kMaxTaps", gather_conv.MAX_TAPS, wkc.MAX_TAPS),
+            ("kMaxCin", gather_conv.MAX_CIN, wkc.MAX_CIN),
+            ("kMaxCout", gather_conv.MAX_COUT, wkc.MAX_COUT),
+            ("kMaxW", gather_conv.MAX_W, wkc.MAX_W)):
+        assert _constant(gc, const) == value == k1
         assert _constant(CSRC / "key_conv.cu", const) == value
+        assert _constant(CSRC / "onehot_gather_conv.cu", const) == value
+    assert (gather_conv.MAX_CIN, gather_conv.MAX_W) == (128, 16384)
+    for src in ("key_conv.cu", "window_key_conv_bwd.cu"):
+        hit = re.search(r"constexpr int32_t kUnclaimed = (0x[0-9a-f]+);",
+                        (CSRC / src).read_text())
+        assert int(hit.group(1), 16) == key_conv.UNCLAIMED, src
     assert _constant(CSRC / "gather_gemm.cuh", "kMaxSmem") == wkc.MAX_SMEM
     assert _constant(CSRC / "gather_gemm.cuh", "kMaxRows") == max(
         wkc.TILE_ROWS)
 
 
 def test_entry_points_match_their_bindings():
-    """K7 runs the tile in map mode (with the padding prologue), K6 keeps
-    its own kernel, K5's forward writes the rulebook for a backward that
-    searches no key, and every C entry point has the arity ctypes
-    declares."""
+    """K7 runs the tile in map mode (with the padding prologue), K1's
+    forward the same prologue; K6's forward is its own bf16 tensor-core
+    tile (the earlier per-block kernel is gone); K5's forward writes the
+    rulebook for a backward that searches no key, and every C entry
+    point has the arity ctypes declares."""
     gc = (CSRC / "gather_conv.cu").read_text()
     assert "launch_gather_gemm<false>(" in gc
     assert "launch_pad_operands<false>(" in gc
-    assert "template" not in gc  # one conv kernel: K6's forward
+    assert "__global__" not in gc  # K7 only: the shared tile
+    assert "launch_pad_operands<false>(" in (
+        CSRC / "window_key_conv.cu").read_text()
+    og = (CSRC / "onehot_gather_conv.cu").read_text()
+    assert "dm_onehot_gather_conv_fwd" in og
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in og
+    assert not any("gather_conv_kernel" in p.read_text()
+                   for p in CSRC.glob("*.cu*"))
     kc = (CSRC / "key_conv.cu").read_text()
     assert "launch_pad_operands<true>(" in kc
     assert re.search(r"launch_gather_gemm<true>\([^;]*\bout, rb,", kc)
@@ -231,21 +249,32 @@ def test_rulebook_scatter_twin_matches_jax(kind, co):
         dout_t, off, n), s)
 
 
-def test_rulebook_scatter_twin_keeps_the_largest_writer():
-    """A rulebook that gives a slot two writers (no conv does) keeps the
-    larger output row b * M + m, as the kernel's integer atomicMax does;
-    every other slot is its one writer's bf16 row or zero."""
-    rb = torch.tensor([[[0, -1], [2, 0], [0, 3]],
-                       [[1, 1], [1, -1], [3, 2]]], dtype=torch.int32)
-    dout = torch.randn(2, 3, 4, generator=torch.Generator().manual_seed(0))
-    s = key_conv.key_scatter_from_rulebook_plain(dout, rb, 3)
-    want = torch.zeros(2, 2 * 3, 4)
-    rows = key_conv._bf16(dout)
-    for bi, mi, ki in sorted(((rb >= 0) & (rb < 3)).nonzero().tolist()):
-        want[ki, bi * 3 + rb[bi, mi, ki]] = rows[bi, mi]  # last = largest
+def test_rulebook_scatter_twin_sums_repeated_writers():
+    """A rulebook that gives slots several writers (no conv does; the
+    public op's neighbour keys may repeat): S from the rulebook sums every
+    writer's bf16 row, from +0 in ascending b * M + m, bit for bit a loop
+    in that order (the kernel's), and equals JAX's one-hot S
+    (``_key_scatter_all_taps``) within 1e-5 of its largest magnitude,
+    here with 200 two-writer slots a sample at tap 4 and one slot of 400
+    at tap 22."""
+    keys, nkeys, _, _, dout = conv_case("subm", 4, 8)
+    nk = nkeys.clone()
+    nk[:, 0::2, 4] = keys[:, 0::2]
+    nk[:, 1::2, 4] = keys[:, 0::2]
+    nk[:, :, 22] = keys[:, 3:4]
+    b, n = keys.shape
+    rb = spconv.rulebook_batched(keys, nk)
+    d = torch.from_numpy(dout)
+    s = key_conv.key_scatter_from_rulebook_plain(d, rb, n)
+    want = torch.zeros_like(s)
+    rows = key_conv._bf16(d)
+    for bi, mi, ki in ((rb >= 0).nonzero().tolist()):  # ascending b, m
+        want[ki, bi * n + rb[bi, mi, ki]] += rows[bi, mi]
     assert torch.equal(s, want)
-    assert torch.equal(s[0, 0], rows[0, 2]) and torch.equal(s[0, 4],
-                                                             rows[1, 1])
+    assert int((want != 0).any(-1).sum()) < int((rb >= 0).sum())
+    ref = _jax_scatter(dout, keys, nk)
+    assert float(np.abs(s.numpy() - ref).max()) <= 1e-5 * float(
+        np.abs(ref).max())
 
 
 @pytest.fixture

@@ -109,9 +109,12 @@ def test_key_conv_matches_jax(kind):
 
 
 def test_key_scatter_matches_jax_and_has_one_writer_per_slot():
-    """S of the twin equals JAX's ``_key_scatter_all_taps`` exactly, and a
-    scatter-add over the same slots gives the same S: no slot has two
-    writers, which is what lets the kernel store without atomics."""
+    """On a conv's neighbour keys S of the twin equals JAX's
+    ``_key_scatter_all_taps`` exactly, and a scatter-add over the same
+    slots gives the same S: no slot has two writers, so the kernel's
+    claim never sets its repeat flag on a model's conv and its one store
+    a slot is S (repeated writers, which a conv cannot give, are summed:
+    ``test_torch_port_k5k7.py`` and ``test_torch_port_conv_repeats.py``)."""
     keys, nkeys, _, _, dout = conv_inputs("stride2")
     b, n = keys.shape
     m, k = nkeys.shape[1:]

@@ -10,6 +10,7 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
@@ -73,13 +74,14 @@ def test_pair_chunks(rows, chunks):
 @pytest.mark.parametrize("need_dfeats", [True, False])
 def test_backward_workspace(need_dfeats):
     """Counts and offsets per 256-row chunk and tap, 32 tap starts, the
-    pair lists and, for dF only, the inverse map."""
+    pair lists and, for dF only, the inverse map, its repeat flag and the
+    repeat pass's row marks."""
     b, n, m, k = 8, 16000, 24000, 27
     n_rc = math.ceil(b * m / 256)
-    want = 2 * k * n_rc + 32 + b * m * k + (b * n * k if need_dfeats
-                                            else 0)
+    want = 2 * k * n_rc + 32 + b * m * k + (b * n * k + 1 + b * n
+                                            if need_dfeats else 0)
     assert wkc.bwd_workspace(b, n, m, k, need_dfeats) == want
-    assert wkc.bwd_workspace(0, n, 0, k, need_dfeats) == 32
+    assert wkc.bwd_workspace(0, n, 0, k, need_dfeats) == 32 + need_dfeats
 
 
 def _constant(path, name):
@@ -88,10 +90,39 @@ def _constant(path, name):
 
 
 def test_constants_match_the_sources():
+    """The limits and plan constants the wrapper mirrors: K1's channel
+    limits (any C, Co up to 128, C * Co up to 16,384), the counting
+    chunk, the shared memory and tile rows."""
     bwd = CSRC / "window_key_conv_bwd.cu"
     gemm = CSRC / "gather_gemm.cuh"
+    for const, value in (("kMaxTaps", wkc.MAX_TAPS),
+                         ("kMaxCin", wkc.MAX_CIN),
+                         ("kMaxCout", wkc.MAX_COUT),
+                         ("kMaxW", wkc.MAX_W)):
+        assert _constant(bwd, const) == value, const
+    assert (wkc.MAX_CIN, wkc.MAX_COUT, wkc.MAX_W) == (128, 128, 16384)
     assert _constant(bwd, "kPairChunk") == wkc.PAIR_CHUNK
     assert _constant(bwd, "kThreads") == wkc.COUNT_ROWS
     assert _constant(gemm, "kMaxSmem") == wkc.MAX_SMEM
     assert _constant(gemm, "kMaxRows") == max(wkc.TILE_ROWS)
     assert _constant(gemm, "kMaxTaps") == wkc.MAX_TAPS
+
+
+@pytest.mark.parametrize("c,co", [(3, 5), (5, 16), (128, 128), (127, 128),
+                                  (1, 1)])
+def test_tiles_at_any_channel_count(c, co):
+    """Any C and Co within the limits: the forward's and dF's tiles at the
+    padded widths (C4, Co4) fit 227 KB (C = Co = 128 at 32 rows, ~185 KB),
+    the padded weight tap stays within the limit, and the wrapper pads
+    exactly where C or Co is off the 4-wide vectors."""
+    c4, co4 = wkc.vec4(c), wkc.vec4(co)
+    assert 0 <= c4 - c < 4 and 0 <= co4 - co < 4 and c4 % 4 == co4 % 4 == 0
+    assert c4 * co4 <= wkc.MAX_W
+    for cx, cy in ((c4, co4), (co4, c4)):
+        rows = wkc.tile_rows(27, cx, cy)
+        assert wkc.tile_smem_bytes(rows, 27, cx, cy) <= wkc.MAX_SMEM
+    if (c, co) == (128, 128):
+        assert wkc.tile_rows(27, 128, 128) == 32
+        assert 180000 < wkc.tile_smem_bytes(32, 27, 128, 128) < 190000
+    feats, w = torch.zeros(2, 7, c), torch.zeros(27, c, co)
+    assert wkc.needs_pad(feats, w) == bool(c % 4 or co % 4)

@@ -1,7 +1,8 @@
 """Time K7 (rulebook gather-GEMM) on the 12 student convs of one DetMatch
-SSL iteration's rulebook path, and K5's backward (S of the key-compare
-conv) on the 12 student convs of its key path, pass by pass; with
-``--plans``, K7 per tile height and K5's backward per design.
+SSL iteration's rulebook path, K5's backward (S of the key-compare
+conv) on the 12 student convs of its key path and K1 (forward and
+backward) on the 12 of its window path, pass by pass; with ``--plans``,
+K7 per tile height and K5's backward per design.
 
 Run from the repository root, with one card visible:
 
@@ -22,8 +23,11 @@ design).
 K5 backward (``key_conv.key_conv_bwd`` on the rulebook), and builds
 ``tools/port_probes/k5_bwd_designs.cu`` (other designs of that backward)
 with the port's nvcc flags into ``build/probes/``.
-Printed: ``chip_smoke.k7_breakdown`` and ``chip_smoke.k5_bwd_breakdown``
-(ms, device ms, passes, library ms, bound); with ``--plans`` each K7
+Printed: ``chip_smoke.k7_breakdown``, ``chip_smoke.k5_bwd_breakdown``
+(ms, device ms, passes, library ms, bound) and ``chip_smoke.k1_breakdown``
+(K1 forward and backward ms, the backward's passes; the window path's
+convs recorded with autograd on, so that each says whether it needs dF,
+as in ``chip_smoke.py``); with ``--plans`` each K7
 conv's ms at 32, 64 and 128 rows a block, bit-equal to the planned
 tile, and each K5 backward design's device ms, equal to the port's S;
 then one JSON line of the sums.
@@ -61,9 +65,9 @@ def load_chip_smoke():
 
 
 def record(cs):
-    """(K7 student argument tuples, K5 student argument tuples) of one
-    SSL iteration's rulebook and key paths, recorded through the plain
-    twins."""
+    """(K7 student argument tuples, K5 student argument tuples, K1 student
+    (argument tuple, needs dF)) of one SSL iteration's rulebook, key and
+    window paths, recorded through the plain twins."""
     from detmatch_tpu_torch.apis.build import build_ssl, build_voxelizer
     from detmatch_tpu_torch.config import Config
     from detmatch_tpu_torch.ops.cuda import PLAIN
@@ -83,7 +87,8 @@ def record(cs):
             rng, cs.SSL_B, canvas, view["ori_shape"][0].tolist())
     out = {}
     for impl, name in (("rulebook", "gather_conv_batched"),
-                       ("key", "key_conv_batched")):
+                       ("key", "key_conv_batched"),
+                       ("window", "window_key_conv_batched")):
         c = copy.deepcopy(cfg)
         det3d = c["model"]["detector_3d"]
         det3d["backbone3d_cfg"] = dict(det3d.get("backbone3d_cfg") or {},
@@ -95,12 +100,32 @@ def record(cs):
         m.ops = cs.recording(PLAIN, calls)
         with torch.no_grad():
             pseudo = teacher_step(m, batch)
+        # with autograd on for the window path: its record says which
+        # convs need dF
+        with torch.set_grad_enabled(impl == "window"):
             m.student_losses_3d_concat(batch, pseudo, 0, torch.Generator(
                 cs.DEVICE).manual_seed(cs.SEED))
-        out[impl] = [c[1] for c in calls if c[0] == name
+        out[impl] = [(c[1], c[3]) if impl == "window" else c[1]
+                     for c in calls if c[0] == name
                      and c[1][0].shape[0] == 2 * cs.SSL_B]
         del m, calls
-    return out["rulebook"], out["key"]
+    return out["rulebook"], out["key"], out["window"]
+
+
+def k1_cases(k1):
+    """(args, needs dF, dout, rb) of each K1 student conv: a seeded
+    cotangent and the plain rulebook, as ``chip_smoke.k1_breakdown``
+    takes them."""
+    from detmatch_tpu_torch.ops import spconv
+    g = torch.Generator("cuda").manual_seed(0)
+    cases = []
+    for args, need in k1:
+        feats, keys, nkeys, _, w, _ = args
+        dout = torch.randn(feats.shape[0], nkeys.shape[1], w.shape[-1],
+                           generator=g, device="cuda")
+        cases.append((args, need, dout,
+                      spconv.rulebook_batched(keys, nkeys)))
+    return cases
 
 
 def k5_cases(k5):
@@ -227,7 +252,7 @@ def main():
     from detmatch_tpu_torch.ops.cuda import gather_conv as gc
     from detmatch_tpu_torch.ops.cuda import key_conv as kc
     build.load_library()
-    k7, k5 = record(cs)
+    k7, k5, k1 = record(cs)
     rows = getattr(gc, "k7_tile_rows", None)
     res = dict(tree=str(tree), card=card)
     with torch.no_grad():
@@ -239,6 +264,7 @@ def main():
             k7_tiles(cs, k7, card)
             k5_bwd_designs(cs, cases, card)
         del cases
+        res["k1"] = cs.k1_breakdown(k1_cases(k1), card)
     print(json.dumps(res))
 
 
