@@ -38,7 +38,7 @@ Phases (any failure exits non-zero without printing the result line):
    within 1e-4), and against one whose sparse convs take the kernel's
    forward values and the twin's autograd backward (gradients within
    1e-3 of each tensor's largest magnitude; see ``train_phases``);
-   ``train_pvrcnn`` for 5 steps with all four
+   ``train_pvrcnn_batches`` for 5 steps with all four
    launch counters moving, and CUDA-event timings of the step, its split,
    the train proposal NMS and peak memory;
 8. the DetMatch teacher phase (``configs/detmatch/001/detmatch/
@@ -70,7 +70,7 @@ Phases (any failure exits non-zero without printing the result line):
    within 1e-4, gradients within 1e-3 with the kernel's forward values and
    the twin's backward; the consistency branch must pair boxes and a 2D
    pseudo-label must be kept); the four step functions with the EMA
-   teacher equal to its formula; ``train_ssl`` for 3 iterations with
+   teacher equal to its formula; ``train_ssl_batches`` for 3 iterations with
    24 / 12 / 24 / 2 / 2 launches per iteration (K1 fwd, K1 bwd, K2, K3,
    K4); the same iteration with ``conv_impl="key"`` (K5 forward within
    1e-5 of its twin on its 24 calls and bit-equal over two launches on
@@ -114,7 +114,26 @@ Phases (any failure exits non-zero without printing the result line):
    library call (``new_zeros`` + ``index_put_`` of the rounded rows)
    beside its bound; per rulebook-path student conv (K7) its matched
    pairs, tile rows, ms and device ms beside its bound;
-10. a JSON line of the kernels (per SSL iteration, with their bounds;
+10. training from a KITTI tree (``tree_phases``), the README's recipe at
+   ``split_0.py``'s widths: a synthetic tree of 12 HDL-64 frames (at
+   least 18,000 points each in the range, 375 x 1242 PNGs, labels through
+   the calibration; 2 labeled, 6 unlabeled, 4 for validation), its infos,
+   labeled gt database and split infos; the loaders of ``split_0.py``'s
+   data section at B = 4 + 4 (points (4, 18000, 4), every point slot
+   filled, images (4, 384, 1280, 3), ObjectSample's boxes added to the
+   labels; host ms a batch with 4 workers); ``train_pvrcnn`` and
+   ``train_frcnn`` for 2 steps of B = 2 with a checkpoint a step (K1
+   forward and backward, K2, K3 launched); ``train_ssl`` with
+   ``load_from`` on both (student = teacher = checkpoint before the first
+   step), 2 iterations with a checkpoint each and an evaluation at the
+   second (K1-K4 launched); ``ckpt_2`` restored equal to the live state
+   exactly, and one iteration on a pinned batch from it within 1e-4 of
+   the same iteration from the live state (each loss, each tensor's
+   largest magnitude); ms an iteration fed from the loaders against the
+   same on a synthetic batch; ``eval_ssl`` on the 4 validation frames
+   through the C matcher (built here; its failure fails the phase):
+   finite APs, ms a frame of ``eval_pvrcnn`` and ``eval_frcnn``;
+11. a JSON line of the kernels (per SSL iteration, with their bounds;
    K6 and K8 over the replayed calls, with 0 launches on the model
    path), then the result line.
 """
@@ -1051,6 +1070,7 @@ def run():
     train_phases(cfg, spec, card, stats)
     teacher_phases(card, stats)
     per = ssl_phases(card, stats)
+    tree_phases(card)
 
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=meta["source"],
@@ -1319,12 +1339,12 @@ def worst_grad(ma, mb):
 
 def train_phases(cfg, spec, card, stats):
     """Training at full width on the card; returns, per kernel, the
-    launches of the ``train_pvrcnn`` run and the per-step times and
+    launches of the ``train_pvrcnn_batches`` run and the per-step times and
     bounds at training shapes."""
     import copy
 
-    from detmatch_tpu_torch.apis.train_pretrain import (to_device_batch,
-                                                        train_pvrcnn)
+    from detmatch_tpu_torch.apis.train_pretrain import (
+        to_device_batch, train_pvrcnn_batches)
     from detmatch_tpu_torch.models.pvrcnn import pvrcnn as pvrcnn_mod
     from detmatch_tpu_torch.models.pvrcnn.backbone3d import SparseConv3d
     from detmatch_tpu_torch.models.pvrcnn.roi_head import proposal_layer
@@ -1472,7 +1492,7 @@ def train_phases(cfg, spec, card, stats):
                              "a training step")
     del res, mk, mp
 
-    phase("training: train_pvrcnn, kernel path")
+    phase("training: train_pvrcnn_batches, kernel path")
     m = copy.deepcopy(model)
     before = {n: p.detach().clone() for n, p in m.named_parameters()}
 
@@ -1482,15 +1502,16 @@ def train_phases(cfg, spec, card, stats):
 
     cuda_ops.reset_launch_counts()
     t0 = time.perf_counter()
-    m, _, hist = train_pvrcnn(m, spec, batches(), ROOT / "build" /
-                              "train_smoke", TRAIN_STEPS, log_interval=1,
-                              seed=SEED)
+    m, _, hist = train_pvrcnn_batches(m, spec, batches(), ROOT / "build" /
+                                      "train_smoke", TRAIN_STEPS,
+                                      log_interval=1, seed=SEED)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = cuda_ops.launch_counts()
     expect = dict(counts, window_key_conv_bwd=counts[
         "window_key_conv_batched"])
-    print(f"launches in train_pvrcnn ({TRAIN_STEPS} steps): {launches}; "
+    print(f"launches in train_pvrcnn_batches ({TRAIN_STEPS} steps): "
+          f"{launches}; "
           f"per step expected {expect}")
     print(f"  {TRAIN_STEPS} steps in {wall:.3f} s wall; losses "
           + " ".join(f"{h['loss']:.4f}" for h in hist))
@@ -1500,7 +1521,8 @@ def train_phases(cfg, spec, card, stats):
     print(f"  finite={finite}; parameters moved: {moved} of {len(before)}")
     if (any(launches[n] != TRAIN_STEPS * c for n, c in expect.items())
             or not finite or moved < 0.9 * len(before)):
-        raise AssertionError("train_pvrcnn: a kernel was not launched as "
+        raise AssertionError("train_pvrcnn_batches: a kernel was not "
+                             "launched as "
                              "expected, a loss is not finite, or the "
                              "parameters did not move")
     del m, before
@@ -2044,7 +2066,7 @@ def ssl_phases(card, stats):
     import copy
 
     from detmatch_tpu_torch.apis.build import build_ssl, build_voxelizer
-    from detmatch_tpu_torch.apis.train_ssl import train_ssl
+    from detmatch_tpu_torch.apis.train_ssl import train_ssl_batches
     from detmatch_tpu_torch.config import Config
     from detmatch_tpu_torch.models.pvrcnn import pvrcnn as pvrcnn_mod
     from detmatch_tpu_torch.ops import cuda as cuda_ops
@@ -2265,7 +2287,7 @@ def ssl_phases(card, stats):
                              "is not finite")
     del m, opts
 
-    phase("SSL iteration: train_ssl, kernel path")
+    phase("SSL iteration: train_ssl_batches, kernel path")
     m = copy.deepcopy(model)
     before = {k: v.clone() for k, v in m.state_dict().items()}
 
@@ -2275,12 +2297,14 @@ def ssl_phases(card, stats):
 
     cuda_ops.reset_launch_counts()
     t0 = time.perf_counter()
-    m, _, hist = train_ssl(m, spec, batches(), ROOT / "build" / "ssl_smoke",
-                           SSL_ITERS, log_interval=1, seed=SEED)
+    m, _, hist = train_ssl_batches(m, spec, batches(),
+                                   ROOT / "build" / "ssl_smoke", SSL_ITERS,
+                                   log_interval=1, seed=SEED)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = cuda_ops.launch_counts()
-    print(f"launches in train_ssl ({SSL_ITERS} iterations): {launches}; per "
+    print(f"launches in train_ssl_batches ({SSL_ITERS} iterations): "
+          f"{launches}; per "
           f"iteration expected {dict(SSL_LAUNCHES, **NO_ONEHOT)}")
     print(f"  {SSL_ITERS} iterations in {wall:.3f} s wall; losses "
           + " ".join(f"{h['loss']:.4f}" for h in hist)
@@ -2296,7 +2320,7 @@ def ssl_phases(card, stats):
             or launches["key_conv_batched"]
             or any(launches[n] for n in ONEHOT_KERNELS) or not finite
             or min(moved.values()) == 0):
-        raise AssertionError("train_ssl: a kernel was not launched as "
+        raise AssertionError("train_ssl_batches: a kernel was not launched as "
                              "expected, a loss is not finite, or the student "
                              "or teacher did not move")
     ssl_launches = launches
@@ -2844,6 +2868,372 @@ def onehot_phase(card, stats, rb_calls, row_calls, main_launches):
               + f" over {per[name]['replayed_calls']} replayed calls; "
               f"{per[name]['launches']} launches on the main path [{card}]")
     return per
+
+
+TREE_TRAIN, TREE_LAB, TREE_VAL = 8, 2, 4  # frames of the synthetic tree
+TREE_STEPS = 2
+PRETRAIN_3D = ROOT / "configs/detmatch/001/pretrain_pvrcnn/split_0.py"
+PRETRAIN_2D = ROOT / "configs/detmatch/001/pretrain_frcnn/split_0.py"
+# two one-cycle steps start at the schedule's peak (10 x base_lr): a
+# tenth of the recipe's rate keeps the two-step model's boxes finite
+PRETRAIN_3D_LR = 1e-4
+RESTORE_RTOL = 1e-4
+
+
+def write_tree(root):
+    """The synthetic KITTI tree and every file ``split_0.py`` reads:
+    ``kitti_infos_{train,val}.pkl``, the labeled and unlabeled split
+    infos and the labeled frames' gt database under ``ssl_splits/``."""
+    import pickle
+
+    from detmatch_tpu_torch.data import dbsampler, kitti
+    from detmatch_tpu_torch.utils.synth_kitti import write_kitti_tree
+
+    ids = write_kitti_tree(str(root), TREE_TRAIN + TREE_VAL, seed=SEED)
+    infos = {}
+    for name, sel in (("train", ids[:TREE_TRAIN]), ("val", ids[TREE_TRAIN:])):
+        split = root / f"{name}.txt"
+        split.write_text("\n".join(sel) + "\n")
+        infos[name] = kitti.create_infos(str(root), str(split))
+    lab, unlab = infos["train"][:TREE_LAB], infos["train"][TREE_LAB:]
+    (root / "ssl_splits").mkdir()
+    for rel, obj in (
+            ("kitti_infos_train.pkl", infos["train"]),
+            ("kitti_infos_val.pkl", infos["val"]),
+            ("ssl_splits/kitti_infos_train_proj_3d_lab_0.01_0.pkl", lab),
+            ("ssl_splits/kitti_infos_train_unlab_0.01_0.pkl", unlab)):
+        with open(root / rel, "wb") as f:
+            pickle.dump(obj, f)
+    db = dbsampler.create_gt_database(
+        str(root), lab, list(kitti.CLASS_NAMES),
+        db_info_path="ssl_splits/kitti_dbinfos_train_lab_0.01_0.pkl")
+    n_pts = [int((np.fromfile(root / "training/velodyne" / f"{i}.bin",
+                              np.float32).size) // 4) for i in ids]
+    labels = [len(i["annos"]["name"]) for i in infos["train"]]
+    print(f"  {len(ids)} frames, points a frame {min(n_pts)}-{max(n_pts)}, "
+          f"labels a train frame {labels}, gt database "
+          f"{ {k: len(v) for k, v in db.items()} }")
+    if min(n_pts) < 18000:
+        raise AssertionError("a frame has fewer points than the 18,000 cap")
+
+
+def tree_data(cfg, key, root):
+    """``cfg['data'][key]`` with the tree as its data root."""
+    import copy
+
+    def move(d):
+        d = dict(d)
+        if "data_root" in d:
+            d["ann_file"] = str(root / d["ann_file"][len(d["data_root"]):])
+            d["data_root"] = str(root)
+        if "dataset" in d:
+            d["dataset"] = move(d["dataset"])
+        return d
+
+    return move(copy.deepcopy(cfg["data"][key]))
+
+
+def loader_ms(loader, n):
+    """Host ms a batch of a warm loader: the first batch, then ``n``
+    more timed."""
+    it = iter(loader)
+    first = next(it)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        next(it)
+    return first, 1000.0 * (time.perf_counter() - t0) / n
+
+
+def tree_phases(card):
+    """Pretraining → SSL (``load_from``, checkpoints, evaluation) →
+    resume → KITTI AP from a synthetic KITTI tree at ``split_0.py``'s
+    widths (see the module docstring, item 10)."""
+    import copy
+    import tempfile
+
+    from detmatch_tpu_torch import native
+    from detmatch_tpu_torch.apis.build import (build_dataset, build_detector,
+                                               build_ssl, build_voxelizer)
+    from detmatch_tpu_torch.apis.evaluate import (eval_frcnn, eval_pvrcnn,
+                                                  eval_ssl)
+    from detmatch_tpu_torch.apis.train_pretrain import (train_frcnn,
+                                                        train_pvrcnn)
+    from detmatch_tpu_torch.apis.train_ssl import (restore_ssl_checkpoint,
+                                                   ssl_iteration,
+                                                   ssl_optimizers, train_ssl)
+    from detmatch_tpu_torch.config import Config
+    from detmatch_tpu_torch.data.collate import collate_ts, collate_view
+    from detmatch_tpu_torch.data.loader import Loader
+    from detmatch_tpu_torch.ops import cuda as cuda_ops
+    from detmatch_tpu_torch.train import checkpoints
+
+    tmp = tempfile.TemporaryDirectory(prefix="kitti_tree_")
+    root, work = Path(tmp.name) / "kitti", Path(tmp.name) / "work"
+    root.mkdir()
+    try:
+        phase("tree: a synthetic KITTI tree")
+        t0 = time.perf_counter()
+        write_tree(root)
+        print(f"  written in {time.perf_counter() - t0:.3f} s")
+
+        phase("tree: loaders at split_0's shapes")
+        cfg = Config.fromfile(str(SSL_CONFIG))
+        spec = build_voxelizer(cfg)
+        ck = cfg["data"]["collate"]
+        rng = np.random.RandomState(SEED)
+        lab = build_dataset(tree_data(cfg, "train_lab", root), rng=rng)
+        unlab = build_dataset(tree_data(cfg, "train_unlab", root), rng=rng)
+        val = build_dataset(tree_data(cfg, "val", root), rng=rng)
+        ts = lambda s: collate_ts(s, **ck)  # noqa: E731
+        view = lambda s: collate_view(s, **ck)  # noqa: E731
+        shapes = {}
+        for name, ds in (("labeled", lab), ("unlabeled", unlab)):
+            loader = Loader(ds, SSL_B, ts, seed=SEED, num_workers=4)
+            try:
+                batch, ms = loader_ms(loader, 3)
+            finally:
+                loader.stop()
+            stu = batch["stu"]
+            shapes[name] = batch
+            print(f"  {name}: {ms:.3f} host ms a batch of {SSL_B} + "
+                  f"{SSL_B} views (4 workers); points "
+                  f"{stu['points'].shape}, slots filled "
+                  f"{stu['points_valid'].sum(1).tolist()}, img "
+                  f"{stu['img'].shape} [{card}]")
+            canvas = tuple(cfg["model"]["detector_2d"]["canvas"])
+            if (stu["points"].shape != (SSL_B, ck["max_points"], 4)
+                    or not stu["points_valid"].all()
+                    or stu["img"].shape != (SSL_B, *canvas, 3)):
+                raise AssertionError(f"{name} batch off split_0's shapes")
+        n_gt = (shapes["labeled"]["stu"]["gt_boxes"][..., 7] > 0).sum(1)
+        before = [len(lab.dataset[i]["gt_bboxes_3d"]) for i in range(TREE_LAB)]
+        after = [len(lab.shared(lab.dataset[i])["gt_bboxes_3d"])
+                 for i in range(TREE_LAB)]
+        print(f"  gt boxes of the labeled frames {before} -> {after} after "
+              f"ObjectSample; a collated labeled batch {n_gt.tolist()}")
+        if sum(after) <= sum(before):
+            raise AssertionError("ObjectSample added no boxes")
+
+        phase("tree: train_pvrcnn and train_frcnn from the tree")
+        pre = {}
+        for key, path, fn in (("det3d", PRETRAIN_3D, train_pvrcnn),
+                              ("det2d", PRETRAIN_2D, train_frcnn)):
+            pcfg = Config.fromfile(str(path))
+            ds = build_dataset(tree_data(pcfg, "train", root),
+                               rng=np.random.RandomState(SEED))
+            with torch.random.fork_rng(devices=[]):
+                torch.manual_seed(SEED)
+                model = build_detector(pcfg, key="detector_" + key[3:])
+            pck = pcfg["data"]["collate"]
+            coll = lambda s: collate_view(s, **pck)  # noqa: E731
+            args = (model, spec, ds) if key == "det3d" else (model, ds)
+            kw = dict(base_lr=PRETRAIN_3D_LR) if key == "det3d" else {}
+            cuda_ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            _, _, hist = fn(*args, coll, str(work / key), TREE_STEPS,
+                            batch_size=TRAIN_B, log_interval=1,
+                            ckpt_interval=1, seed=SEED, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = cuda_ops.launch_counts()
+            pre[key] = str(work / key / "ckpt")
+            steps = sorted(int(d.name[5:]) for d in (work / key / "ckpt")
+                           .iterdir())
+            print(f"  {fn.__name__}: {TREE_STEPS} steps of B={TRAIN_B} in "
+                  f"{wall:.3f} s wall; losses "
+                  + " ".join(f"{h['loss']:.4f}" for h in hist)
+                  + f"; checkpoints {steps}; launches {launches}")
+            finite = all(np.isfinite(v) for h in hist for v in h.values())
+            need = (("window_key_conv_batched", "window_key_conv_bwd",
+                     "ball_query_batched", "fps_batched") if key == "det3d"
+                    else ())
+            if (not finite or steps != [1, 2]
+                    or not all(launches[n] > 0 for n in need)):
+                raise AssertionError(f"{fn.__name__}: a loss is not finite, "
+                                     "a checkpoint is missing or a kernel "
+                                     "was not launched")
+            del model
+
+        phase("tree: train_ssl with load_from, checkpoints, evaluation")
+        common = dict(batch_size=SSL_B, log_interval=1, seed=SEED,
+                      load_from=pre, val_dataset=val, val_collate_fn=view)
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(SEED + 1)
+            ssl = build_ssl(cfg)
+        ssl, _, _ = train_ssl(ssl, spec, lab, unlab, ts, str(work / "ssl0"),
+                              0, **common)
+        same = True
+        for key, path in pre.items():
+            want = checkpoints.restore(path, TREE_STEPS)["model"]
+            for half in (ssl.student, ssl.teacher):
+                got = half[key].state_dict()
+                same &= all(torch.equal(got[k].cpu(), v)
+                            for k, v in want.items())
+        print(f"  before the first step: student = teacher = checkpoint: "
+              f"{same}")
+        if not same:
+            raise AssertionError("load_from did not put each checkpoint "
+                                 "into both branches")
+        cuda_ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        ssl, opts, hist = train_ssl(ssl, spec, lab, unlab, ts,
+                                    str(work / "ssl"), TREE_STEPS,
+                                    ckpt_interval=1, eval_interval=TREE_STEPS,
+                                    **common)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = cuda_ops.launch_counts()
+        lines = [json.loads(x) for x in (work / "ssl" / "log.json")
+                 .read_text().splitlines()]
+        val_line = [x for x in lines if x["mode"] == "val"]
+        print(f"  {TREE_STEPS} iterations (2 checkpoints, 1 evaluation) in "
+              f"{wall:.3f} s wall; losses "
+              + " ".join(f"{h['loss']:.4f}" for h in hist)
+              + f"; launches {launches}")
+        finite = all(np.isfinite(v) for h in hist for v in h.values())
+        if (not finite or len(val_line) != 1 or not all(
+                launches[n] > 0 for n in SSL_LAUNCHES)):
+            raise AssertionError("train_ssl: a loss is not finite, the "
+                                 "evaluation did not run or a kernel of "
+                                 "K1-K4 was not launched")
+
+        phase("tree: resume from ckpt_2")
+        ckpt = str(work / "ssl" / "ckpt")
+        payload = checkpoints.restore(ckpt, checkpoints.latest_step(ckpt))
+        live_sd = ssl.state_dict()
+        exact = all(torch.equal(payload["state"][k], v.cpu())
+                    for k, v in live_sd.items())
+        for opt, key in zip(opts, ("det3d", "det2d")):
+            ref = opt.state_dict()
+            got = payload["opt_state"][key]
+            exact &= got["count"] == ref["count"] == TREE_STEPS
+            exact &= got["skipped"] == ref["skipped"]
+            for k in ("mu", "nu", "trace"):
+                exact &= all(torch.equal(a, b.cpu()) for a, b in
+                             zip(got.get(k, ()), ref.get(k, ())))
+        print(f"  restored ckpt_{checkpoints.latest_step(ckpt)} equals the "
+              f"live state exactly: {exact}")
+        if not exact:
+            raise AssertionError("the checkpoint differs from the live state")
+        del live_sd
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(SEED + 2)
+            restored = build_ssl(cfg)
+        r_opts = ssl_optimizers(restored, SSL_B)
+        r_gen = torch.Generator(DEVICE)
+        restore_ssl_checkpoint(restored, r_opts, r_gen, payload)
+        l_gen = torch.Generator(DEVICE)
+        l_gen.set_state(payload["rng"])
+        del payload
+        pinned = dict(lab=ts([lab[i] for i in range(SSL_B)]),
+                      unlab=ts([unlab[i] for i in range(SSL_B)]))
+        outs = []
+        for m, o, g in ((restored.train(), r_opts, r_gen),
+                        (ssl, opts, l_gen)):
+            outs.append(ssl_iteration(m, o, spec, pinned, TREE_STEPS, g))
+        worst_loss = max(abs(outs[0][k] - outs[1][k])
+                         / max(abs(outs[1][k]), 1e-12)
+                         for k in outs[1] if "loss" in k)
+        r_sd, l_sd = restored.state_dict(), ssl.state_dict()
+        worst_t, where = 0.0, ""
+        for k, v in l_sd.items():
+            if v.is_floating_point() and v.numel():
+                e = float((r_sd[k] - v).abs().max()
+                          / v.abs().max().clamp(min=1e-12))
+                if e > worst_t:
+                    worst_t, where = e, k
+        print(f"  one iteration on a pinned batch, restored against live: "
+              f"losses within {worst_loss:.3e}, tensors within "
+              f"{worst_t:.3e} of their largest magnitude ({where})")
+        if worst_loss > RESTORE_RTOL or worst_t > RESTORE_RTOL:
+            raise AssertionError("the restored iteration differs from the "
+                                 "live one")
+        del restored, r_opts, r_sd, l_sd
+
+        phase(f"tree: SSL iteration fed from the loaders on {card}")
+        lab_l = Loader(lab, SSL_B, ts, seed=SEED)
+        unlab_l = Loader(unlab, SSL_B, ts, seed=SEED + 1)
+        synth = ssl_batch_np(cfg, np.random.RandomState(SEED))
+        try:
+            li, ui = iter(lab_l), iter(unlab_l)
+            rows = {"loader": [], "synthetic": []}
+            for it in range(3):
+                for name in ("loader", "synthetic"):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    b = (dict(lab=next(li), unlab=next(ui))
+                         if name == "loader" else synth)
+                    ssl_iteration(ssl, opts, spec, b, TREE_STEPS + 1 + it,
+                                  l_gen)
+                    torch.cuda.synchronize()
+                    if it:
+                        rows[name].append(1000.0 * (time.perf_counter()
+                                                    - t0))
+        finally:
+            lab_l.stop()
+            unlab_l.stop()
+        for name, r in rows.items():
+            print(f"  fed from {name}: "
+                  + " / ".join(f"{x:.3f}" for x in r)
+                  + f" ms an iteration (host clock, synchronized) [{card}]")
+        del synth
+
+        phase("tree: KITTI evaluation")
+        lib_path = native.build()
+        used = dict.fromkeys(("gather_tp_scores", "sweep_thresholds",
+                              "sweep_thresholds_aos"), 0)
+        wrapped = {n: getattr(native, n) for n in used}
+
+        def counting(n):
+            def call(*a, **k):
+                used[n] += 1
+                return wrapped[n](*a, **k)
+            return call
+
+        for n in used:
+            setattr(native, n, counting(n))
+        try:
+            t0 = time.perf_counter()
+            res = eval_ssl(ssl, val, view, spec)
+            eval_s = time.perf_counter() - t0
+            per_frame = {}
+            for name, fn, args in (
+                    ("eval_pvrcnn", eval_pvrcnn,
+                     (ssl.student["det3d"], val, view, spec)),
+                    ("eval_frcnn", eval_frcnn,
+                     (ssl.student["det2d"], val, view))):
+                fn(*args)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(*args)
+                torch.cuda.synchronize()
+                per_frame[name] = (1000.0 * (time.perf_counter() - t0)
+                                   / len(val))
+        finally:
+            for n, f in wrapped.items():
+                setattr(native, n, f)
+        keys = [k for k in res if k.endswith("_moderate") and "mAP" in k
+                or k.endswith("num_dets")]
+        for k in sorted(keys):
+            print(f"  {k}: {res[k]:.4f}")
+        print(f"  eval_ssl of {len(val)} frames in {eval_s:.3f} s; C "
+              f"matcher {lib_path.name}, calls {used} (the sweeps run "
+              "only where a detection matched)")
+        for name, ms in per_frame.items():
+            print(f"  {name}: {ms:.3f} ms a frame (B=2, {len(val)} frames, "
+                  f"host clock) [{card}]")
+        shown = {k: round(v, 4) for k, v in val_line[0].items()
+                 if "mAP_3d_moderate" in k}
+        print(f"  training log's val line: {shown}")
+        if (not all(np.isfinite(v) for v in res.values())
+                or not all(f"{b}.{d}.num_dets" in res for b in ("tea", "stu")
+                           for d in ("3d", "2d"))
+                or not used["gather_tp_scores"]):
+            raise AssertionError("an AP is not finite, a branch is missing "
+                                 "or the C matcher was not used")
+        del ssl, opts
+    finally:
+        tmp.cleanup()
 
 
 def main():

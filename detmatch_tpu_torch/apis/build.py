@@ -1,18 +1,88 @@
 """Builders: a config loaded with
-``detmatch_tpu_torch.config.Config.fromfile`` → detectors, the SSL
-detector and the voxelizer (counterpart of ``detmatch_tpu/apis/build.py``;
-the port has PV-RCNN and Faster R-CNN). Every model comes in eval mode on
-``device``: the card unless the caller asks for another device (the CPU
-tests pass ``device="cpu"``); there is no fallback when no card is
-found."""
+``detmatch_tpu_torch.config.Config.fromfile`` → datasets and their
+pipelines, detectors, the SSL detector and the voxelizer (counterpart of
+``detmatch_tpu/apis/build.py``; the port has PV-RCNN and Faster R-CNN).
+Every model comes in eval mode on ``device``: the card unless the caller
+asks for another device (the CPU tests pass ``device="cpu"``); there is
+no fallback when no card is found. Datasets are host numpy."""
 from __future__ import annotations
 
+import inspect
 from typing import Any, Dict, List
 
+import numpy as np
+
+from ..data import dbsampler, kitti, pipelines
 from ..models.frcnn.faster_rcnn import FasterRCNN
 from ..models.pvrcnn.pvrcnn import PVRCNN
 from ..ops.voxelize import VoxelizerSpec
 from ..ssl.detector import SSLConfig, SSLDetector
+
+PIPELINE_REGISTRY = {
+    "LoadPoints": pipelines.LoadPoints,
+    "LoadImage": pipelines.LoadImage,
+    "Resize": pipelines.Resize,
+    "RandomFlip3D": pipelines.RandomFlip3D,
+    "GlobalRotScaleTrans": pipelines.GlobalRotScaleTrans,
+    "ObjectNoise": pipelines.ObjectNoise,
+    "PointsRangeFilter": pipelines.PointsRangeFilter,
+    "ObjectRangeFilter": pipelines.ObjectRangeFilter,
+    "PointShuffle": pipelines.PointShuffle,
+    "PhotoMetricAugs": pipelines.PhotoMetricAugs,
+    "Normalize": pipelines.Normalize,
+    "PadToCanvas": pipelines.PadToCanvas,
+    "MultiScaleFlipAug3D": pipelines.MultiScaleFlipAug3D,
+}
+
+
+def build_pipeline(cfgs: List[Dict[str, Any]], root=None, rng=None):
+    """The transforms of a pipeline config list; every random transform
+    (and the gt-database sampler of ``ObjectSample``) draws from ``rng``
+    (a ``np.random.RandomState``; numpy's global one if None)."""
+    out = []
+    rng = rng or np.random
+    for cfg in cfgs:
+        cfg = dict(cfg)
+        t = cfg.pop("type")
+        if t == "ObjectSample":
+            sampler_cfg = dict(cfg.pop("db_sampler"))
+            sampler = dbsampler.DataBaseSampler(
+                root=sampler_cfg.pop("data_root", root),
+                rng=rng, **sampler_cfg)
+            out.append(dbsampler.ObjectSample(sampler, **cfg))
+            continue
+        cls = PIPELINE_REGISTRY[t]
+        if "rng" in inspect.signature(cls.__init__).parameters:
+            cfg["rng"] = rng
+        out.append(cls(**cfg))
+    return out
+
+
+def build_dataset(cfg: Dict[str, Any], rng=None):
+    """A ``KittiDataset`` (with its pipeline) or a ``TSDataset`` of the
+    teacher-student pipelines, from a ``data`` entry of a config."""
+    cfg = dict(cfg)
+    t = cfg.pop("type", "KittiDataset")
+    if t == "TSDataset":
+        base = build_dataset(cfg.pop("dataset"), rng=rng)
+        return pipelines.TSDataset(
+            base,
+            build_pipeline(cfg.pop("shared_pipeline"), root=base.root,
+                           rng=rng),
+            build_pipeline(cfg.pop("student_pipeline"), root=base.root,
+                           rng=rng),
+            build_pipeline(cfg.pop("teacher_pipeline"), root=base.root,
+                           rng=rng))
+    if t != "KittiDataset":
+        raise NotImplementedError(f"dataset type {t!r} is not ported")
+    pipe = cfg.pop("pipeline", None)
+    root = cfg.pop("data_root")
+    ds = kitti.KittiDataset(root, cfg.pop("ann_file"), **cfg)
+    if pipe is not None:
+        ds.pipeline = pipelines.Compose(
+            build_pipeline(pipe, root=root, rng=rng))
+    return ds
+
 
 DETECTORS = {"PVRCNN": PVRCNN, "FasterRCNN": FasterRCNN}
 DEFAULT_TYPE = {"detector_3d": "PVRCNN", "detector_2d": "FasterRCNN"}

@@ -127,6 +127,33 @@ class BranchOptimizer:
         for p in self.params:
             p.grad = None
 
+    def _moments(self):
+        return (dict(mu=self.mu, nu=self.nu) if self.kind == "adamw"
+                else dict(trace=self.trace))
+
+    def state_dict(self):
+        """The optimizer's state: ``count``, ``skipped`` and its moment
+        lists (``mu``, ``nu`` for AdamW, ``trace`` for SGD), cloned."""
+        return dict(kind=self.kind, count=self.count, skipped=self.skipped,
+                    **{k: [t.clone() for t in v]
+                       for k, v in self._moments().items()})
+
+    @torch.no_grad()
+    def load_state_dict(self, state):
+        """Restore :meth:`state_dict`'s output, copying each moment into
+        this optimizer's tensors on their device."""
+        if state["kind"] != self.kind:
+            raise ValueError(f"a {state['kind']} state for a {self.kind} "
+                             "optimizer")
+        for k, dst in self._moments().items():
+            if len(state[k]) != len(dst):
+                raise ValueError(f"{k}: {len(state[k])} tensors for "
+                                 f"{len(dst)} parameters")
+            for d, s in zip(dst, state[k]):
+                d.copy_(s)
+        self.count = int(state["count"])
+        self.skipped = int(state["skipped"])
+
     @torch.no_grad()
     def step(self):
         """Apply one update from the parameters' ``.grad``; returns False

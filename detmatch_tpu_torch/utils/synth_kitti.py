@@ -10,10 +10,16 @@ and object faces). This module ray-casts the HDL-64 beam geometry
 randomly placed boxes (cars, pedestrians, walls), so the points lie on
 surfaces as in a real scan. :func:`gt_boxes` draws GT boxes as the JAX
 benchmark does, and :func:`ssl_view` a whole multimodal SSL view (the
-JAX benchmark's ``make_view``). Used by ``chip_smoke.py`` and the port's
-tests; not part of the training path.
+JAX benchmark's ``make_view``). :func:`write_kitti_tree` writes such
+scans as a KITTI tree on disk (velodyne, calib, label_2, image_2), the
+labels derived from the scene's boxes through the calibration. Used by
+``chip_smoke.py`` and the port's tests; not part of the training path.
 """
 from __future__ import annotations
+
+import os
+import struct
+import zlib
 
 import numpy as np
 
@@ -59,8 +65,18 @@ def lidar_scene(rng, num_points, point_cloud_range,
     padded / subsampled to exactly num_points, xyz + reflectance, points
     inside ``point_cloud_range``.
     """
+    return lidar_scene_objects(rng, num_points, point_cloud_range, num_cars,
+                               num_peds, num_walls, max_range)[:2]
+
+
+def lidar_scene_objects(rng, num_points, point_cloud_range,
+                        num_cars=14, num_peds=8, num_walls=3,
+                        max_range=72.0):
+    """:func:`lidar_scene` (the same ``rng`` calls in the same order),
+    also returning the scene's objects: (points, valid, boxes
+    (num_cars + num_peds, 7) float32 in the internal convention (gravity
+    center, dx, dy, dz, heading), names), the walls left out."""
     dirs = _ray_dirs()
-    R = dirs.shape[0]
 
     # ground-plane hits (z = -LIDAR_HEIGHT, rays pointing down)
     dz = dirs[:, 2]
@@ -109,7 +125,12 @@ def lidar_scene(rng, num_points, point_cloud_range,
         out = np.concatenate([pts, pad], axis=0)
         valid = np.zeros((num_points,), bool)
         valid[: pts.shape[0]] = True
-    return out.astype(np.float32), valid
+    n_obj = num_cars + num_peds
+    boxes = np.concatenate([np.array(centers[:n_obj]),
+                            np.array(sizes[:n_obj]),
+                            np.array(yaws[:n_obj])[:, None]], 1)
+    names = ["Car"] * num_cars + ["Pedestrian"] * num_peds
+    return out.astype(np.float32), valid, boxes.astype(np.float32), names
 
 
 def lidar_batch(rng, b, num_points, point_cloud_range):
@@ -179,3 +200,116 @@ def ssl_view(rng, b, p, canvas, with_gt=False):
         view["gt_labels2d"] = rng.randint(0, 3, (b, g)).astype(np.int32)
         view["gt2d_valid"] = np.arange(g)[None, :].repeat(b, 0) < n
     return view
+
+
+# A KITTI-like calibration (P2, R0_rect, Tr_velo_to_cam), the one of
+# ``tests/kitti_fixture.py``.
+CALIB = dict(
+    P2=np.array([[707.0, 0.0, 604.0, 45.75], [0.0, 707.0, 180.0, -0.345],
+                 [0.0, 0.0, 1.0, 0.005]]),
+    R0_rect=np.array([[0.9999, 0.0098, -0.0074], [-0.0099, 0.9999, -0.0043],
+                      [0.0074, 0.0044, 1.0]]),
+    Tr_velo_to_cam=np.array([[0.0075, -0.9999, -0.0006, -0.0040],
+                             [0.0148, 0.0007, -0.9998, -0.0767],
+                             [0.9998, 0.0075, 0.0148, -0.2717]]))
+CLASS_COLOR = {"Car": (220, 40, 40), "Pedestrian": (40, 220, 40)}
+
+
+def _pad44(m):
+    out = np.eye(4)
+    out[:m.shape[0], :m.shape[1]] = m
+    return out
+
+
+def _corners(boxes):
+    """(N, 7) internal boxes → (N, 8, 3) corners."""
+    signs = np.array([[sx, sy, sz] for sx in (1, -1) for sy in (1, -1)
+                      for sz in (1, -1)], np.float64) / 2.0
+    local = boxes[:, None, 3:6] * signs[None]
+    c, s = np.cos(boxes[:, 6])[:, None], np.sin(boxes[:, 6])[:, None]
+    x = local[..., 0] * c - local[..., 1] * s
+    y = local[..., 0] * s + local[..., 1] * c
+    return np.stack([x, y, local[..., 2]], -1) + boxes[:, None, :3]
+
+
+def write_png(path, img):
+    """(H, W, 3) uint8 RGB → an 8-bit PNG file (zlib, no filter)."""
+    h, w, _ = img.shape
+    raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw, 1))
+                + chunk(b"IEND", b""))
+
+
+def _labels(boxes, names, image_shape):
+    """KITTI label lines of the objects whose projection lands in the
+    image (center depth at least 1 m), and their 2D boxes."""
+    rect = _pad44(CALIB["R0_rect"]) @ _pad44(CALIB["Tr_velo_to_cam"])
+    proj = _pad44(CALIB["P2"]) @ rect
+    h_img, w_img = image_shape
+    lines, drawn = [], []
+    for box, name in zip(boxes.astype(np.float64), names):
+        corners = _corners(box[None])[0]
+        uvw = np.concatenate([corners, np.ones((8, 1))], 1) @ proj.T
+        bottom = np.append(box[:3] - [0.0, 0.0, box[5] / 2.0], 1.0) @ rect.T
+        if bottom[2] < 1.0 or (uvw[:, 2] <= 0.1).any():
+            continue
+        uv = uvw[:, :2] / uvw[:, 2:3]
+        x1, y1 = np.maximum(uv.min(0), 0.0)
+        x2, y2 = np.minimum(uv.max(0), [w_img, h_img])
+        if x2 - x1 < 2 or y2 - y1 < 2:
+            continue
+        x, y, z = bottom[:3]
+        ry = -box[6] - np.pi / 2.0
+        ry = (ry + np.pi) % (2 * np.pi) - np.pi
+        alpha = ry - np.arctan2(x, z)
+        lines.append(f"{name} 0.00 0 {alpha:.2f} {x1:.2f} {y1:.2f} "
+                     f"{x2:.2f} {y2:.2f} {box[5]:.2f} {box[4]:.2f} "
+                     f"{box[3]:.2f} {x:.2f} {y:.2f} {z:.2f} {ry:.2f}")
+        drawn.append((name, (x1, y1, x2, y2)))
+    return lines, drawn
+
+
+def write_kitti_tree(root, n_frames, seed=0, image_shape=(375, 1242),
+                     num_points=40000):
+    """Write ``n_frames`` synthetic frames under ``root/training``: the
+    HDL-64 scan of :func:`lidar_scene_objects` (every point in the KITTI
+    range, to ``velodyne/`` and ``velodyne_reduced/``), the calibration
+    :data:`CALIB`, the labels of the cars and pedestrians that project
+    into the image (through the calibration, so the dataset's loader
+    recovers the scene's boxes to the labels' two decimals), and a
+    ``image_shape`` PNG with those objects drawn in their class colors.
+    Returns the frame ids ("000000", ...)."""
+    rng = np.random.RandomState(seed)
+    sub = os.path.join(root, "training")
+    for d in ("velodyne", "velodyne_reduced", "calib", "label_2",
+              "image_2"):
+        os.makedirs(os.path.join(sub, d), exist_ok=True)
+    calib_txt = "".join(
+        f"{k}: " + " ".join(f"{v:.6g}" for v in CALIB[k].ravel()) + "\n"
+        for k in ("P2", "R0_rect", "Tr_velo_to_cam"))
+    ids = []
+    for i in range(n_frames):
+        idx = f"{i:06d}"
+        ids.append(idx)
+        pts, valid, boxes, names = lidar_scene_objects(rng, num_points,
+                                                       SSL_PCR)
+        for d in ("velodyne", "velodyne_reduced"):
+            pts[valid].tofile(os.path.join(sub, d, f"{idx}.bin"))
+        with open(os.path.join(sub, "calib", f"{idx}.txt"), "w") as f:
+            f.write(calib_txt)
+        lines, drawn = _labels(boxes, names, image_shape)
+        with open(os.path.join(sub, "label_2", f"{idx}.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+        img = rng.randint(40, 80, (*image_shape, 3)).astype(np.uint8)
+        for name, (x1, y1, x2, y2) in drawn:
+            img[int(y1):int(y2), int(x1):int(x2)] = CLASS_COLOR[name]
+        write_png(os.path.join(sub, "image_2", f"{idx}.png"), img)
+    return ids

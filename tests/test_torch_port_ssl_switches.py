@@ -1,7 +1,9 @@
 """The port's SSL iteration under every ConfThr switch setting
 (``enable_3d``, ``enable_2d``, ``fusion``, ``consistency``) against the
 JAX package's branch losses (``train_ssl`` end to end on the CPU is
-``test_torch_port_train_ssl.py``: the two files run on two workers).
+``test_torch_port_train_ssl.py``). Two of the four settings run here,
+the other two in ``test_torch_port_ssl_switches_fusion.py``, which
+imports this module's set-up: the files run on separate workers.
 
 Each setting runs the port's step functions (``train/ssl_step.py``) on
 ``configs/tests/ssl_tiny.py``: the teacher phase, then the branches the
@@ -79,8 +81,13 @@ def jax_losses_3d(setup, pseudo):
     return float(total), fx._np(logs), key
 
 
-@pytest.mark.parametrize("name", sorted(SWITCHES))
+@pytest.mark.parametrize("name", ["confthr_3d_only", "no_consistency"])
 def test_iteration_under_switches(setup, name):
+    run_switch(setup, name)
+
+
+def run_switch(setup, name):
+    """One iteration under the setting ``name`` against JAX's losses."""
     sw = SWITCHES[name]
     cfg = fx.load_cfg(**sw)
     model = fx.port_ssl(cfg, setup["state"])

@@ -28,7 +28,8 @@ from detmatch_tpu.ops import spconv as jspconv  # noqa: E402
 from detmatch_tpu.train import optim as joptim  # noqa: E402
 from detmatch_tpu.utils import tiny  # noqa: E402
 from detmatch_tpu_torch.apis.build import build_detector  # noqa: E402
-from detmatch_tpu_torch.apis.train_pretrain import train_pvrcnn  # noqa: E402
+from detmatch_tpu_torch.apis.train_pretrain import (  # noqa: E402
+    train_pvrcnn_batches)
 from detmatch_tpu_torch.models.layers import dropout, masked_bn  # noqa: E402
 from detmatch_tpu_torch.models.pvrcnn.pvrcnn import PVRCNN  # noqa: E402
 from detmatch_tpu_torch.ops import spconv, voxelize  # noqa: E402
@@ -205,8 +206,9 @@ def test_train_pvrcnn_runs_on_cpu(tmp_path):
     for i in range(2):
         m = copy.deepcopy(model)
         before = {n: p.detach().clone() for n, p in m.named_parameters()}
-        m, opt, hist = train_pvrcnn(m, spec, frames(), tmp_path / str(i),
-                                    max_iters=3, log_interval=1, seed=0)
+        m, opt, hist = train_pvrcnn_batches(m, spec, frames(),
+                                            tmp_path / str(i), max_iters=3,
+                                            log_interval=1, seed=0)
         assert isinstance(opt, torch.optim.AdamW) and m.training
         moved = [not torch.equal(p, before[n])
                  for n, p in m.named_parameters()]

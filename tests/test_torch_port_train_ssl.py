@@ -1,4 +1,5 @@
-"""``train_ssl`` end to end on the CPU, on ``configs/tests/ssl_tiny.py``
+"""``train_ssl_batches`` (``train_ssl``'s loop on collated batches) end
+to end on the CPU, on ``configs/tests/ssl_tiny.py``
 (the ConfThr switch settings against JAX are
 ``test_torch_port_ssl_switches.py``; the two files run on two workers).
 """
@@ -11,11 +12,11 @@ import torch_port_ssl_fixture as fx
 from torch_port_ssl_fixture import one_torch_thread, torch  # noqa: F401
 
 from detmatch_tpu_torch.apis.build import build_ssl, build_voxelizer
-from detmatch_tpu_torch.apis.train_ssl import train_ssl
+from detmatch_tpu_torch.apis.train_ssl import train_ssl_batches
 
 
 def test_train_ssl_runs_on_cpu(tmp_path):
-    """Two iterations of ``train_ssl`` on the tiny config: the log has
+    """Two iterations of ``train_ssl_batches`` on the tiny config: the log has
     the JAX loop's keys, every value is finite, and the student and the
     teacher both move."""
     cfg = fx.load_cfg(cost_thr=50.0)
@@ -27,9 +28,9 @@ def test_train_ssl_runs_on_cpu(tmp_path):
             yield fx.tiny.tiny_ssl_batch(rng, b=fx.B)
 
     before = {k: v.clone() for k, v in model.state_dict().items()}
-    model, opts, hist = train_ssl(model, build_voxelizer(cfg), batches(),
-                                  str(tmp_path), 2, batch_size=fx.B,
-                                  log_interval=1, warmup_iters=2)
+    model, opts, hist = train_ssl_batches(
+        model, build_voxelizer(cfg), batches(), str(tmp_path), 2,
+        batch_size=fx.B, log_interval=1, warmup_iters=2)
     lines = [json.loads(x) for x in (tmp_path / "log.json").read_text()
              .splitlines()]
     assert len(lines) == len(hist) == 2
