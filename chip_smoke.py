@@ -1,7 +1,7 @@
 """Drive the PyTorch port's PV-RCNN inference and training, the
-DetMatch teacher phase and one whole DetMatch SSL iteration on a CUDA
-card, check its CUDA kernels against their plain PyTorch twins, and time
-them.
+DetMatch teacher phase, one whole DetMatch SSL iteration (fp32 and
+bf16) and the command-line tools on a CUDA card, check its CUDA kernels
+against their plain PyTorch twins, and time them.
 
 Run from the repository root, with one card visible:
 
@@ -114,11 +114,15 @@ Phases (any failure exits non-zero without printing the result line):
    library call (``new_zeros`` + ``index_put_`` of the rounded rows)
    beside its bound; per rulebook-path student conv (K7) its matched
    pairs, tile rows, ms and device ms beside its bound;
-10. training from a KITTI tree (``tree_phases``), the README's recipe at
-   ``split_0.py``'s widths: a synthetic tree of 12 HDL-64 frames (at
-   least 18,000 points each in the range, 375 x 1242 PNGs, labels through
-   the calibration; 2 labeled, 6 unlabeled, 4 for validation), its infos,
-   labeled gt database and split infos; the loaders of ``split_0.py``'s
+10. the tree (``cli_data``): a synthetic KITTI tree of 164 HDL-64 frames
+   (64 beams x 1,000 rays, 375 x 1242 PNGs, labels through the
+   calibration) and its ``ImageSets``, then ``tools.create_data`` (infos,
+   reduced clouds cropped to the camera's view, at least 18,000 points a
+   frame; the gt database) and ``tools.create_ssl_splits --fracs 0.01
+   --num-splits 1`` (2 labeled, 158 unlabeled frames, 4 for validation;
+   the split's gt database only of labeled frames), with each call's
+   seconds; training from that tree (``tree_phases``), the README's
+   recipe at ``split_0.py``'s widths: the loaders of ``split_0.py``'s
    data section at B = 4 + 4 (points (4, 18000, 4), every point slot
    filled, images (4, 384, 1280, 3), ObjectSample's boxes added to the
    labels; host ms a batch with 4 workers); ``train_pvrcnn`` and
@@ -133,7 +137,27 @@ Phases (any failure exits non-zero without printing the result line):
    same on a synthetic batch; ``eval_ssl`` on the 4 validation frames
    through the C matcher (built here; its failure fails the phase):
    finite APs, ms a frame of ``eval_pvrcnn`` and ``eval_frcnn``;
-11. a JSON line of the kernels (per SSL iteration, with their bounds;
+11. bf16 (``bf16_phases``): ``split_0.py``'s detectors with
+   ``compute_dtype="bfloat16"`` beside the fp32 ones, the same seeded
+   weights: the student 3D loss terms on pinned teacher boxes, proposals,
+   clean 2D boxes and the consistency branch's surviving student boxes
+   within 16 bf16 steps of fp32's
+   (``tests/test_torch_port_bf16.py``), finite gradients; ms an SSL
+   iteration in turns (fp32, bf16, bf16, fp32) with its split, peak
+   memory and 24 / 12 / 24 / 2 / 2 launches an iteration; one iteration
+   of JAX's benchmark recipe (``detmatch_tpu/benchmarks.py:42-57``:
+   train NMS 1,024 -> 128, caps (16000, 12000, 9000, 9000), bf16, 16,000
+   voxels): ms and samples/s;
+12. the command line (``cli_phases``) on that tree: ``tools.train`` on
+   ``pretrain_pvrcnn/split_0.py`` and ``pretrain_frcnn/split_0.py`` (1
+   step each) and ``detmatch/split_0.py`` (2 iterations from both, then
+   ``--resume-from`` to 3, a checkpoint and the three ``vis/`` PNGs an
+   iteration), pointed at the tree through ``--cfg-options``;
+   ``tools.test`` on the SSL checkpoint in process and as ``python -m``:
+   each call's seconds and launches (K1-K3 in pretrain_3d and test, K1-K4
+   in SSL), the logs, checkpoints, PNG shapes and the eight
+   ``{tea,stu}.{3d,2d}`` AP families;
+13. a JSON line of the kernels (per SSL iteration, with their bounds;
    K6 and K8 over the replayed calls, with 0 launches on the model
    path), then the result line.
 """
@@ -142,6 +166,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -1070,7 +1095,16 @@ def run():
     train_phases(cfg, spec, card, stats)
     teacher_phases(card, stats)
     per = ssl_phases(card, stats)
-    tree_phases(card)
+    bf16_phases(card)
+    tmp = tempfile.TemporaryDirectory(prefix="kitti_tree_")
+    try:
+        base = Path(tmp.name)
+        (base / "kitti").mkdir()
+        cli_data(base / "kitti")
+        tree_phases(card, base / "kitti", base / "work")
+        cli_phases(card, base / "kitti", base / "cli")
+    finally:
+        tmp.cleanup()
 
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=meta["source"],
@@ -2870,7 +2904,14 @@ def onehot_phase(card, stats, rb_calls, row_calls, main_launches):
     return per
 
 
-TREE_TRAIN, TREE_LAB, TREE_VAL = 8, 2, 4  # frames of the synthetic tree
+# frames of the synthetic tree; the labeled split is create_ssl_splits'
+# max(1, round(160 x 0.01)) = 2 frames, so that ObjectSample, which draws
+# from the labeled frames' gt database, finds objects of another frame
+TREE_TRAIN, TREE_LAB, TREE_VAL = 160, 2, 4
+# 64 beams of 1,000 rays over the 90 degrees in front (every hit kept): the
+# camera's view, which create_data crops the clouds to, keeps more than
+# the 18,000 points a frame the loaders fill
+TREE_POINTS, TREE_AZIMUTH = 64000, 1000
 TREE_STEPS = 2
 PRETRAIN_3D = ROOT / "configs/detmatch/001/pretrain_pvrcnn/split_0.py"
 PRETRAIN_2D = ROOT / "configs/detmatch/001/pretrain_frcnn/split_0.py"
@@ -2880,41 +2921,66 @@ PRETRAIN_3D_LR = 1e-4
 RESTORE_RTOL = 1e-4
 
 
-def write_tree(root):
-    """The synthetic KITTI tree and every file ``split_0.py`` reads:
-    ``kitti_infos_{train,val}.pkl``, the labeled and unlabeled split
-    infos and the labeled frames' gt database under ``ssl_splits/``."""
+def cli_data(root):
+    """The synthetic KITTI tree and every file ``split_0.py`` reads, made
+    as a user makes them: the frames (``utils/synth_kitti.
+    write_kitti_tree``) and ``ImageSets``, then ``tools.create_data``
+    (infos, reduced clouds, the gt database) and ``tools.create_ssl_splits
+    --fracs 0.01 --num-splits 1`` (the labeled and unlabeled split infos
+    and the labeled frames' gt database under ``ssl_splits/``)."""
     import pickle
 
-    from detmatch_tpu_torch.data import dbsampler, kitti
+    from detmatch_tpu_torch.tools import create_data, create_ssl_splits
     from detmatch_tpu_torch.utils.synth_kitti import write_kitti_tree
 
-    ids = write_kitti_tree(str(root), TREE_TRAIN + TREE_VAL, seed=SEED)
-    infos = {}
+    phase("CLI: a synthetic KITTI tree, create_data, create_ssl_splits")
+    t0 = time.perf_counter()
+    ids = write_kitti_tree(str(root), TREE_TRAIN + TREE_VAL, seed=SEED,
+                           num_points=TREE_POINTS, n_azimuth=TREE_AZIMUTH)
+    (root / "ImageSets").mkdir()
     for name, sel in (("train", ids[:TREE_TRAIN]), ("val", ids[TREE_TRAIN:])):
-        split = root / f"{name}.txt"
-        split.write_text("\n".join(sel) + "\n")
-        infos[name] = kitti.create_infos(str(root), str(split))
-    lab, unlab = infos["train"][:TREE_LAB], infos["train"][TREE_LAB:]
-    (root / "ssl_splits").mkdir()
-    for rel, obj in (
-            ("kitti_infos_train.pkl", infos["train"]),
-            ("kitti_infos_val.pkl", infos["val"]),
-            ("ssl_splits/kitti_infos_train_proj_3d_lab_0.01_0.pkl", lab),
-            ("ssl_splits/kitti_infos_train_unlab_0.01_0.pkl", unlab)):
-        with open(root / rel, "wb") as f:
-            pickle.dump(obj, f)
-    db = dbsampler.create_gt_database(
-        str(root), lab, list(kitti.CLASS_NAMES),
-        db_info_path="ssl_splits/kitti_dbinfos_train_lab_0.01_0.pkl")
-    n_pts = [int((np.fromfile(root / "training/velodyne" / f"{i}.bin",
-                              np.float32).size) // 4) for i in ids]
-    labels = [len(i["annos"]["name"]) for i in infos["train"]]
-    print(f"  {len(ids)} frames, points a frame {min(n_pts)}-{max(n_pts)}, "
-          f"labels a train frame {labels}, gt database "
-          f"{ {k: len(v) for k, v in db.items()} }")
-    if min(n_pts) < 18000:
-        raise AssertionError("a frame has fewer points than the 18,000 cap")
+        (root / "ImageSets" / f"{name}.txt").write_text("\n".join(sel) + "\n")
+    print(f"  frames written in {time.perf_counter() - t0:.3f} s")
+    for tool, argv in ((create_data, ["kitti", "--root", str(root)]),
+                       (create_ssl_splits, ["--root", str(root), "--fracs",
+                                            "0.01", "--num-splits", "1"])):
+        t0 = time.perf_counter()
+        tool.main(argv)
+        print(f"  tools.{tool.__name__.rsplit('.', 1)[1]}: "
+              f"{time.perf_counter() - t0:.3f} s")
+
+    def load(rel):
+        with open(root / rel, "rb") as f:
+            return pickle.load(f)
+
+    lab = load("ssl_splits/kitti_infos_train_proj_3d_lab_0.01_0.pkl")
+    unlab = load("ssl_splits/kitti_infos_train_unlab_0.01_0.pkl")
+    db_all = load("kitti_dbinfos_train.pkl")
+    db_lab = load("ssl_splits/kitti_dbinfos_train_lab_0.01_0.pkl")
+    lab_ids = {int(i["image"]["image_idx"]) for i in lab}
+    frames_all = {int(e["image_idx"]) for v in db_all.values() for e in v}
+    frames_lab = {int(e["image_idx"]) for v in db_lab.values() for e in v}
+    n_full = [int((root / "training/velodyne" / f"{i}.bin").stat().st_size
+                  // 16) for i in ids]
+    n_red = [int((root / "training/velodyne_reduced" / f"{i}.bin").stat()
+                 .st_size // 16) for i in ids]
+    print(f"  {len(ids)} frames, points a frame {min(n_full)}-{max(n_full)}, "
+          f"in the camera's view {min(n_red)}-{max(n_red)}; split "
+          f"{len(lab)} labeled / {len(unlab)} unlabeled; gt database "
+          f"{sum(len(v) for v in db_all.values())} objects of "
+          f"{len(frames_all)} frames, split's "
+          f"{ {k: len(v) for k, v in db_lab.items()} } of frames "
+          f"{sorted(frames_lab)}")
+    if (len(lab) != TREE_LAB or len(unlab) != TREE_TRAIN - TREE_LAB
+            or len(load("kitti_infos_val.pkl")) != TREE_VAL
+            or not frames_lab or not frames_lab <= lab_ids
+            or len(frames_all) <= len(frames_lab)):
+        raise AssertionError("the split files do not hold the frame counts "
+                             "the tree implies, or the split's gt database "
+                             "holds an unlabeled frame")
+    if min(n_red) < 18000:
+        raise AssertionError("a reduced frame has fewer points than the "
+                             "18,000 cap")
 
 
 def tree_data(cfg, key, root):
@@ -2944,13 +3010,11 @@ def loader_ms(loader, n):
     return first, 1000.0 * (time.perf_counter() - t0) / n
 
 
-def tree_phases(card):
+def tree_phases(card, root, work):
     """Pretraining → SSL (``load_from``, checkpoints, evaluation) →
-    resume → KITTI AP from a synthetic KITTI tree at ``split_0.py``'s
-    widths (see the module docstring, item 10)."""
-    import copy
-    import tempfile
-
+    resume → KITTI AP from the synthetic KITTI tree at ``root`` that
+    :func:`cli_data` made, at ``split_0.py``'s widths (see the module
+    docstring, item 10); runs under ``work``."""
     from detmatch_tpu_torch import native
     from detmatch_tpu_torch.apis.build import (build_dataset, build_detector,
                                                build_ssl, build_voxelizer)
@@ -2967,273 +3031,571 @@ def tree_phases(card):
     from detmatch_tpu_torch.ops import cuda as cuda_ops
     from detmatch_tpu_torch.train import checkpoints
 
-    tmp = tempfile.TemporaryDirectory(prefix="kitti_tree_")
-    root, work = Path(tmp.name) / "kitti", Path(tmp.name) / "work"
-    root.mkdir()
-    try:
-        phase("tree: a synthetic KITTI tree")
-        t0 = time.perf_counter()
-        write_tree(root)
-        print(f"  written in {time.perf_counter() - t0:.3f} s")
+    phase("tree: loaders at split_0's shapes")
+    cfg = Config.fromfile(str(SSL_CONFIG))
+    spec = build_voxelizer(cfg)
+    ck = cfg["data"]["collate"]
+    rng = np.random.RandomState(SEED)
+    lab = build_dataset(tree_data(cfg, "train_lab", root), rng=rng)
+    unlab = build_dataset(tree_data(cfg, "train_unlab", root), rng=rng)
+    val = build_dataset(tree_data(cfg, "val", root), rng=rng)
+    ts = lambda s: collate_ts(s, **ck)  # noqa: E731
+    view = lambda s: collate_view(s, **ck)  # noqa: E731
+    shapes = {}
+    for name, ds in (("labeled", lab), ("unlabeled", unlab)):
+        loader = Loader(ds, SSL_B, ts, seed=SEED, num_workers=4)
+        try:
+            batch, ms = loader_ms(loader, 3)
+        finally:
+            loader.stop()
+        stu = batch["stu"]
+        shapes[name] = batch
+        print(f"  {name}: {ms:.3f} host ms a batch of {SSL_B} + "
+              f"{SSL_B} views (4 workers); points "
+              f"{stu['points'].shape}, slots filled "
+              f"{stu['points_valid'].sum(1).tolist()}, img "
+              f"{stu['img'].shape} [{card}]")
+        canvas = tuple(cfg["model"]["detector_2d"]["canvas"])
+        if (stu["points"].shape != (SSL_B, ck["max_points"], 4)
+                or not stu["points_valid"].all()
+                or stu["img"].shape != (SSL_B, *canvas, 3)):
+            raise AssertionError(f"{name} batch off split_0's shapes")
+    n_gt = (shapes["labeled"]["stu"]["gt_boxes"][..., 7] > 0).sum(1)
+    before = [len(lab.dataset[i]["gt_bboxes_3d"]) for i in range(TREE_LAB)]
+    after = [len(lab.shared(lab.dataset[i])["gt_bboxes_3d"])
+             for i in range(TREE_LAB)]
+    print(f"  gt boxes of the labeled frames {before} -> {after} after "
+          f"ObjectSample; a collated labeled batch {n_gt.tolist()}")
+    if sum(after) <= sum(before):
+        raise AssertionError("ObjectSample added no boxes")
 
-        phase("tree: loaders at split_0's shapes")
-        cfg = Config.fromfile(str(SSL_CONFIG))
-        spec = build_voxelizer(cfg)
-        ck = cfg["data"]["collate"]
-        rng = np.random.RandomState(SEED)
-        lab = build_dataset(tree_data(cfg, "train_lab", root), rng=rng)
-        unlab = build_dataset(tree_data(cfg, "train_unlab", root), rng=rng)
-        val = build_dataset(tree_data(cfg, "val", root), rng=rng)
-        ts = lambda s: collate_ts(s, **ck)  # noqa: E731
-        view = lambda s: collate_view(s, **ck)  # noqa: E731
-        shapes = {}
-        for name, ds in (("labeled", lab), ("unlabeled", unlab)):
-            loader = Loader(ds, SSL_B, ts, seed=SEED, num_workers=4)
-            try:
-                batch, ms = loader_ms(loader, 3)
-            finally:
-                loader.stop()
-            stu = batch["stu"]
-            shapes[name] = batch
-            print(f"  {name}: {ms:.3f} host ms a batch of {SSL_B} + "
-                  f"{SSL_B} views (4 workers); points "
-                  f"{stu['points'].shape}, slots filled "
-                  f"{stu['points_valid'].sum(1).tolist()}, img "
-                  f"{stu['img'].shape} [{card}]")
-            canvas = tuple(cfg["model"]["detector_2d"]["canvas"])
-            if (stu["points"].shape != (SSL_B, ck["max_points"], 4)
-                    or not stu["points_valid"].all()
-                    or stu["img"].shape != (SSL_B, *canvas, 3)):
-                raise AssertionError(f"{name} batch off split_0's shapes")
-        n_gt = (shapes["labeled"]["stu"]["gt_boxes"][..., 7] > 0).sum(1)
-        before = [len(lab.dataset[i]["gt_bboxes_3d"]) for i in range(TREE_LAB)]
-        after = [len(lab.shared(lab.dataset[i])["gt_bboxes_3d"])
-                 for i in range(TREE_LAB)]
-        print(f"  gt boxes of the labeled frames {before} -> {after} after "
-              f"ObjectSample; a collated labeled batch {n_gt.tolist()}")
-        if sum(after) <= sum(before):
-            raise AssertionError("ObjectSample added no boxes")
-
-        phase("tree: train_pvrcnn and train_frcnn from the tree")
-        pre = {}
-        for key, path, fn in (("det3d", PRETRAIN_3D, train_pvrcnn),
-                              ("det2d", PRETRAIN_2D, train_frcnn)):
-            pcfg = Config.fromfile(str(path))
-            ds = build_dataset(tree_data(pcfg, "train", root),
-                               rng=np.random.RandomState(SEED))
-            with torch.random.fork_rng(devices=[]):
-                torch.manual_seed(SEED)
-                model = build_detector(pcfg, key="detector_" + key[3:])
-            pck = pcfg["data"]["collate"]
-            coll = lambda s: collate_view(s, **pck)  # noqa: E731
-            args = (model, spec, ds) if key == "det3d" else (model, ds)
-            kw = dict(base_lr=PRETRAIN_3D_LR) if key == "det3d" else {}
-            cuda_ops.reset_launch_counts()
-            t0 = time.perf_counter()
-            _, _, hist = fn(*args, coll, str(work / key), TREE_STEPS,
-                            batch_size=TRAIN_B, log_interval=1,
-                            ckpt_interval=1, seed=SEED, **kw)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = cuda_ops.launch_counts()
-            pre[key] = str(work / key / "ckpt")
-            steps = sorted(int(d.name[5:]) for d in (work / key / "ckpt")
-                           .iterdir())
-            print(f"  {fn.__name__}: {TREE_STEPS} steps of B={TRAIN_B} in "
-                  f"{wall:.3f} s wall; losses "
-                  + " ".join(f"{h['loss']:.4f}" for h in hist)
-                  + f"; checkpoints {steps}; launches {launches}")
-            finite = all(np.isfinite(v) for h in hist for v in h.values())
-            need = (("window_key_conv_batched", "window_key_conv_bwd",
-                     "ball_query_batched", "fps_batched") if key == "det3d"
-                    else ())
-            if (not finite or steps != [1, 2]
-                    or not all(launches[n] > 0 for n in need)):
-                raise AssertionError(f"{fn.__name__}: a loss is not finite, "
-                                     "a checkpoint is missing or a kernel "
-                                     "was not launched")
-            del model
-
-        phase("tree: train_ssl with load_from, checkpoints, evaluation")
-        common = dict(batch_size=SSL_B, log_interval=1, seed=SEED,
-                      load_from=pre, val_dataset=val, val_collate_fn=view)
+    phase("tree: train_pvrcnn and train_frcnn from the tree")
+    pre = {}
+    for key, path, fn in (("det3d", PRETRAIN_3D, train_pvrcnn),
+                          ("det2d", PRETRAIN_2D, train_frcnn)):
+        pcfg = Config.fromfile(str(path))
+        ds = build_dataset(tree_data(pcfg, "train", root),
+                           rng=np.random.RandomState(SEED))
         with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(SEED + 1)
-            ssl = build_ssl(cfg)
-        ssl, _, _ = train_ssl(ssl, spec, lab, unlab, ts, str(work / "ssl0"),
-                              0, **common)
-        same = True
-        for key, path in pre.items():
-            want = checkpoints.restore(path, TREE_STEPS)["model"]
-            for half in (ssl.student, ssl.teacher):
-                got = half[key].state_dict()
-                same &= all(torch.equal(got[k].cpu(), v)
-                            for k, v in want.items())
-        print(f"  before the first step: student = teacher = checkpoint: "
-              f"{same}")
-        if not same:
-            raise AssertionError("load_from did not put each checkpoint "
-                                 "into both branches")
+            torch.manual_seed(SEED)
+            model = build_detector(pcfg, key="detector_" + key[3:])
+        pck = pcfg["data"]["collate"]
+        coll = lambda s: collate_view(s, **pck)  # noqa: E731
+        args = (model, spec, ds) if key == "det3d" else (model, ds)
+        kw = dict(base_lr=PRETRAIN_3D_LR) if key == "det3d" else {}
         cuda_ops.reset_launch_counts()
         t0 = time.perf_counter()
-        ssl, opts, hist = train_ssl(ssl, spec, lab, unlab, ts,
-                                    str(work / "ssl"), TREE_STEPS,
-                                    ckpt_interval=1, eval_interval=TREE_STEPS,
-                                    **common)
+        _, _, hist = fn(*args, coll, str(work / key), TREE_STEPS,
+                        batch_size=TRAIN_B, log_interval=1,
+                        ckpt_interval=1, seed=SEED, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = cuda_ops.launch_counts()
-        lines = [json.loads(x) for x in (work / "ssl" / "log.json")
-                 .read_text().splitlines()]
-        val_line = [x for x in lines if x["mode"] == "val"]
-        print(f"  {TREE_STEPS} iterations (2 checkpoints, 1 evaluation) in "
+        pre[key] = str(work / key / "ckpt")
+        steps = sorted(int(d.name[5:]) for d in (work / key / "ckpt")
+                       .iterdir())
+        print(f"  {fn.__name__}: {TREE_STEPS} steps of B={TRAIN_B} in "
               f"{wall:.3f} s wall; losses "
               + " ".join(f"{h['loss']:.4f}" for h in hist)
-              + f"; launches {launches}")
+              + f"; checkpoints {steps}; launches {launches}")
         finite = all(np.isfinite(v) for h in hist for v in h.values())
-        if (not finite or len(val_line) != 1 or not all(
-                launches[n] > 0 for n in SSL_LAUNCHES)):
-            raise AssertionError("train_ssl: a loss is not finite, the "
-                                 "evaluation did not run or a kernel of "
-                                 "K1-K4 was not launched")
+        need = (("window_key_conv_batched", "window_key_conv_bwd",
+                 "ball_query_batched", "fps_batched") if key == "det3d"
+                else ())
+        if (not finite or steps != [1, 2]
+                or not all(launches[n] > 0 for n in need)):
+            raise AssertionError(f"{fn.__name__}: a loss is not finite, "
+                                 "a checkpoint is missing or a kernel "
+                                 "was not launched")
+        del model
 
-        phase("tree: resume from ckpt_2")
-        ckpt = str(work / "ssl" / "ckpt")
-        payload = checkpoints.restore(ckpt, checkpoints.latest_step(ckpt))
-        live_sd = ssl.state_dict()
-        exact = all(torch.equal(payload["state"][k], v.cpu())
-                    for k, v in live_sd.items())
-        for opt, key in zip(opts, ("det3d", "det2d")):
-            ref = opt.state_dict()
-            got = payload["opt_state"][key]
-            exact &= got["count"] == ref["count"] == TREE_STEPS
-            exact &= got["skipped"] == ref["skipped"]
-            for k in ("mu", "nu", "trace"):
-                exact &= all(torch.equal(a, b.cpu()) for a, b in
-                             zip(got.get(k, ()), ref.get(k, ())))
-        print(f"  restored ckpt_{checkpoints.latest_step(ckpt)} equals the "
-              f"live state exactly: {exact}")
-        if not exact:
-            raise AssertionError("the checkpoint differs from the live state")
-        del live_sd
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(SEED + 2)
-            restored = build_ssl(cfg)
-        r_opts = ssl_optimizers(restored, SSL_B)
-        r_gen = torch.Generator(DEVICE)
-        restore_ssl_checkpoint(restored, r_opts, r_gen, payload)
-        l_gen = torch.Generator(DEVICE)
-        l_gen.set_state(payload["rng"])
-        del payload
-        pinned = dict(lab=ts([lab[i] for i in range(SSL_B)]),
-                      unlab=ts([unlab[i] for i in range(SSL_B)]))
-        outs = []
-        for m, o, g in ((restored.train(), r_opts, r_gen),
-                        (ssl, opts, l_gen)):
-            outs.append(ssl_iteration(m, o, spec, pinned, TREE_STEPS, g))
-        worst_loss = max(abs(outs[0][k] - outs[1][k])
-                         / max(abs(outs[1][k]), 1e-12)
-                         for k in outs[1] if "loss" in k)
-        r_sd, l_sd = restored.state_dict(), ssl.state_dict()
-        worst_t, where = 0.0, ""
-        for k, v in l_sd.items():
-            if v.is_floating_point() and v.numel():
-                e = float((r_sd[k] - v).abs().max()
-                          / v.abs().max().clamp(min=1e-12))
-                if e > worst_t:
-                    worst_t, where = e, k
-        print(f"  one iteration on a pinned batch, restored against live: "
-              f"losses within {worst_loss:.3e}, tensors within "
-              f"{worst_t:.3e} of their largest magnitude ({where})")
-        if worst_loss > RESTORE_RTOL or worst_t > RESTORE_RTOL:
-            raise AssertionError("the restored iteration differs from the "
-                                 "live one")
-        del restored, r_opts, r_sd, l_sd
+    phase("tree: train_ssl with load_from, checkpoints, evaluation")
+    common = dict(batch_size=SSL_B, log_interval=1, seed=SEED,
+                  load_from=pre, val_dataset=val, val_collate_fn=view)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED + 1)
+        ssl = build_ssl(cfg)
+    ssl, _, _ = train_ssl(ssl, spec, lab, unlab, ts, str(work / "ssl0"),
+                          0, **common)
+    same = True
+    for key, path in pre.items():
+        want = checkpoints.restore(path, TREE_STEPS)["model"]
+        for half in (ssl.student, ssl.teacher):
+            got = half[key].state_dict()
+            same &= all(torch.equal(got[k].cpu(), v)
+                        for k, v in want.items())
+    print(f"  before the first step: student = teacher = checkpoint: "
+          f"{same}")
+    if not same:
+        raise AssertionError("load_from did not put each checkpoint "
+                             "into both branches")
+    cuda_ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    ssl, opts, hist = train_ssl(ssl, spec, lab, unlab, ts,
+                                str(work / "ssl"), TREE_STEPS,
+                                ckpt_interval=1, eval_interval=TREE_STEPS,
+                                **common)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = cuda_ops.launch_counts()
+    lines = [json.loads(x) for x in (work / "ssl" / "log.json")
+             .read_text().splitlines()]
+    val_line = [x for x in lines if x["mode"] == "val"]
+    print(f"  {TREE_STEPS} iterations (2 checkpoints, 1 evaluation) in "
+          f"{wall:.3f} s wall; losses "
+          + " ".join(f"{h['loss']:.4f}" for h in hist)
+          + f"; launches {launches}")
+    finite = all(np.isfinite(v) for h in hist for v in h.values())
+    if (not finite or len(val_line) != 1 or not all(
+            launches[n] > 0 for n in SSL_LAUNCHES)):
+        raise AssertionError("train_ssl: a loss is not finite, the "
+                             "evaluation did not run or a kernel of "
+                             "K1-K4 was not launched")
 
-        phase(f"tree: SSL iteration fed from the loaders on {card}")
-        lab_l = Loader(lab, SSL_B, ts, seed=SEED)
-        unlab_l = Loader(unlab, SSL_B, ts, seed=SEED + 1)
-        synth = ssl_batch_np(cfg, np.random.RandomState(SEED))
-        try:
-            li, ui = iter(lab_l), iter(unlab_l)
-            rows = {"loader": [], "synthetic": []}
-            for it in range(3):
-                for name in ("loader", "synthetic"):
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    b = (dict(lab=next(li), unlab=next(ui))
-                         if name == "loader" else synth)
-                    ssl_iteration(ssl, opts, spec, b, TREE_STEPS + 1 + it,
-                                  l_gen)
-                    torch.cuda.synchronize()
-                    if it:
-                        rows[name].append(1000.0 * (time.perf_counter()
-                                                    - t0))
-        finally:
-            lab_l.stop()
-            unlab_l.stop()
-        for name, r in rows.items():
-            print(f"  fed from {name}: "
-                  + " / ".join(f"{x:.3f}" for x in r)
-                  + f" ms an iteration (host clock, synchronized) [{card}]")
-        del synth
+    phase("tree: resume from ckpt_2")
+    ckpt = str(work / "ssl" / "ckpt")
+    payload = checkpoints.restore(ckpt, checkpoints.latest_step(ckpt))
+    live_sd = ssl.state_dict()
+    exact = all(torch.equal(payload["state"][k], v.cpu())
+                for k, v in live_sd.items())
+    for opt, key in zip(opts, ("det3d", "det2d")):
+        ref = opt.state_dict()
+        got = payload["opt_state"][key]
+        exact &= got["count"] == ref["count"] == TREE_STEPS
+        exact &= got["skipped"] == ref["skipped"]
+        for k in ("mu", "nu", "trace"):
+            exact &= all(torch.equal(a, b.cpu()) for a, b in
+                         zip(got.get(k, ()), ref.get(k, ())))
+    print(f"  restored ckpt_{checkpoints.latest_step(ckpt)} equals the "
+          f"live state exactly: {exact}")
+    if not exact:
+        raise AssertionError("the checkpoint differs from the live state")
+    del live_sd
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED + 2)
+        restored = build_ssl(cfg)
+    r_opts = ssl_optimizers(restored, SSL_B)
+    r_gen = torch.Generator(DEVICE)
+    restore_ssl_checkpoint(restored, r_opts, r_gen, payload)
+    l_gen = torch.Generator(DEVICE)
+    l_gen.set_state(payload["rng"])
+    del payload
+    pinned = dict(lab=ts([lab[i] for i in range(SSL_B)]),
+                  unlab=ts([unlab[i] for i in range(SSL_B)]))
+    outs = []
+    for m, o, g in ((restored.train(), r_opts, r_gen),
+                    (ssl, opts, l_gen)):
+        outs.append(ssl_iteration(m, o, spec, pinned, TREE_STEPS, g))
+    worst_loss = max(abs(outs[0][k] - outs[1][k])
+                     / max(abs(outs[1][k]), 1e-12)
+                     for k in outs[1] if "loss" in k)
+    r_sd, l_sd = restored.state_dict(), ssl.state_dict()
+    worst_t, where = 0.0, ""
+    for k, v in l_sd.items():
+        if v.is_floating_point() and v.numel():
+            e = float((r_sd[k] - v).abs().max()
+                      / v.abs().max().clamp(min=1e-12))
+            if e > worst_t:
+                worst_t, where = e, k
+    print(f"  one iteration on a pinned batch, restored against live: "
+          f"losses within {worst_loss:.3e}, tensors within "
+          f"{worst_t:.3e} of their largest magnitude ({where})")
+    if worst_loss > RESTORE_RTOL or worst_t > RESTORE_RTOL:
+        raise AssertionError("the restored iteration differs from the "
+                             "live one")
+    del restored, r_opts, r_sd, l_sd
 
-        phase("tree: KITTI evaluation")
-        lib_path = native.build()
-        used = dict.fromkeys(("gather_tp_scores", "sweep_thresholds",
-                              "sweep_thresholds_aos"), 0)
-        wrapped = {n: getattr(native, n) for n in used}
-
-        def counting(n):
-            def call(*a, **k):
-                used[n] += 1
-                return wrapped[n](*a, **k)
-            return call
-
-        for n in used:
-            setattr(native, n, counting(n))
-        try:
-            t0 = time.perf_counter()
-            res = eval_ssl(ssl, val, view, spec)
-            eval_s = time.perf_counter() - t0
-            per_frame = {}
-            for name, fn, args in (
-                    ("eval_pvrcnn", eval_pvrcnn,
-                     (ssl.student["det3d"], val, view, spec)),
-                    ("eval_frcnn", eval_frcnn,
-                     (ssl.student["det2d"], val, view))):
-                fn(*args)
+    phase(f"tree: SSL iteration fed from the loaders on {card}")
+    lab_l = Loader(lab, SSL_B, ts, seed=SEED)
+    unlab_l = Loader(unlab, SSL_B, ts, seed=SEED + 1)
+    synth = ssl_batch_np(cfg, np.random.RandomState(SEED))
+    try:
+        li, ui = iter(lab_l), iter(unlab_l)
+        rows = {"loader": [], "synthetic": []}
+        for it in range(3):
+            for name in ("loader", "synthetic"):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                fn(*args)
+                b = (dict(lab=next(li), unlab=next(ui))
+                     if name == "loader" else synth)
+                ssl_iteration(ssl, opts, spec, b, TREE_STEPS + 1 + it,
+                              l_gen)
                 torch.cuda.synchronize()
-                per_frame[name] = (1000.0 * (time.perf_counter() - t0)
-                                   / len(val))
-        finally:
-            for n, f in wrapped.items():
-                setattr(native, n, f)
-        keys = [k for k in res if k.endswith("_moderate") and "mAP" in k
-                or k.endswith("num_dets")]
-        for k in sorted(keys):
-            print(f"  {k}: {res[k]:.4f}")
-        print(f"  eval_ssl of {len(val)} frames in {eval_s:.3f} s; C "
-              f"matcher {lib_path.name}, calls {used} (the sweeps run "
-              "only where a detection matched)")
-        for name, ms in per_frame.items():
-            print(f"  {name}: {ms:.3f} ms a frame (B=2, {len(val)} frames, "
-                  f"host clock) [{card}]")
-        shown = {k: round(v, 4) for k, v in val_line[0].items()
-                 if "mAP_3d_moderate" in k}
-        print(f"  training log's val line: {shown}")
-        if (not all(np.isfinite(v) for v in res.values())
-                or not all(f"{b}.{d}.num_dets" in res for b in ("tea", "stu")
-                           for d in ("3d", "2d"))
-                or not used["gather_tp_scores"]):
-            raise AssertionError("an AP is not finite, a branch is missing "
-                                 "or the C matcher was not used")
-        del ssl, opts
+                if it:
+                    rows[name].append(1000.0 * (time.perf_counter()
+                                                - t0))
     finally:
-        tmp.cleanup()
+        lab_l.stop()
+        unlab_l.stop()
+    for name, r in rows.items():
+        print(f"  fed from {name}: "
+              + " / ".join(f"{x:.3f}" for x in r)
+              + f" ms an iteration (host clock, synchronized) [{card}]")
+    del synth
+
+    phase("tree: KITTI evaluation")
+    lib_path = native.build()
+    used = dict.fromkeys(("gather_tp_scores", "sweep_thresholds",
+                          "sweep_thresholds_aos"), 0)
+    wrapped = {n: getattr(native, n) for n in used}
+
+    def counting(n):
+        def call(*a, **k):
+            used[n] += 1
+            return wrapped[n](*a, **k)
+        return call
+
+    for n in used:
+        setattr(native, n, counting(n))
+    try:
+        t0 = time.perf_counter()
+        res = eval_ssl(ssl, val, view, spec)
+        eval_s = time.perf_counter() - t0
+        per_frame = {}
+        for name, fn, args in (
+                ("eval_pvrcnn", eval_pvrcnn,
+                 (ssl.student["det3d"], val, view, spec)),
+                ("eval_frcnn", eval_frcnn,
+                 (ssl.student["det2d"], val, view))):
+            fn(*args)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(*args)
+            torch.cuda.synchronize()
+            per_frame[name] = (1000.0 * (time.perf_counter() - t0)
+                               / len(val))
+    finally:
+        for n, f in wrapped.items():
+            setattr(native, n, f)
+    keys = [k for k in res if k.endswith("_moderate") and "mAP" in k
+            or k.endswith("num_dets")]
+    for k in sorted(keys):
+        print(f"  {k}: {res[k]:.4f}")
+    print(f"  eval_ssl of {len(val)} frames in {eval_s:.3f} s; C "
+          f"matcher {lib_path.name}, calls {used} (the sweeps run "
+          "only where a detection matched)")
+    for name, ms in per_frame.items():
+        print(f"  {name}: {ms:.3f} ms a frame (B=2, {len(val)} frames, "
+              f"host clock) [{card}]")
+    shown = {k: round(v, 4) for k, v in val_line[0].items()
+             if "mAP_3d_moderate" in k}
+    print(f"  training log's val line: {shown}")
+    if (not all(np.isfinite(v) for v in res.values())
+            or not all(f"{b}.{d}.num_dets" in res for b in ("tea", "stu")
+                       for d in ("3d", "2d"))
+            or not used["gather_tp_scores"]):
+        raise AssertionError("an AP is not finite, a branch is missing "
+                             "or the C matcher was not used")
+    del ssl, opts
+
+
+# the bfloat16 phase: bfloat16 loss terms against float32 on the same
+# pins (tests/test_torch_port_bf16.py:LOSS_BF16_RTOL, 16 bfloat16 steps)
+BF16_LOSS_RTOL = 16 * 2.0 ** -8
+# JAX's benchmark recipe (detmatch_tpu/benchmarks.py:42-57, production_cfg)
+RECIPE_3D = dict(backbone_caps=(16000, 12000, 9000, 9000),
+                 train_nms=dict(nms_pre=1024, nms_post=128, nms_thresh=0.8),
+                 test_nms=dict(nms_pre=1024, nms_post=100, nms_thresh=0.7),
+                 compute_dtype="bfloat16")
+RECIPE_SAMPLES = 2 * SSL_B  # labeled + unlabeled frames an iteration
+
+
+def bf16_phases(card):
+    """``compute_dtype="bfloat16"`` on both detectors of ``split_0.py`` at
+    full width, beside the float32 models with the same seeded weights
+    (see the module docstring, item 11)."""
+    import copy
+
+    from detmatch_tpu_torch.apis.build import build_voxelizer
+    from detmatch_tpu_torch.apis.train_ssl import ssl_iteration, ssl_optimizers
+    from detmatch_tpu_torch.config import Config
+    from detmatch_tpu_torch.models.pvrcnn import pvrcnn as pvrcnn_mod
+    from detmatch_tpu_torch.ops import cuda as cuda_ops
+    from detmatch_tpu_torch.ssl import detector as det_mod
+    from detmatch_tpu_torch.ssl import modules
+    from detmatch_tpu_torch.train.ssl_step import (teacher_step,
+                                                   to_device_views,
+                                                   voxelize_views)
+
+    def gen():
+        return torch.Generator(DEVICE).manual_seed(SEED)
+
+    phase("bf16: models, views and pins")
+    cfg = Config.fromfile(str(SSL_CONFIG))
+    cfg16 = copy.deepcopy(cfg)
+    for key in ("detector_3d", "detector_2d"):
+        cfg16["model"][key]["compute_dtype"] = "bfloat16"
+    spec = build_voxelizer(cfg)
+    models = {"fp32": ssl_model(cfg), "bf16": ssl_model(cfg16)}
+    sd32, sd16 = (m.state_dict() for m in models.values())
+    if not all(torch.equal(sd32[k], v) for k, v in sd16.items()):
+        raise AssertionError("the bf16 model's weights differ from fp32's")
+    del sd32, sd16
+    rng = np.random.RandomState(SEED)
+    batch_np = ssl_batch_np(cfg, rng)
+    batch = voxelize_views(to_device_views(batch_np, DEVICE), spec)
+    canvas = tuple(cfg["model"]["detector_2d"]["canvas"])
+    for view in (batch["unlab"]["tea"], batch["unlab"]["stu"]):
+        view["aug3d"], view["aug2d"] = aug_records(
+            rng, SSL_B, canvas, view["ori_shape"][0].tolist())
+    tea, u = batch["unlab"]["tea"], batch["unlab"]["stu"]
+    m32 = models["fp32"]
+    with torch.no_grad():
+        t3 = m32._det3d_teacher_boxes(tea)
+        t2_pin = matching_2d_boxes(t3, tea, u, 100, m32.cfg.score_filter_3d)
+    m32._det3d_teacher_boxes = lambda view: t3
+    m32._det2d_teacher_boxes = lambda view, nms_cfg: t2_pin
+    pseudo = teacher_step(m32, batch)
+    del m32._det3d_teacher_boxes, m32._det2d_teacher_boxes
+    m = copy.deepcopy(m32).train()
+    clean, pinned = student_2d_pins(m, batch, pseudo, gen())
+    del m
+    pseudo = dict(pseudo, m2d_clean=clean, m2d_stu=modules.transform_2d(
+        clean, u["aug2d"], reverse=False))
+
+    phase("bf16: the student 3D losses against fp32 (pinned)")
+    # proposals pinned, and the consistency branch's selection of the
+    # student's own boxes (its post-processing NMS) pinned to fp32's: the
+    # bf16 run's boxes and scores at fp32's surviving RoIs
+    own_layer, own_post = pvrcnn_mod.proposal_layer, det_mod.post_processing
+    survivors = {}
+
+    def recording_post(out, **kw):
+        res = own_post(out, **kw)
+        same = (res["boxes"][:, :, None] == out["batch_box_preds_rcnn"][
+            :, None]).all(-1)
+        survivors.update(sel=same.int().argmax(-1), valid=res["valid"])
+        return res
+
+    def pinned_post(out, **kw):
+        sel, valid = survivors["sel"], survivors["valid"]
+
+        def take(t):
+            t = torch.stack([x[i] for x, i in zip(t, sel)])
+            return torch.where(valid.view(valid.shape + (1,) * (
+                t.dim() - 2)), t, torch.zeros((), dtype=t.dtype,
+                                              device=t.device))
+
+        return dict(boxes=take(out["batch_box_preds_rcnn"]),
+                    scores=take(torch.sigmoid(out["rcnn_cls"][..., 0])),
+                    labels=take(out["roi_labels"]),
+                    sem_scores_full=take(torch.sigmoid(
+                        out["roi_scores_full"])), valid=valid)
+
+    pvrcnn_mod.proposal_layer = lambda *a, **kw: pinned
+    losses = {}
+    try:
+        for name, model in models.items():
+            det_mod.post_processing = (recording_post if name == "fp32"
+                                       else pinned_post)
+            m = copy.deepcopy(model).train()
+            total, logs = m.student_losses_3d_concat(batch, pseudo, 0, gen())
+            total.backward()
+            finite = all(bool(torch.isfinite(p.grad).all())
+                         for p in m.student["det3d"].parameters()
+                         if p.grad is not None)
+            losses[name] = dict({k: float(v.detach()) for k, v in
+                                 logs.items()}, loss=float(total.detach()))
+            print(f"  {name}: loss {losses[name]['loss']:.6f}, gradients "
+                  f"finite: {finite}")
+            if not finite:
+                raise AssertionError(f"a {name} gradient is not finite")
+            del m, total, logs
+    finally:
+        pvrcnn_mod.proposal_layer = own_layer
+        det_mod.post_processing = own_post
+    ok = True
+    for k, want in losses["fp32"].items():
+        err = abs(losses["bf16"][k] - want) / max(abs(want), 1e-3)
+        good = np.isfinite(losses["bf16"][k]) and err <= BF16_LOSS_RTOL
+        ok &= good
+        print(f"  {k}: fp32 {want:.6f} bf16 {losses['bf16'][k]:.6f} "
+              f"rel {err:.3e} ({err * 256:.2f} bf16 steps) "
+              + ("ok" if good else "FAIL"))
+    if not ok:
+        raise AssertionError("a bf16 loss term is off its fp32 value by more "
+                             "than the CPU tests' bound")
+
+    phase(f"bf16: ms an SSL iteration, in turns, on {card}")
+    opts = {name: ssl_optimizers(model, SSL_B)
+            for name, model in models.items()}
+    for turn, name in enumerate(("fp32", "bf16", "bf16", "fp32")):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_ops.reset_launch_counts()
+        split = iteration_split(models[name].train(), batch_np, spec,
+                                opts[name], gen(), reps=1)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        # two iterations: iteration_split's warm-up and the timed one
+        launches = {k: cuda_ops.launch_counts()[k] for k in SSL_LAUNCHES}
+        print(f"  {name}: {split['iteration']:.3f} ms an iteration "
+              f"(B={SSL_B}+{SSL_B}); split " + ", ".join(
+                  f"{k} {split[k]:.3f}" for k in ITER_STAGES)
+              + f"; peak {peak:.3f} GiB; launches in 2 iterations "
+              f"{launches} [{card}]")
+        if launches != {k: 2 * v for k, v in SSL_LAUNCHES.items()}:
+            raise AssertionError(f"{name}: the launches an iteration differ "
+                                 f"from {SSL_LAUNCHES}")
+    del models, opts, batch, pseudo, pinned, clean, t3, t2_pin
+
+    phase(f"bf16: JAX's benchmark recipe, one SSL iteration, on {card}")
+    cfg_r = copy.deepcopy(cfg16)
+    cfg_r["model"]["detector_3d"].update(RECIPE_3D)
+    cfg_r["voxelizer"]["max_voxels"] = 16000
+    spec_r = build_voxelizer(cfg_r)
+    model = ssl_model(cfg_r)
+    opts_r = ssl_optimizers(model, SSL_B)
+    cuda_ops.reset_launch_counts()
+    logs = ssl_iteration(model.train(), opts_r, spec_r, batch_np, 0, gen())
+    torch.cuda.synchronize()
+    launches = {k: cuda_ops.launch_counts()[k] for k in SSL_LAUNCHES}
+    if not all(np.isfinite(v) for v in logs.values()) \
+            or launches != SSL_LAUNCHES:
+        raise AssertionError("the recipe's iteration is not finite or its "
+                             "launches differ")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    split = iteration_split(model, batch_np, spec_r, opts_r, gen(), reps=2)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = split["iteration"]
+    print(f"  recipe (train NMS 1024 -> 128, caps "
+          f"{RECIPE_3D['backbone_caps']}, bf16, 16,000 voxels): {ms:.3f} ms "
+          f"an iteration, {1000.0 * RECIPE_SAMPLES / ms:.3f} samples/s "
+          f"(B={SSL_B}+{SSL_B}); split " + ", ".join(
+              f"{k} {split[k]:.3f}" for k in ITER_STAGES)
+          + f"; peak {peak:.3f} GiB [{card}]")
+    del model, opts_r
+
+
+def tree_options(cfg_path, root):
+    """``--cfg-options`` that point every data entry of a ``split_0.py``
+    config at the tree ``root`` (``data_root`` and ``ann_file``)."""
+    from detmatch_tpu_torch.config import Config
+    data = Config.fromfile(str(cfg_path))["data"]
+    opts = []
+    for key, entry in data.items():
+        prefix = f"data.{key}"
+        if "dataset" in entry:
+            entry, prefix = entry["dataset"], prefix + ".dataset"
+        if "data_root" not in entry:
+            continue
+        rel = entry["ann_file"][len(entry["data_root"]):]
+        opts += [f"{prefix}.data_root={root}",
+                 f"{prefix}.ann_file={root / rel}"]
+    return opts
+
+
+AP_FAMILIES = tuple(f"{b}.{d}.{m}" for b in ("tea", "stu") for d in ("3d", "2d")
+                    for m in ("mAP_", "num_dets"))
+
+
+def cli_phases(card, root, work):
+    """The command-line tools on the tree ``root`` that :func:`cli_data`
+    made (see the module docstring, item 12)."""
+    import contextlib
+    import io
+
+    from detmatch_tpu_torch.config import Config
+    from detmatch_tpu_torch.ops import cuda as cuda_ops
+    from detmatch_tpu_torch.tools import test as test_cli
+    from detmatch_tpu_torch.tools import train as train_cli
+    from detmatch_tpu_torch.utils.visualize import read_png
+
+    def timed(label, fn, argv, need=()):
+        cuda_ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn(argv)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in cuda_ops.launch_counts().items() if v}
+        print(f"  {label}: {time.perf_counter() - t0:.3f} s; launches "
+              f"{launches} [{card}]")
+        if not all(launches.get(n, 0) > 0 for n in need):
+            raise AssertionError(f"{label}: a kernel of {need} was not "
+                                 "launched")
+        return out
+
+    phase("CLI: tools.train pretrain_3d, pretrain_2d")
+    pre = {}
+    for key, path in (("pretrain_3d", PRETRAIN_3D), ("pretrain_2d",
+                                                     PRETRAIN_2D)):
+        opts = tree_options(path, root) + (
+            [f"base_lr={PRETRAIN_3D_LR}"] if key == "pretrain_3d" else [])
+        _, _, hist = timed(
+            f"tools.train {path.relative_to(ROOT)} --max-iters 1",
+            train_cli.main,
+            [str(path), "--work-dir", str(work / key), "--max-iters", "1",
+             "--cfg-options"] + opts,
+            FWD_KERNELS + ("window_key_conv_bwd",)
+            if key == "pretrain_3d" else ())
+        pre[key] = work / key / "ckpt"
+        if not (np.isfinite(hist[0]["loss"]) and (pre[key] / "ckpt_1")
+                .is_dir()):
+            raise AssertionError(f"{key}: a loss is not finite or ckpt_1 is "
+                                 "missing")
+
+    phase("CLI: tools.train ssl, then --resume-from")
+    opts = tree_options(SSL_CONFIG, root) + [
+        "load_from=" + repr({"det3d": str(pre["pretrain_3d"]),
+                             "det2d": str(pre["pretrain_2d"])}),
+        "log_interval=1", "ckpt_interval=1", "vis_interval=1",
+        "evaluation=None"]
+    ssl_work = work / "ssl"
+    need = tuple(SSL_LAUNCHES)
+    for iters, extra in ((2, []), (3, ["--resume-from",
+                                       str(ssl_work / "ckpt")])):
+        timed(" ".join([f"tools.train {SSL_CONFIG.relative_to(ROOT)} "
+                        f"--max-iters {iters}"] + extra[:1]), train_cli.main,
+              [str(SSL_CONFIG), "--work-dir", str(ssl_work), "--max-iters",
+               str(iters)] + extra + ["--cfg-options"] + opts, need)
+    lines = [json.loads(x) for x in (ssl_work / "log.json").read_text()
+             .splitlines()]
+    ckpts = sorted(d.name for d in (ssl_work / "ckpt").iterdir())
+    canvas = tuple(Config.fromfile(str(SSL_CONFIG))["model"]["detector_2d"][
+        "canvas"]) + (3,)
+    shapes = {}
+    for it in (1, 2, 3):
+        for kind in ("bev", "2d", "pairs"):
+            shapes[f"{it}_{kind}"] = read_png(
+                ssl_work / "vis" / f"iter{it:06d}_{kind}.png").shape
+    print(f"  log.json iterations {[x['iter'] for x in lines]}, losses "
+          + " ".join(f"{x['loss']:.4f}" for x in lines)
+          + f"; checkpoints {ckpts}; vis {sorted(set(shapes.values()))}")
+    if ([x["iter"] for x in lines] != [1, 2, 3]
+            or not all(np.isfinite(x["loss"]) for x in lines)
+            or ckpts != ["ckpt_1", "ckpt_2", "ckpt_3"]
+            or any(v != ((800, 704, 3) if k.endswith("bev") else canvas)
+                   for k, v in shapes.items())):
+        raise AssertionError("the SSL CLI's log, checkpoints or pictures "
+                             "are off")
+
+    phase("CLI: tools.test on the SSL checkpoint")
+    argv = [str(SSL_CONFIG), str(ssl_work / "ckpt"), "--cfg-options"] + \
+        tree_options(SSL_CONFIG, root)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = timed("tools.test (in process)", test_cli.main, argv,
+                    FWD_KERNELS)
+    printed = buf.getvalue()
+    print("\n".join(x for x in printed.splitlines()
+                    if x.startswith("  tools.test")))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "detmatch_tpu_torch.tools.test"]
+                          + argv, cwd=ROOT, capture_output=True, text=True,
+                          timeout=900)
+    print(f"  python -m detmatch_tpu_torch.tools.test: "
+          f"{time.perf_counter() - t0:.3f} s, exit {proc.returncode} "
+          f"[{card}]")
+    found = [f for f in AP_FAMILIES if f in printed and f in proc.stdout]
+    for k in sorted(res):
+        if k.endswith(("mAP_3d_moderate", "mAP_bbox_moderate", "num_dets")):
+            print(f"  {k}: {res[k]:.4f}")
+    print(f"  AP families printed by both runs: {len(found)} of "
+          f"{len(AP_FAMILIES)}")
+    if (proc.returncode != 0 or len(found) != len(AP_FAMILIES)
+            or not all(np.isfinite(v) for v in res.values())):
+        print(proc.stderr[-4000:])
+        raise AssertionError("tools.test failed, an AP family is missing or "
+                             "an AP is not finite")
 
 
 def main():

@@ -11,6 +11,7 @@ import inspect
 from typing import Any, Dict, List
 
 import numpy as np
+import torch
 
 from ..data import dbsampler, kitti, pipelines
 from ..models.frcnn.faster_rcnn import FasterRCNN
@@ -88,11 +89,29 @@ DETECTORS = {"PVRCNN": PVRCNN, "FasterRCNN": FasterRCNN}
 DEFAULT_TYPE = {"detector_3d": "PVRCNN", "detector_2d": "FasterRCNN"}
 
 
+COMPUTE_DTYPES = {None: None, "float32": None, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(name):
+    """A config's ``compute_dtype`` string → the models' torch dtype (JAX
+    ``build.py:101-113``): "bfloat16" → ``torch.bfloat16``; None or
+    "float32" → None (float32 throughout). A torch dtype passes through;
+    anything else raises ValueError."""
+    if isinstance(name, torch.dtype):
+        return None if name == torch.float32 else name
+    if name not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype {name!r}: expected one of "
+                         f"{sorted(k for k in COMPUTE_DTYPES if k)} or None")
+    return COMPUTE_DTYPES[name]
+
+
 def _make(cfg: Dict[str, Any], key: str):
     det = dict(cfg["model"].get(key, {}))
     kind = det.pop("type", DEFAULT_TYPE[key])
     if kind not in DETECTORS:
         raise NotImplementedError(f"detector type {kind!r} is not ported")
+    if "compute_dtype" in det:
+        det["compute_dtype"] = compute_dtype(det["compute_dtype"])
     return DETECTORS[kind](**det)
 
 
@@ -151,7 +170,8 @@ def ssl_modules_to_config(modules: List[Dict[str, Any]]) -> Dict[str, Any]:
 def build_ssl(cfg: Dict[str, Any], device="cuda") -> SSLDetector:
     """The SSL detector of an SSL config (``model.detector_3d``,
     ``model.detector_2d``, ``ssl`` and the module lists), student and
-    teacher, eval mode, on ``device``."""
+    teacher, eval mode, on ``device``. Every key of ``ssl`` (among them
+    ``concat_student_batch``) goes to :class:`SSLConfig`."""
     pv, fr = (_make(cfg, "detector_3d"), _make(cfg, "detector_2d"))
     kwargs = dict(cfg.get("ssl", {}))
     for key in ("lab_modules", "unlab_modules"):

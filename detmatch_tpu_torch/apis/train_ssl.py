@@ -15,6 +15,7 @@ from __future__ import annotations
 import os
 import time
 
+import numpy as np
 import torch
 
 from ..data.loader import Loader
@@ -23,28 +24,65 @@ from ..train import checkpoints
 from ..train.optim import detmatch_branch_optimizers
 from ..train.ssl_step import (ema_step, student_2d_step, student_3d_step,
                               teacher_step, to_device_views, voxelize_views)
-from ..utils.logging import JsonlLogger
+from ..train.tensorboard import TensorBoardSink
+from ..utils import visualize as V
+from ..utils.logging import JsonlLogger, MultiLogger
+
+# iterations (after the start) whose span ``profile_dir`` traces, first
+# and last included: JAX's window (``train_ssl.py:194-235``)
+PROFILE_WINDOW = (12, 15)
 
 
 def ssl_optimizers(ssl, batch_size=4, lr_3d=None, lr_2d=None, lr_scale=1.0,
-                   num_unlabeled=1, warmup_iters=500):
+                   num_unlabeled=1, warmup_iters=500, step_intervals=None):
     """(AdamW over the student PV-RCNN, SGD over the student Faster
     R-CNN) at the recipe's rates (``split_0.py:824-827``): lr_3d =
     1e-3 / 2 * bs * (1 + U) * 10 and lr_2d = 2e-2 / 2 * bs * (1 + U) by
-    default, then times ``lr_scale``."""
+    default, then times ``lr_scale``; ``step_intervals`` ({"det3d": k,
+    "det2d": k}) updates a branch every k-th step only."""
     if lr_3d is None:
         lr_3d = 1e-3 / 2 * batch_size * (1 + num_unlabeled) * 10
     if lr_2d is None:
         lr_2d = 2e-2 / 2 * batch_size * (1 + num_unlabeled)
     return detmatch_branch_optimizers(ssl, lr_3d * lr_scale,
-                                      lr_2d * lr_scale, warmup_iters)
+                                      lr_2d * lr_scale, warmup_iters,
+                                      step_intervals=step_intervals)
 
 
-def ssl_iteration(ssl, opts, vox_spec: VoxelizerSpec, batch_np, it,
-                  generator):
-    """One SSL iteration on a collated numpy batch: the teacher phase,
-    one step of each enabled student branch, the teacher's EMA. Returns
-    the iteration's logs as floats."""
+def dump_vis(work_dir, step, batch, pseudo):
+    """The training loop's pictures (JAX ``_dump_vis``; the reference's
+    Vis3D / Vis2D_Kitti consumers): the first unlabeled student sample's
+    BEV with the 3D pseudo-labels, its image with the 2D pseudo-boxes
+    and the matched-pair canvas, as ``<work_dir>/vis/iter<NNNNNN>_{bev,
+    2d,pairs}.png`` (the image canvases BGR → RGB). ``batch`` is the
+    device batch of :func:`ssl_iteration`, ``pseudo`` its teacher
+    phase's output."""
+    out_dir = os.path.join(work_dir, "vis")
+    os.makedirs(out_dir, exist_ok=True)
+
+    def first(tree):
+        return {k: v[0].detach().cpu().numpy() for k, v in tree.items()
+                if isinstance(v, torch.Tensor)}
+
+    u = first(batch["unlab"]["stu"])
+    pts = u["points"][u["points_valid"]]
+    name = os.path.join(out_dir, f"iter{step:06d}_{{}}.png")
+    m3, m2 = first(pseudo["m3d_stu"]), first(pseudo["m2d_stu"])
+    V.write_png(name.format("bev"),
+                V.bev_canvas(pts, [m3["boxes"][m3["valid"]]]))
+    img = V.denormalize_caffe(np.transpose(u["img"], (1, 2, 0)))
+    V.write_png(name.format("2d"), V.draw_boxes_2d(
+        img, m2["boxes"], valid=m2["valid"])[:, :, ::-1])
+    pair = V.matched_pair_canvas(
+        img, m3["boxes"], m2["boxes"], m3["valid"] & m2["valid"],
+        u["lidar2img"], u["img_shape"], scores3d=m3["scores"],
+        scores2d=m2["scores"])
+    V.write_png(name.format("pairs"), pair[:, :, ::-1])
+
+
+def _iteration(ssl, opts, vox_spec, batch_np, it, generator):
+    """:func:`ssl_iteration` that also returns its device batch and the
+    teacher's pseudo-labels."""
     opt3d, opt2d = opts
     device = next(ssl.parameters()).device
     batch = voxelize_views(to_device_views(batch_np, device), vox_spec)
@@ -65,13 +103,22 @@ def ssl_iteration(ssl, opts, vox_spec: VoxelizerSpec, batch_np, it,
     logs["metrics.dropped_voxels"] = sum(
         v["voxel_dropped"].sum() for views in batch.values()
         for v in views.values())
-    return {k: float(v) for k, v in logs.items()}
+    return {k: float(v) for k, v in logs.items()}, batch, pseudo
+
+
+def ssl_iteration(ssl, opts, vox_spec: VoxelizerSpec, batch_np, it,
+                  generator):
+    """One SSL iteration on a collated numpy batch: the teacher phase,
+    one step of each enabled student branch, the teacher's EMA. Returns
+    the iteration's logs as floats."""
+    return _iteration(ssl, opts, vox_spec, batch_np, it, generator)[0]
 
 
 def train_ssl_batches(ssl, vox_spec: VoxelizerSpec, batches, work_dir,
                       max_iters, batch_size=4, lr_3d=None, lr_2d=None,
                       lr_scale=1.0, num_unlabeled=1, warmup_iters=500,
-                      log_interval=10, seed=0, start=None, after_iter=None):
+                      log_interval=10, seed=0, start=None, after_iter=None,
+                      profile_dir=None, vis_interval=None, tensorboard=False):
     """Train ``ssl`` up to iteration ``max_iters`` on the device it lives
     on.
 
@@ -98,12 +145,21 @@ def train_ssl_batches(ssl, vox_spec: VoxelizerSpec, batches, work_dir,
         after_iter: called as ``after_iter(n, opts, generator, logger)``
             after the ``n``-th iteration (:func:`train_ssl`'s checkpoints
             and evaluation).
+        profile_dir: a ``torch.profiler`` Chrome trace of the iterations
+            ``start + PROFILE_WINDOW[0]`` to ``start + PROFILE_WINDOW[1]``
+            (CPU, and CUDA on the card) to ``<profile_dir>/trace.json``.
+        vis_interval: every ``vis_interval`` iterations :func:`dump_vis`.
+        tensorboard: also log every line to ``<work_dir>/tb``
+            (``train/tensorboard.py``).
     Returns:
         (ssl, (opt3d, opt2d), history): ``history`` holds this call's
         iterations' logs as floats.
     """
     os.makedirs(work_dir, exist_ok=True)
     logger = JsonlLogger(os.path.join(work_dir, "log.json"))
+    if tensorboard:
+        logger = MultiLogger(logger, TensorBoardSink(
+            os.path.join(work_dir, "tb")))
     device = next(ssl.parameters()).device
     if start is None:
         opts = ssl_optimizers(ssl, batch_size, lr_3d, lr_2d, lr_scale,
@@ -112,22 +168,50 @@ def train_ssl_batches(ssl, vox_spec: VoxelizerSpec, batches, work_dir,
     opts, generator, start_iter = start
     ssl.train()
     history = []
+    prof = None
     t0 = time.perf_counter()
     try:
         for it in range(start_iter, max_iters):
-            entry = ssl_iteration(ssl, opts, vox_spec, next(batches), it,
-                                  generator)
+            if profile_dir and it == start_iter + PROFILE_WINDOW[0]:
+                prof = _start_profile(device)
+            entry, batch, pseudo = _iteration(ssl, opts, vox_spec,
+                                              next(batches), it, generator)
+            if prof is not None and it == start_iter + PROFILE_WINDOW[1]:
+                _stop_profile(prof, profile_dir)
+                prof = None
             history.append(entry)
             if (it + 1) % log_interval == 0:
                 logger.log(dict(entry, iter=it + 1, mode="train",
                                 time=(time.perf_counter() - t0)
                                 / log_interval))
                 t0 = time.perf_counter()
+            if vis_interval and (it + 1) % vis_interval == 0:
+                dump_vis(work_dir, it + 1, batch, pseudo)
+            del batch, pseudo
             if after_iter is not None:
                 after_iter(it + 1, opts, generator, logger)
     finally:
+        if prof is not None:
+            _stop_profile(prof, profile_dir)
         logger.close()
     return ssl, opts, history
+
+
+def _start_profile(device):
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def _stop_profile(prof, profile_dir):
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
 
 
 def ssl_checkpoint(ssl, opts, generator):
@@ -156,6 +240,7 @@ def train_ssl(ssl, vox_spec: VoxelizerSpec, lab_dataset, unlab_dataset,
               ckpt_interval=5000, seed=0, resume_from=None, warmup_iters=500,
               load_from=None, load_from_with_optimizer=None,
               val_dataset=None, val_collate_fn=None, eval_interval=None,
+              profile_dir=None, vis_interval=None, tensorboard=False,
               ckpt_meta=None):
     """DetMatch SSL training from datasets (JAX's ``train_ssl``).
 
@@ -180,8 +265,9 @@ def train_ssl(ssl, vox_spec: VoxelizerSpec, lab_dataset, unlab_dataset,
     scores teacher and student (``val_collate_fn``, default
     ``collate_fn``) into a ``mode="val"`` line of ``log.json``.
 
-    The other arguments are :func:`train_ssl_batches`'s. Returns what it
-    returns.
+    The other arguments (``profile_dir``, ``vis_interval``,
+    ``tensorboard`` among them) are :func:`train_ssl_batches`'s. Returns
+    what it returns.
     """
     device = next(ssl.parameters()).device
     opts = ssl_optimizers(ssl, batch_size, lr_3d, lr_2d, lr_scale,
@@ -234,7 +320,8 @@ def train_ssl(ssl, vox_spec: VoxelizerSpec, lab_dataset, unlab_dataset,
         return train_ssl_batches(
             ssl, vox_spec, batches(), work_dir, max_iters,
             log_interval=log_interval, start=(opts, generator, start_iter),
-            after_iter=after_iter)
+            after_iter=after_iter, profile_dir=profile_dir,
+            vis_interval=vis_interval, tensorboard=tensorboard)
     finally:
         lab_loader.stop()
         unlab_loader.stop()

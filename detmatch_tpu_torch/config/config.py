@@ -7,6 +7,9 @@ merge recursively, a child dict with ``_delete_=True`` replaces its
 parent's; everything else overrides). After the merge, a string
 ``"${key}"`` becomes a copy of the top-level value ``key``, and
 ``"{key}"`` placeholders in strings are filled from top-level scalars.
+:meth:`Config.merge_from_options` applies the dotted ``--cfg-options``
+overrides of the command-line tools after that resolution, as the JAX
+package does (an override of ``data_root`` does not reflow into paths).
 """
 from __future__ import annotations
 
@@ -79,6 +82,24 @@ class Config(dict):
     @staticmethod
     def fromfile(path: str) -> "Config":
         return Config(_resolve(_load(os.path.abspath(path))))
+
+    def merge_from_options(self, options: Dict[str, Any]) -> "Config":
+        """Dotted-path overrides ``{"a.b.c": value}``: missing or non-dict
+        intermediate keys become empty dicts; returns ``self``."""
+        for key, val in options.items():
+            *parents, last = key.split(".")
+            d = self
+            for p in parents:
+                if p not in d or not isinstance(d[p], dict):
+                    d[p] = {}
+                d = d[p]
+            d[last] = val
+        return self
+
+    def dump(self) -> str:
+        """The config as ``pprint`` text, 100 columns wide."""
+        import pprint
+        return pprint.pformat(dict(self), width=100)
 
 
 def _load(path: str) -> Dict[str, Any]:

@@ -32,9 +32,10 @@ STRIDES = (4, 8, 16, 32, 64)
 class _RoIHead(nn.Module):
     """Holds the bbox head under mmdet's ``roi_head.bbox_head`` key."""
 
-    def __init__(self, num_classes):
+    def __init__(self, num_classes, dtype=None):
         super().__init__()
-        self.bbox_head = Shared2FCBBoxHead(num_classes=num_classes)
+        self.bbox_head = Shared2FCBBoxHead(num_classes=num_classes,
+                                           dtype=dtype)
 
 
 class FasterRCNN(nn.Module):
@@ -44,7 +45,13 @@ class FasterRCNN(nn.Module):
                  train_rpn_nms_pre: int = 2000, train_rpn_max: int = 1000,
                  test_rpn_nms_pre: int = 1000, test_rpn_max: int = 1000,
                  rcnn_num_samples: int = 512,
-                 backbone_cfg: Dict = None):
+                 backbone_cfg: Dict = None,
+                 compute_dtype: torch.dtype = None):
+        """``compute_dtype`` (``torch.bfloat16`` or None): the compute
+        dtype of the backbone, FPN and RPN convs and the RoI head's shared
+        FCs (JAX ``faster_rcnn.py:38-52``); parameters, frozen batch-norm
+        constants, the RPN and RoI logits, losses and box math stay
+        float32."""
         super().__init__()
         self.num_classes = num_classes
         self.canvas = tuple(canvas)
@@ -53,10 +60,10 @@ class FasterRCNN(nn.Module):
         self.test_rpn_nms_pre = test_rpn_nms_pre
         self.test_rpn_max = test_rpn_max
         self.rcnn_num_samples = rcnn_num_samples
-        self.backbone = ResNet50(**(backbone_cfg or {}))
-        self.neck = FPN()
-        self.rpn_head = RPNHead()
-        self.roi_head = _RoIHead(num_classes)
+        self.backbone = ResNet50(dtype=compute_dtype, **(backbone_cfg or {}))
+        self.neck = FPN(dtype=compute_dtype)
+        self.rpn_head = RPNHead(dtype=compute_dtype)
+        self.roi_head = _RoIHead(num_classes, compute_dtype)
         h, w = self.canvas
         for lvl, s in enumerate(STRIDES):
             a = grid_anchors(int(np.ceil(h / s)), int(np.ceil(w / s)), s)

@@ -15,6 +15,7 @@ from torch import nn
 
 from ...core import losses, nms as nms_mod
 from ...core.coders import DeltaXYWHCoder
+from ..layers import linear
 from . import rpn
 
 BBOX_STDS = (0.1, 0.1, 0.2, 0.2)
@@ -27,8 +28,9 @@ class Shared2FCBBoxHead(nn.Module):
     permutes its input rows)."""
 
     def __init__(self, num_classes=3, in_channels=256, roi_size=7,
-                 fc_dim=1024):
+                 fc_dim=1024, dtype=None):
         super().__init__()
+        self.dtype = dtype
         self.shared_fcs = nn.ModuleList([
             nn.Linear(in_channels * roi_size * roi_size, fc_dim),
             nn.Linear(fc_dim, fc_dim)])
@@ -36,10 +38,12 @@ class Shared2FCBBoxHead(nn.Module):
         self.fc_reg = nn.Linear(fc_dim, num_classes * 4)
 
     def forward(self, roi_feats):
-        """(R, C, 7, 7) → (cls (R, C+1), reg (R, 4C))."""
+        """(R, C, 7, 7) → (cls (R, C+1), reg (R, 4C)); the shared FCs in
+        ``dtype``, the two outputs in float32 (JAX ``roi_head2d.py:32-47``)."""
         x = roi_feats.flatten(1)
         for fc in self.shared_fcs:
-            x = F.relu(fc(x))
+            x = F.relu(linear(x, fc.weight, fc.bias, self.dtype))
+        x = x.float()
         return self.fc_cls(x), self.fc_reg(x)
 
 

@@ -20,6 +20,7 @@ from torch import nn
 
 from ...core import iou as iou_mod, losses, nms as nms_mod
 from ...core.coders import DeltaXYWHCoder
+from ..layers import conv
 
 
 def base_anchors(stride, scales=(8,), ratios=(0.5, 1.0, 2.0)):
@@ -49,18 +50,20 @@ class RPNHead(nn.Module):
     objectness logits and A * 4 deltas."""
 
     def __init__(self, in_channels=256, feat_channels=256,
-                 num_base_anchors=3):
+                 num_base_anchors=3, dtype=None):
         super().__init__()
+        self.dtype = dtype
         self.rpn_conv = nn.Conv2d(in_channels, feat_channels, 3, padding=1)
         self.rpn_cls = nn.Conv2d(feat_channels, num_base_anchors, 1)
         self.rpn_reg = nn.Conv2d(feat_channels, num_base_anchors * 4, 1)
 
     def forward(self, feats):
         """NCHW levels → per level (cls (B, H, W, A), reg (B, H, W, 4A)),
-        channels last as the anchors are laid out."""
+        channels last as the anchors are laid out. The shared conv runs
+        in ``dtype``, the two heads in float32 (JAX ``rpn.py:113-128``)."""
         outs = []
         for f in feats:
-            x = F.relu(self.rpn_conv(f))
+            x = F.relu(conv(self.rpn_conv, f, self.dtype)).float()
             outs.append((self.rpn_cls(x).permute(0, 2, 3, 1),
                          self.rpn_reg(x).permute(0, 2, 3, 1)))
         return outs

@@ -8,6 +8,7 @@ import torch
 from torch import nn
 
 from ...ops import spconv
+from ..layers import batch_norm_2d, conv
 
 
 def height_compression(level):
@@ -25,12 +26,16 @@ def _bn2d(c):
 
 class BaseBEVBackbone(nn.Module):
     """Conv pyramid with deconv-upsampled concat output; parameter names
-    ``blocks.{i}.{j}`` / ``deblocks.{i}.{j}`` as pcdet."""
+    ``blocks.{i}.{j}`` / ``deblocks.{i}.{j}`` as pcdet. With ``dtype``
+    (bfloat16) the convs run in it and the output has it; batch norm
+    computes in float32 (the JAX ``ConvBNReLU(dtype=...)``)."""
 
     def __init__(self, input_channels, layer_nums=(5, 5),
                  layer_strides=(1, 2), num_filters=(128, 256),
-                 upsample_strides=(1, 2), num_upsample_filters=(256, 256)):
+                 upsample_strides=(1, 2), num_upsample_filters=(256, 256),
+                 dtype=None):
         super().__init__()
+        self.dtype = dtype
         self.blocks = nn.ModuleList()
         self.deblocks = nn.ModuleList()
         cin = input_channels
@@ -59,6 +64,18 @@ class BaseBEVBackbone(nn.Module):
         ``MaskedBatchNorm`` without a mask."""
         ups = []
         for block, deblock in zip(self.blocks, self.deblocks):
-            x = block(x)
-            ups.append(deblock(x))
+            x = self._run(block, x)
+            ups.append(self._run(deblock, x))
         return torch.cat(ups, dim=1) if len(ups) > 1 else ups[0]
+
+    def _run(self, seq, x):
+        if self.dtype is None:
+            return seq(x)
+        for layer in seq:
+            if isinstance(layer, (nn.Conv2d, nn.ConvTranspose2d)):
+                x = conv(layer, x, self.dtype)
+            elif isinstance(layer, nn.BatchNorm2d):
+                x = batch_norm_2d(layer, x)
+            else:
+                x = layer(x)
+        return x

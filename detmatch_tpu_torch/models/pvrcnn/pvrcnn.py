@@ -63,7 +63,13 @@ class PVRCNN(nn.Module):
                  train_nms: Dict = None, test_nms: Dict = None,
                  roi_head_cfg: Dict[str, Any] = None,
                  backbone3d_cfg: Dict[str, Any] = None,
-                 bev_cfg: Dict[str, Any] = None):
+                 bev_cfg: Dict[str, Any] = None,
+                 compute_dtype: torch.dtype = None):
+        """``compute_dtype`` (``torch.bfloat16`` or None): the compute
+        dtype of the BEV convs, the set-abstraction and RoI-grid MLPs and
+        the RoI head's fc stacks (JAX ``pvrcnn.py:63,83-98``); parameters,
+        batch-norm statistics, the sparse backbone, the anchor and point
+        heads, losses and box math stay float32."""
         super().__init__()
         # the three kernel ops the forward calls; a verification run swaps
         # in ``ops.cuda.PLAIN`` to hold the kernels against their twins
@@ -76,7 +82,8 @@ class PVRCNN(nn.Module):
             caps=backbone_caps, **(backbone3d_cfg or {}))
         hc_z = level_shapes(spatial_shape)[-1][0]
         num_bev_in = hc_z * self.backbone_3d.out_channels
-        self.backbone_2d = BaseBEVBackbone(num_bev_in, **(bev_cfg or {}))
+        self.backbone_2d = BaseBEVBackbone(num_bev_in, dtype=compute_dtype,
+                                           **(bev_cfg or {}))
         self.dense_head = AnchorHeadSingle(
             self.backbone_2d.num_bev_features, num_classes=num_classes,
             anchor_configs=anchor_configs,
@@ -85,12 +92,13 @@ class PVRCNN(nn.Module):
             num_bev_in, self.backbone_3d.channels[1:],
             num_rawpoint_features=num_point_features - 3,
             num_keypoints=num_keypoints, voxel_size=voxel_size,
-            point_cloud_range=point_cloud_range)
+            point_cloud_range=point_cloud_range, dtype=compute_dtype)
         self.point_head = PointHeadSimple(
             self.pfe.num_point_features_before_fusion)
         self.roi_head = PVRCNNHead(
             self.pfe.vsa_point_feature_fusion[0].out_features,
-            num_classes=num_classes, **(roi_head_cfg or {}))
+            num_classes=num_classes, dtype=compute_dtype,
+            **(roi_head_cfg or {}))
 
     def forward(self, batch, train=None, generator=None):
         """Forward pass.
@@ -121,7 +129,9 @@ class PVRCNN(nn.Module):
                               self.ops)
         spatial = height_compression(ms["out"])
         bev = self.backbone_2d(spatial)
-        head_preds = self.dense_head(bev)
+        # the anchor head has no compute dtype: a bfloat16 BEV map enters
+        # it in float32, as flax promotes it
+        head_preds = self.dense_head(bev.float())
         box_preds, cls_preds = self.dense_head.decode_boxes(head_preds)
         vsa = self.pfe(batch["points"], batch["points_valid"], spatial, ms,
                        self.ops)
@@ -210,16 +220,22 @@ class PVRCNN(nn.Module):
 
 
 def post_processing(out, nms_pre=4096, nms_post=500, nms_thresh=0.1,
-                    score_thresh=0.1):
+                    score_thresh=0.1, no_nms=False):
     """Class-agnostic final NMS over the refined boxes (pcdet
     ``detector3d_template.py`` post-processing with DetMatch's
     ``sem_scores_full``).
 
     Returns a fixed-size per-frame dict: boxes (B, K, 7), scores (B, K),
     labels (B, K) 1-based, sem_scores_full (B, K, C) sigmoid, valid (B, K).
+    With ``no_nms`` every RoI comes back (K = the RoI count), in RoI
+    order, valid where its score reaches ``score_thresh``.
     """
     cls = torch.sigmoid(out["rcnn_cls"][..., 0])
     full = torch.sigmoid(out["roi_scores_full"])
+    if no_nms:
+        return dict(boxes=out["batch_box_preds_rcnn"], scores=cls,
+                    labels=out["roi_labels"], sem_scores_full=full,
+                    valid=cls >= score_thresh)
     res = {k: [] for k in ("boxes", "scores", "labels", "sem_scores_full",
                            "valid")}
     for b, s, lab, f in zip(out["batch_box_preds_rcnn"], cls,

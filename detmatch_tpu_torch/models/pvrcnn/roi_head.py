@@ -269,13 +269,15 @@ def _fc_layers(cin, channels, dropout_after, dp_ratio):
     return layers, cin
 
 
-def _apply_fc(seq, x, generator):
+def _apply_fc(seq, x, generator, dtype=None):
     """A pcdet fc stack over the last axis of (B, N, C) ``x``: batch norm
     over all B*N rows, dropout (train mode only) with masks from
-    ``generator``."""
-    for layer in seq:
+    ``generator``. Its layers run in ``dtype`` but a closing output layer,
+    which computes in float32 (JAX's ``{cls,reg}_out`` have no dtype)."""
+    last = len(seq) - 1
+    for i, layer in enumerate(seq):
         if isinstance(layer, nn.Conv1d):
-            x = pointwise(layer, x)
+            x = pointwise(layer, x, None if i == last else dtype)
         elif isinstance(layer, nn.BatchNorm1d):
             x = masked_bn(layer, x)
         elif isinstance(layer, nn.ReLU):
@@ -287,17 +289,22 @@ def _apply_fc(seq, x, generator):
 
 class PVRCNNHead(nn.Module):
     """``target_cfg`` sets the RoI sampling (``default_target_cfg``);
-    ``dp_ratio`` the dropout of the fc stacks (train mode only)."""
+    ``dp_ratio`` the dropout of the fc stacks (train mode only);
+    ``dtype`` (bfloat16) the compute dtype of the RoI-grid pool's MLPs and
+    of the fc stacks (JAX's ``PVRCNNHead(dtype=...)``): the pooled
+    features stay in it, the two outputs are float32."""
 
     def __init__(self, input_channels, num_classes=3, grid_size=6,
                  shared_fc=(256, 256), cls_fc=(256, 256), reg_fc=(256, 256),
                  dp_ratio=0.3, pool_radii=(0.8, 1.6), pool_nsamples=(16, 16),
-                 pool_mlps=((64, 64), (64, 64)), target_cfg=None):
+                 pool_mlps=((64, 64), (64, 64)), target_cfg=None,
+                 dtype=None):
         super().__init__()
         self.grid_size = grid_size
+        self.dtype = dtype
         self.target_cfg = dict(target_cfg or default_target_cfg())
         self.roi_grid_pool_layer = StackSAModuleMSG(
-            pool_radii, pool_nsamples, pool_mlps, input_channels)
+            pool_radii, pool_nsamples, pool_mlps, input_channels, dtype)
         c = self.roi_grid_pool_layer.out_channels * grid_size ** 3
         layers, c = _fc_layers(c, shared_fc,
                                lambda k: k != len(shared_fc) - 1, dp_ratio)
@@ -339,8 +346,8 @@ class PVRCNNHead(nn.Module):
         c = pooled.shape[-1]
         x = pooled.reshape(b, n, self.grid_size ** 3, c).transpose(2, 3)
         shared = _apply_fc(self.shared_fc_layer, x.reshape(b, n, -1),
-                           generator)
-        return tuple(_apply_fc(seq, shared, generator)
+                           generator, self.dtype)
+        return tuple(_apply_fc(seq, shared, generator, self.dtype)
                      for seq in (self.cls_layers, self.reg_layers))
 
     def assign_targets(self, generator, proposals, gt_boxes):

@@ -68,7 +68,7 @@ def bilinear_interpolate_batched(im, x, y):
             + g(y0, x1) * wc[..., None] + g(y1, x1) * wd[..., None])
 
 
-def group_mlp(layers, centers, xyz, feats, idx, slot_valid):
+def group_mlp(layers, centers, xyz, feats, idx, slot_valid, dtype=None):
     """Shared MLP over grouped neighbours (batch norm over the valid slots
     only in train mode).
 
@@ -76,6 +76,11 @@ def group_mlp(layers, centers, xyz, feats, idx, slot_valid):
     m: ``W [p_n - c_m | f_n] = W [p_n | f_n] - W [c_m | 0]`` — the table
     is transformed once per point and once per center, and the grouped
     tensor gathers the transformed table.
+
+    With ``dtype`` (bfloat16) the transformed table and centers are cast
+    to it BEFORE the gather (the grouped tensor, the model's largest, moves
+    at half width) and the later layers run in it, as JAX's
+    ``SAGroupMLP(dtype=...)``; the first layer stays float32.
 
     Args:
         layers: list of (conv, bn) modules; centers (B, M, 3);
@@ -92,15 +97,17 @@ def group_mlp(layers, centers, xyz, feats, idx, slot_valid):
     table = xyz if feats is None else torch.cat([xyz, feats], dim=-1)
     pre = torch.nn.functional.linear(table, w0)
     cen = torch.nn.functional.linear(centers, w0[:, :3])
+    if dtype is not None:
+        pre, cen = pre.to(dtype), cen.to(dtype)
     z = pointnet.gather_rows(pre, idx) - cen[:, :, None, :]
     x = torch.where(slot_valid[..., None], z, 0.0)
     train = layers[0][1].training
-    e = None if train else x.new_zeros(w0.shape[0])
+    e = None if train else w0.new_zeros(w0.shape[0])
     for i, (conv, bn) in enumerate(layers):
         if i > 0:
-            x = pointwise(conv, x)
+            x = pointwise(conv, x, dtype)
             if e is not None:
-                e = pointwise(conv, e)
+                e = pointwise(conv, e, dtype)
         x = torch.relu(masked_bn(bn, x, slot_valid))
         if e is not None:
             e = torch.relu(masked_bn(bn, e))
@@ -110,10 +117,12 @@ def group_mlp(layers, centers, xyz, feats, idx, slot_valid):
 class StackSAModuleMSG(nn.Module):
     """Multi-radius set abstraction with pcdet's parameter layout
     (``mlps.{g}.{3k}`` 1x1 Conv2d, ``mlps.{g}.{3k+1}`` BatchNorm2d with the
-    torch-default eps 1e-5 and the JAX model's momentum 0.01)."""
+    torch-default eps 1e-5 and the JAX model's momentum 0.01); ``dtype``
+    as :func:`group_mlp`'s."""
 
-    def __init__(self, radii, nsamples, mlps, in_channels):
+    def __init__(self, radii, nsamples, mlps, in_channels, dtype=None):
         super().__init__()
+        self.dtype = dtype
         self.radii = tuple(radii)
         self.nsamples = tuple(nsamples)
         self.mlps = nn.ModuleList()
@@ -129,19 +138,21 @@ class StackSAModuleMSG(nn.Module):
     def pool(self, g, centers, xyz, feats, idx, cnt, nsample):
         """One radius group: grouped MLP, masked max-pool, and the
         empty-ball fill (eval: the MLP stack of zero; train: zero)
-        → (B, M, C')."""
+        → (B, M, C') in ``dtype``; the -1e10 of the padded slots and the
+        fill are in it too, as JAX's."""
         slots = torch.arange(nsample, device=idx.device)
         slot_valid = slots < cnt[..., None]
         x, empty = group_mlp(bn_pairs(self.mlps[g]), centers, xyz, feats,
-                             idx, slot_valid)
+                             idx, slot_valid, self.dtype)
         x = torch.where(slot_valid[..., None], x, -pointnet.BIG_DIST)
         pooled = x.amax(dim=2)  # ties share the gradient, as jnp.max
         return torch.where((cnt > 0)[..., None], pooled,
-                           0.0 if empty is None else empty)
+                           0.0 if empty is None else empty.to(pooled.dtype))
 
     def forward(self, centers, centers_valid, xyz, xyz_valid, feats,
                 ops=KERNELS):
-        """Queries every radius against one y-sort of the table."""
+        """Queries every radius against one y-sort of the table; the
+        pooled features come out float32."""
         xyz_s, xv_s, perm = sort_points_by_y(xyz, xyz_valid)
         table = pack_table(xyz_s, xv_s, perm)
         outs = []
@@ -149,7 +160,8 @@ class StackSAModuleMSG(nn.Module):
             idx, cnt = ops.ball_query_batched(centers, centers_valid, xyz_s,
                                               xv_s, r, ns, point_perm=perm,
                                               table=table)
-            outs.append(self.pool(g, centers, xyz, feats, idx, cnt, ns))
+            outs.append(self.pool(g, centers, xyz, feats, idx, cnt,
+                                  ns).float())
         return torch.cat(outs, dim=-1)
 
 
@@ -157,16 +169,22 @@ class VoxelSetAbstraction(nn.Module):
     def __init__(self, num_bev_features, level_channels,
                  num_rawpoint_features=1, num_keypoints=2048,
                  num_out_features=128, voxel_size=(0.05, 0.05, 0.1),
-                 point_cloud_range=(0, -40, -3, 70.4, 40, 1), sa_cfg=None):
+                 point_cloud_range=(0, -40, -3, 70.4, 40, 1), sa_cfg=None,
+                 dtype=None):
+        """``dtype`` (bfloat16): the set-abstraction MLPs' compute dtype
+        (:func:`group_mlp`); the BEV interpolation and the fusion layer
+        stay float32, as in JAX."""
         super().__init__()
         sa_cfg = sa_cfg or DEFAULT_SA_CFG
         self.num_keypoints = num_keypoints
         self.voxel_size = tuple(voxel_size)
         self.point_cloud_range = tuple(point_cloud_range)
         self.SA_rawpoints = StackSAModuleMSG(in_channels=num_rawpoint_features,
+                                             dtype=dtype,
                                              **sa_cfg["raw_points"])
         self.SA_layers = nn.ModuleList(
-            StackSAModuleMSG(in_channels=c, **sa_cfg[f"x_conv{i + 1}"])
+            StackSAModuleMSG(in_channels=c, dtype=dtype,
+                             **sa_cfg[f"x_conv{i + 1}"])
             for i, c in enumerate(level_channels))
         c_in = (num_bev_features + self.SA_rawpoints.out_channels
                 + sum(sa.out_channels for sa in self.SA_layers))

@@ -15,9 +15,47 @@ import torch
 BIG_DIST = 1e10
 
 
+class _TakeRows(torch.autograd.Function):
+    """``table[idx]`` whose backward sums each row's gradients in float32
+    and casts the sum to the table's dtype once."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.shape = table.shape
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        acc = torch.zeros(ctx.shape, dtype=torch.float32, device=g.device)
+        acc.index_add_(0, idx.reshape(-1),
+                       g.reshape(-1, ctx.shape[-1]).float())
+        return acc.to(g.dtype), None
+
+
+def take_rows(table, idx):
+    """Rows ``idx`` (int64, any shape) of a (N, C) table.
+
+    A bfloat16 table's backward accumulates in float32, as the JAX
+    package's ``pointnet._fenced_take_rows`` does: a row of the RoI-grid
+    pool's table collects thousands of contributions, which bfloat16
+    sums would round away. Float32 tables take plain indexing."""
+    if table.dtype == torch.float32 or not table.requires_grad:
+        return table[idx]
+    return _TakeRows.apply(table, idx)
+
+
 def gather_rows(x, idx):
-    """(B, N, C) table, (B, ...) int row indices → (B, ..., C)."""
+    """(B, N, C) table, (B, ...) int row indices → (B, ..., C); a bfloat16
+    table through :func:`take_rows`."""
     b = x.shape[0]
+    if x.dtype != torch.float32:
+        n = x.shape[1]
+        base = torch.arange(b, device=idx.device).reshape(
+            (b,) + (1,) * (idx.dim() - 1)) * n
+        out = take_rows(x.reshape(b * n, x.shape[-1]), idx.long() + base)
+        return out.reshape(idx.shape + (x.shape[-1],))
     flat = idx.reshape(b, -1).long()
     out = torch.gather(x, 1, flat[..., None].expand(-1, -1, x.shape[-1]))
     return out.reshape(idx.shape + (x.shape[-1],))

@@ -6,11 +6,14 @@ The JAX package's semantics, not mmcv's: a fixed 2 x 2 sample grid per
 output bin (mmcv's ``sampling_ratio=0`` adapts the grid to each RoI's
 size), bilinear samples at coordinates shifted by -0.5 (``aligned``),
 zero where a sample lies at or beyond one pixel outside the map. Feature
-maps are NCHW; the pooled output is (R, C, out, out).
+maps are NCHW; the pooled output is (R, C, out, out), float32 whatever
+the maps' dtype (bfloat16 samples times float32 weights, as in JAX).
 """
 from __future__ import annotations
 
 import torch
+
+from .pointnet import take_rows
 
 
 def _sample_grid(x1, y1, x2, y2, out_size, sampling):
@@ -47,7 +50,7 @@ def _bilinear(table, gx, gy, h, w, base):
                        (y0i, x1i, (1 - ly) * lx),
                        (y1i, x0i, ly * (1 - lx)),
                        (y1i, x1i, ly * lx)):
-        term = table[base + yi * w + xi] * wt[..., None]
+        term = take_rows(table, base + yi * w + xi) * wt[..., None]
         out = term if out is None else out + term
     inside = ((gx > -1.0) & (gx < w.to(gx.dtype))
               & (gy > -1.0) & (gy < h.to(gy.dtype)))

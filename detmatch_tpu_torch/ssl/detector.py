@@ -311,13 +311,47 @@ class SSLDetector(nn.Module):
         unlabeled) train forward of the student PV-RCNN, which updates
         its batch-norm statistics over the union batch. ``generator``
         draws the RoI samples and dropout masks. Returns (total, logs)."""
-        if not self.cfg.concat_student_batch:
-            raise NotImplementedError(
-                "the two-pass student 3D losses (concat_student_batch="
-                "False) are not ported")
         cat, bl = self._concat_student_batch(batch, pseudo)
         out = self.student["det3d"](cat, train=True, generator=generator)
         return self._stu3d_grouped_losses(out, cat, bl, batch, pseudo, it)
+
+    def student_losses_3d(self, batch, pseudo, it, generator):
+        """The 3D branch's losses through TWO train forwards of the student
+        PV-RCNN (JAX ``student_losses_3d``, ``concat_student_batch=False``):
+        the labeled view on its gt, then the unlabeled view on the pseudo
+        gt, then the consistency branch on the unlabeled forward.
+
+        Each forward normalises by its own batch's statistics; the running
+        statistics move twice, the second update starting from the first's
+        result (torch updates the buffers in place, where JAX threads the
+        first pass's ``batch_stats`` into the second). ``generator`` draws
+        the labeled pass's RoI samples and dropout masks, then the
+        unlabeled pass's. Returns (total, logs) with the keys of
+        :meth:`student_losses_3d_concat`."""
+        cfg = self.cfg
+        det3d = self.student["det3d"]
+        lab, u_stu = batch["lab"]["stu"], batch["unlab"]["stu"]
+        sup = det3d.loss(det3d(lab, train=True, generator=generator), lab)
+        u3d = dict(u_stu, gt_boxes=pseudo_gt_from_boxset(
+            pseudo["m3d_stu"], cfg.pseudo_score_thr_3d, cfg.max_pseudo_gt))
+        out_u = det3d(u3d, train=True, generator=generator)
+        pl = det3d.loss(out_u, u3d)
+        sup_losses = {f"sup.3d.{k}": v for k, v in sup.items()
+                      if k != "loss"}
+        ssl_losses = {f"ssl.unlab.hard_pseudo_3d.{k}": v
+                      for k, v in pl.items() if k != "loss"}
+        logs = {}
+        if cfg.consistency and cfg.fusion and cfg.enable_2d:
+            cons, n_match = self._consistency_branch(
+                out_u, u_stu, pseudo["m2d_clean"])
+            logs["metrics.num_2D_to_3D_hung"] = n_match
+            ssl_losses.update({f"ssl.unlab.2D_to_3D_hung.{k}": v
+                               for k, v in cons.items()})
+        w = ssl_weight_at(it, cfg).to(out_u["rcnn_cls"].device)
+        total = sum(sup_losses.values()) + w * sum(ssl_losses.values())
+        logs.update(sup_losses)
+        logs.update(ssl_losses)
+        return total, logs
 
     def student_losses_2d(self, batch, pseudo, it, generator):
         """The 2D branch's losses: supervised Faster R-CNN losses on the

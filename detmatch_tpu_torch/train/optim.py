@@ -99,19 +99,31 @@ class BranchOptimizer:
     The rate of the ``count``-th applied update (from 0) is
     ``lr_fn(count)``.
 
+    ``step_interval`` k (JAX's ``every_k_steps`` around the inner
+    optimizer, as ``hybrid_optimizer(step_intervals=...)`` places it;
+    reference ``hybrid_optimizer.py:87-93``): ``calls`` advances on every
+    step with finite gradients, and the update fires when ``calls % k ==
+    0``, from that call's gradients alone; otherwise the parameters, the
+    moments and ``count`` stay as they are.
+
     Args:
         params: the branch's parameters.
         kind: "adamw" (betas (0.95, 0.99), eps 1e-8, weight decay 0.01)
             or "sgd" (momentum 0.9, weight decay 1e-4).
     """
 
-    def __init__(self, params, kind, lr_fn, clip_norm=CLIP_NORM):
+    def __init__(self, params, kind, lr_fn, clip_norm=CLIP_NORM,
+                 step_interval=1):
         if kind not in ("adamw", "sgd"):
             raise ValueError(f"unknown optimizer kind {kind!r}")
+        if step_interval < 1:
+            raise ValueError(f"step_interval {step_interval} < 1")
         self.params = list(params)
         self.kind = kind
         self.lr_fn = lr_fn
         self.clip_norm = clip_norm
+        self.step_interval = int(step_interval)
+        self.calls = 0
         self.count = 0
         self.skipped = 0
         zeros = [torch.zeros_like(p) for p in self.params]
@@ -132,9 +144,11 @@ class BranchOptimizer:
                 else dict(trace=self.trace))
 
     def state_dict(self):
-        """The optimizer's state: ``count``, ``skipped`` and its moment
-        lists (``mu``, ``nu`` for AdamW, ``trace`` for SGD), cloned."""
-        return dict(kind=self.kind, count=self.count, skipped=self.skipped,
+        """The optimizer's state: ``count``, ``calls``, ``skipped`` and
+        its moment lists (``mu``, ``nu`` for AdamW, ``trace`` for SGD),
+        cloned."""
+        return dict(kind=self.kind, count=self.count, calls=self.calls,
+                    skipped=self.skipped,
                     **{k: [t.clone() for t in v]
                        for k, v in self._moments().items()})
 
@@ -152,6 +166,7 @@ class BranchOptimizer:
             for d, s in zip(dst, state[k]):
                 d.copy_(s)
         self.count = int(state["count"])
+        self.calls = int(state.get("calls", self.count))
         self.skipped = int(state["skipped"])
 
     @torch.no_grad()
@@ -163,6 +178,9 @@ class BranchOptimizer:
         finite = torch.stack([torch.isfinite(x).all() for x in g]).all()
         if not bool(finite):
             self.skipped += 1
+            return False
+        self.calls += 1
+        if self.calls % self.step_interval:
             return False
         norm = torch.linalg.vector_norm(
             torch.stack(torch._foreach_norm(g)))
@@ -201,11 +219,15 @@ class BranchOptimizer:
 
 
 def detmatch_branch_optimizers(ssl, lr_3d, lr_2d, warmup_iters=500,
-                               clip_norm=CLIP_NORM):
+                               clip_norm=CLIP_NORM, step_intervals=None):
     """(AdamW over ``ssl.student.det3d``, SGD over ``ssl.student.det2d``)
     under linear-warmup step rates, as the JAX
-    ``detmatch_branch_optimizers``."""
+    ``detmatch_branch_optimizers``; ``step_intervals`` ({"det3d": k,
+    "det2d": k}, missing keys 1) sets each branch's ``step_interval``."""
+    k = dict(step_intervals or {})
     return (BranchOptimizer(ssl.student["det3d"].parameters(), "adamw",
-                            warmup_step_lr(lr_3d, warmup_iters), clip_norm),
+                            warmup_step_lr(lr_3d, warmup_iters), clip_norm,
+                            k.get("det3d", 1)),
             BranchOptimizer(ssl.student["det2d"].parameters(), "sgd",
-                            warmup_step_lr(lr_2d, warmup_iters), clip_norm))
+                            warmup_step_lr(lr_2d, warmup_iters), clip_norm,
+                            k.get("det2d", 1)))

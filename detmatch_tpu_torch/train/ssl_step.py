@@ -4,7 +4,8 @@ order on one batch:
 
 1. :func:`teacher_step` — the teacher phase, no gradients;
 2. :func:`student_3d_step` — one autograd step of the student PV-RCNN
-   (concatenated labeled + unlabeled forward, losses, backward, AdamW);
+   (one concatenated labeled + unlabeled forward, or one forward each
+   with ``concat_student_batch=False``; losses, backward, AdamW);
 3. :func:`student_2d_step` — the same for the student Faster R-CNN (SGD);
 4. :func:`ema_step` — the teacher's EMA of the updated student.
 
@@ -74,12 +75,15 @@ def _branch_step(loss_fn, opt, batch, pseudo, it, generator):
 
 
 def student_3d_step(ssl, opt3d, batch, pseudo, it, generator):
-    """One step of the student PV-RCNN (``student_losses_3d_concat``,
-    backward, clip + AdamW); its batch-norm statistics move in the
-    forward. Returns the branch's logs with ``loss``, ``grad_skips``,
+    """One step of the student PV-RCNN (``student_losses_3d_concat``, or
+    the two-pass ``student_losses_3d`` when the config's
+    ``concat_student_batch`` is False, as JAX's ``ssl_step.py:157-158``
+    chooses; backward, clip + AdamW); its batch-norm statistics move in
+    the forward. Returns the branch's logs with ``loss``, ``grad_skips``,
     ``ssl.weight`` and ``ssl.ema_decay``."""
-    logs = _branch_step(ssl.student_losses_3d_concat, opt3d, batch, pseudo,
-                        it, generator)
+    loss_fn = (ssl.student_losses_3d_concat if ssl.cfg.concat_student_batch
+               else ssl.student_losses_3d)
+    logs = _branch_step(loss_fn, opt3d, batch, pseudo, it, generator)
     logs["ssl.weight"] = ssl_weight_at(it, ssl.cfg)
     logs["ssl.ema_decay"] = ema_decay_at(it, ssl.cfg)
     return logs

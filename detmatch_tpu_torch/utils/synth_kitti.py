@@ -18,10 +18,10 @@ labels derived from the scene's boxes through the calibration. Used by
 from __future__ import annotations
 
 import os
-import struct
-import zlib
 
 import numpy as np
+
+from .visualize import write_png
 
 LIDAR_HEIGHT = 1.73  # KITTI velodyne height above ground (m)
 
@@ -71,12 +71,13 @@ def lidar_scene(rng, num_points, point_cloud_range,
 
 def lidar_scene_objects(rng, num_points, point_cloud_range,
                         num_cars=14, num_peds=8, num_walls=3,
-                        max_range=72.0):
+                        max_range=72.0, n_azimuth=500):
     """:func:`lidar_scene` (the same ``rng`` calls in the same order),
     also returning the scene's objects: (points, valid, boxes
     (num_cars + num_peds, 7) float32 in the internal convention (gravity
-    center, dx, dy, dz, heading), names), the walls left out."""
-    dirs = _ray_dirs()
+    center, dx, dy, dz, heading), names), the walls left out.
+    ``n_azimuth`` rays a beam over the 90 degrees in front."""
+    dirs = _ray_dirs(n_azimuth=n_azimuth)
 
     # ground-plane hits (z = -LIDAR_HEIGHT, rays pointing down)
     dz = dirs[:, 2]
@@ -232,22 +233,6 @@ def _corners(boxes):
     return np.stack([x, y, local[..., 2]], -1) + boxes[:, None, :3]
 
 
-def write_png(path, img):
-    """(H, W, 3) uint8 RGB → an 8-bit PNG file (zlib, no filter)."""
-    h, w, _ = img.shape
-    raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
-
-    def chunk(tag, data):
-        return (struct.pack(">I", len(data)) + tag + data
-                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n"
-                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(raw, 1))
-                + chunk(b"IEND", b""))
-
-
 def _labels(boxes, names, image_shape):
     """KITTI label lines of the objects whose projection lands in the
     image (center depth at least 1 m), and their 2D boxes."""
@@ -278,7 +263,7 @@ def _labels(boxes, names, image_shape):
 
 
 def write_kitti_tree(root, n_frames, seed=0, image_shape=(375, 1242),
-                     num_points=40000):
+                     num_points=40000, n_azimuth=500):
     """Write ``n_frames`` synthetic frames under ``root/training``: the
     HDL-64 scan of :func:`lidar_scene_objects` (every point in the KITTI
     range, to ``velodyne/`` and ``velodyne_reduced/``), the calibration
@@ -286,6 +271,7 @@ def write_kitti_tree(root, n_frames, seed=0, image_shape=(375, 1242),
     into the image (through the calibration, so the dataset's loader
     recovers the scene's boxes to the labels' two decimals), and a
     ``image_shape`` PNG with those objects drawn in their class colors.
+    ``num_points`` and ``n_azimuth`` as :func:`lidar_scene_objects`'s.
     Returns the frame ids ("000000", ...)."""
     rng = np.random.RandomState(seed)
     sub = os.path.join(root, "training")
@@ -299,8 +285,8 @@ def write_kitti_tree(root, n_frames, seed=0, image_shape=(375, 1242),
     for i in range(n_frames):
         idx = f"{i:06d}"
         ids.append(idx)
-        pts, valid, boxes, names = lidar_scene_objects(rng, num_points,
-                                                       SSL_PCR)
+        pts, valid, boxes, names = lidar_scene_objects(
+            rng, num_points, SSL_PCR, n_azimuth=n_azimuth)
         for d in ("velodyne", "velodyne_reduced"):
             pts[valid].tofile(os.path.join(sub, d, f"{idx}.bin"))
         with open(os.path.join(sub, "calib", f"{idx}.txt"), "w") as f:

@@ -3,8 +3,9 @@
 * ``detmatch_tpu_torch/``, ``tools/port_probes/`` and ``chip_smoke.py``
   import no ``jax``/``flax`` and nothing of the JAX package
   ``detmatch_tpu``;
-* the port's config loader and synthetic frames import only the standard
-  library and numpy;
+* the port's config loader, utilities (synthetic frames, visualisation)
+  and numpy geometry import only the standard library, numpy and each
+  other;
 * on CPU tensors each kernel wrapper (the model ops of ``Ops`` and the
   one-hot ops K6 and K8) runs its plain twin and leaves its launch
   counter at 0; on any other non-CUDA device it raises, the backward
@@ -33,7 +34,8 @@ PORT_FILES = (sorted((ROOT / "detmatch_tpu_torch").rglob("*.py"))
               + [ROOT / "chip_smoke.py"])
 NUMPY_ONLY_FILES = (
     sorted((ROOT / "detmatch_tpu_torch" / "config").glob("*.py"))
-    + sorted((ROOT / "detmatch_tpu_torch" / "utils").glob("*.py")))
+    + sorted((ROOT / "detmatch_tpu_torch" / "utils").glob("*.py"))
+    + [ROOT / "detmatch_tpu_torch" / "data" / "np_geometry.py"])
 WRAPPER_FILES = sorted((ROOT / "detmatch_tpu_torch" / "ops" / "cuda")
                        .glob("*.py"))
 
@@ -82,10 +84,12 @@ def test_port_imports_no_jax(path):
 @pytest.mark.parametrize("path", NUMPY_ONLY_FILES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_config_and_synth_modules_need_only_numpy(path):
+    numpy_only = {_module_name(p) for p in NUMPY_ONLY_FILES}
     for name in imported_modules(path):
         top = _top(name)
         assert (top in sys.stdlib_module_names or top == "numpy"
-                or name.startswith(_module_name(path.parent))), (path, name)
+                or name.startswith(_module_name(path.parent))
+                or name in numpy_only), (path, name)
 
 
 def test_port_imports_with_jax_blocked():
