@@ -1,6 +1,6 @@
 """Drive the PyTorch port's PV-RCNN inference and training, the
 DetMatch teacher phase, one whole DetMatch SSL iteration (fp32 and
-bf16) and the command-line tools on a CUDA card, check its CUDA kernels
+bf16), the command-line tools and the LiDAR zoo on a CUDA card, check its CUDA kernels
 against their plain PyTorch twins, and time them.
 
 Run from the repository root, with one card visible:
@@ -157,7 +157,28 @@ Phases (any failure exits non-zero without printing the result line):
    each call's seconds and launches (K1-K3 in pretrain_3d and test, K1-K4
    in SSL), the logs, checkpoints, PNG shapes and the eight
    ``{tea,stu}.{3d,2d}`` AP families;
-13. a JSON line of the kernels (per SSL iteration, with their bounds;
+13. the LiDAR zoo (``zoo_phases``): SECOND, SECOND-IoU, PointPillars,
+   Voxel R-CNN, Part-A2 and PointRCNN through ``build_detector`` at
+   JAX's default widths (pcdet's KITTI configs), on B=2 synthetic frames
+   of 18,000 points with the JAX benchmark's GT draw (``split_0.py``'s
+   voxelizer; pillars of 0.16 m, 12,000 of 32 points; 16,384 points a
+   frame for PointRCNN): one training step on the kernel path with the
+   model's own seeded initialisers (finite losses; K1 fwd / K1 bwd / K2 /
+   K3 launches 12/12/0/0 SECOND and SECOND-IoU, 0 PointPillars,
+   12/12/3/0 Voxel R-CNN, 28/28/0/0 Part-A2, 0/0/11/6 PointRCNN; every
+   recorded K1, K2, K3 call against its twin), the same step on the
+   plain paths on the kernel path's proposals with the same RoI picks
+   and dropout masks (losses and BN statistics within 1e-4; gradients
+   within 1e-3 with the sparse convs' kernel forward values and twin
+   backward), one optimizer step (``train/optim.py``), ms a step in 3
+   runs after a warm-up and peak memory, each kernel's ms against its
+   twin and bound; then ``randomize_``'s weights in eval mode at B=1 and
+   B=4: the dense outputs of the kernel path against the plain path
+   within 1e-4, the two-stage models' detections on the kernel path's
+   proposals against it (99% matched; unpinned, information: random
+   weights tie the scores densely), launches, ms a detect call (forward +
+   post-processing) in 3 runs;
+14. a JSON line of the kernels (per SSL iteration, with their bounds;
    K6 and K8 over the replayed calls, with 0 launches on the model
    path), then the result line.
 """
@@ -1105,6 +1126,7 @@ def run():
         cli_phases(card, base / "kitti", base / "cli")
     finally:
         tmp.cleanup()
+    zoo_phases(card, stats)
 
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=meta["source"],
@@ -3596,6 +3618,312 @@ def cli_phases(card, root, work):
         print(proc.stderr[-4000:])
         raise AssertionError("tools.test failed, an AP family is missing or "
                              "an AP is not finite")
+
+
+# the LiDAR zoo (zoo_phases): each model at JAX's default widths, its
+# registry name, its batch kind and its kernel launches a forward (K1
+# forward, K2, K3; K1's backward launches as often as its forward in a
+# training step)
+ZOO = (("SECOND", "voxel", dict(window_key_conv_batched=12)),
+       ("SECONDNetIoU", "voxel", dict(window_key_conv_batched=12)),
+       ("PointPillar", "pillar", {}),
+       ("VoxelRCNN", "voxel", dict(window_key_conv_batched=12,
+                                   ball_query_batched=3)),
+       ("PartA2Net", "voxel", dict(window_key_conv_batched=28)),
+       ("PointRCNN", "point", dict(ball_query_batched=11, fps_batched=6)))
+ZOO_KERNELS = ("window_key_conv_batched", "window_key_conv_bwd",
+               "ball_query_batched", "fps_batched")
+ZOO_EVAL_B = (1, 4)
+ZOO_REPS = 3
+# pcdet pointpillar.yaml: 0.16 m pillars over (0, -39.68) - (69.12, 39.68),
+# 12,000 pillars of 32 points; pointrcnn.yaml: 16,384 points a frame
+PILLAR_SPEC = dict(point_cloud_range=(0, -39.68, -3, 69.12, 39.68, 1),
+                   voxel_size=(0.16, 0.16, 4.0), max_voxels=12000,
+                   max_points=32)
+POINTRCNN_POINTS = 16384
+
+
+def zoo_frames(spec, b, rng):
+    """B synthetic HDL-64 frames of 18,000 points (``make_train_frames``'s
+    scans) with the JAX benchmark's GT draw."""
+    from detmatch_tpu_torch.utils.synth_kitti import gt_boxes, lidar_batch
+    pts, valid = lidar_batch(rng, b, TRAIN_POINTS, spec.point_cloud_range)
+    return dict(points=pts, points_valid=valid, gt_boxes=gt_boxes(rng, b))
+
+
+def zoo_batch(kind, frames, spec):
+    """A zoo model's batch on the card: voxels of ``spec`` (the training
+    phase's ``split_0.py`` voxelizer), pillars of ``PILLAR_SPEC``, or
+    16,384 points sampled from each frame's valid points."""
+    from detmatch_tpu_torch.apis.train_pretrain import to_device_batch
+    from detmatch_tpu_torch.ops.voxelize import VoxelizerSpec, voxelize_mean
+    if kind == "point":
+        rng = np.random.RandomState(SEED)
+        idx = np.stack([np.sort(rng.choice(np.flatnonzero(v),
+                                           POINTRCNN_POINTS, replace=False))
+                        for v in frames["points_valid"]])
+        frames = dict(frames, points=np.take_along_axis(
+            frames["points"], idx[..., None], 1), points_valid=np.ones(
+                idx.shape, bool))
+    batch = to_device_batch(frames, spec, DEVICE)
+    if kind == "pillar":
+        batch["pillars"] = voxelize_mean(batch["points"],
+                                         batch["points_valid"],
+                                         VoxelizerSpec(**PILLAR_SPEC))
+    return batch
+
+
+def zoo_post(model, out):
+    from detmatch_tpu_torch.models.pvrcnn.pvrcnn import post_processing
+    from detmatch_tpu_torch.models.pvrcnn.second import (
+        second_post_processing)
+    return (post_processing(out) if "rcnn_cls" in out
+            else second_post_processing(out))
+
+
+def zoo_spread(times):
+    return (f"{float(np.mean(times)):.3f} ms (min {min(times):.3f}, max "
+            f"{max(times):.3f}, {len(times)} runs)")
+
+
+def zoo_model(name, seed, own_init):
+    """The registry's ``name`` at its default widths on the card:
+    ``randomize_``'s weights, or (``own_init``) the model's own seeded
+    initialisers (see ``make_train_model``)."""
+    from detmatch_tpu_torch.apis.build import build_detector
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = build_detector({"model": {"detector_3d": dict(type=name)}})
+    if not own_init:
+        randomize_(model, seed)
+    return model
+
+
+def zoo_phases(card, stats):
+    """The LiDAR zoo at JAX's default widths: per model a B=2 training
+    step (kernel path against the plain paths, every recorded K1 / K2 / K3
+    call against its twin, the launch counts) and detections at B = 1 and
+    4 (kernel path against plain path), with ms a step and a detect call,
+    peak memory and the kernels' launches and ms; returns the per-model
+    lines."""
+    import copy
+
+    from detmatch_tpu_torch.apis.build import build_voxelizer
+    from detmatch_tpu_torch.config import Config
+    from detmatch_tpu_torch.ops import cuda as cuda_ops
+    from detmatch_tpu_torch.ops.cuda import KERNELS, PLAIN
+    from detmatch_tpu_torch.ops.cuda.window_key_conv import (
+        window_key_conv_bwd, window_key_conv_fwd, window_key_conv_plain)
+    from detmatch_tpu_torch.train.optim import (clip_grad_norm_,
+                                                make_optimizer)
+
+    spec = build_voxelizer(Config.fromfile(str(CONFIG)))
+    rng = np.random.RandomState(SEED + 14)
+    train_frames = zoo_frames(spec, TRAIN_B, rng)
+    eval_frames = zoo_frames(spec, max(ZOO_EVAL_B), rng)
+
+    def gen():
+        return torch.Generator(DEVICE).manual_seed(SEED)
+
+    def conv_plain_backward(feats, keys, nkeys, out_keys, w, band):
+        twin = window_key_conv_plain(feats, keys, nkeys, out_keys, w, band)
+        with torch.no_grad():
+            kern = KERNELS.window_key_conv_batched(feats, keys, nkeys,
+                                                   out_keys, w, band)
+        return kern + (twin - twin.detach())  # kern's values, twin's grad
+
+    summary = []
+    for name, kind, per_fwd in ZOO:
+        phase(f"zoo: {name}")
+        expect = {k: per_fwd.get(k, 0) for k in ZOO_KERNELS}
+        expect["window_key_conv_bwd"] = expect["window_key_conv_batched"]
+        batch = zoo_batch(kind, train_frames, spec)
+        model = zoo_model(name, SEED, own_init=True).train()
+        module = sys.modules[type(model).__module__]
+
+        # kernel path: one training step with the launch counters
+        calls = []
+        m = copy.deepcopy(model)
+        m.ops = recording(KERNELS, calls)
+        cuda_ops.reset_launch_counts()
+        out = m(batch, train=True, generator=gen())
+        losses = m.loss(out, batch)
+        losses["loss"].backward()
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in cuda_ops.launch_counts().items()
+                    if k in ZOO_KERNELS}
+        lk = {k: float(v.detach()) for k, v in losses.items()}
+        res = {"kernel": m}
+        pinned = ({k: v.detach() for k, v in out["proposals"].items()}
+                  if "proposals" in out else None)
+        del out, losses
+        print(f"  train B={TRAIN_B} losses: "
+              + " ".join(f"{k}={v:.5f}" for k, v in lk.items()))
+        print(f"  launches in the step: {launches}; expected {expect}")
+        ok = all(np.isfinite(v) for v in lk.values())
+        ok &= launches == expect
+        with torch.no_grad():
+            ok &= check_kernels(calls, f"{name} train", stats)
+
+        # plain paths on the kernel path's proposals, same RoI picks and
+        # dropout masks (one generator seed)
+        own_layer = getattr(module, "proposal_layer", None)
+        if pinned is not None:
+            module.proposal_layer = lambda *a, **kw: pinned
+        try:
+            for path, ops in (("plain", PLAIN), ("plain backward", PLAIN._replace(
+                    window_key_conv_batched=conv_plain_backward))):
+                mp = copy.deepcopy(model)
+                mp.ops = ops
+                out = mp(batch, train=True, generator=gen())
+                losses = mp.loss(out, batch)
+                losses["loss"].backward()
+                lp = {k: float(v.detach()) for k, v in losses.items()}
+                res[path] = mp
+                del out, losses
+                if path == "plain":
+                    for k in lp:
+                        ok &= report(f"plain: loss {k}", abs(lk[k] - lp[k])
+                                     / max(abs(lp[k]), 1e-12))
+                    bufs = dict(mp.named_buffers())
+                    stat_err = max([rel_err(b, bufs[n]) for n, b in
+                                    res["kernel"].named_buffers()
+                                    if n.endswith(("running_mean",
+                                                   "running_var"))]
+                                   or [0.0])
+                    ok &= report("plain: BN running statistics (worst)",
+                                 stat_err)
+        finally:
+            if own_layer is not None:
+                module.proposal_layer = own_layer
+        for path, gated in (("plain backward", True), ("plain", False)):
+            worst, worst_name = worst_grad(res["kernel"], res[path])
+            good = worst <= GRAD_TOL
+            ok &= good or not gated
+            print(f"  {path}: gradients: worst {worst:.3e} of the tensor's "
+                  f"largest magnitude ({worst_name}) "
+                  + (("ok" if good else "FAIL") if gated else
+                     "(information)"))
+        del res, mp
+
+        # one optimizer step (train/optim.py), then ms a step in turns
+        m = copy.deepcopy(model)
+        params = list(m.parameters())
+        opt, sched = make_optimizer(params, 0.001, 100)
+        g = gen()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for step in range(1 + ZOO_REPS):  # the first is a warm-up
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            out = m(batch, train=True, generator=g)
+            losses = m.loss(out, batch)
+            opt.zero_grad(set_to_none=True)
+            losses["loss"].backward()
+            clip_grad_norm_(params)
+            opt.step()
+            sched.step()
+            e1.record()
+            torch.cuda.synchronize()
+            ok &= bool(torch.isfinite(losses["loss"]))
+            del out, losses
+            if step:
+                times.append(e0.elapsed_time(e1))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        moved = all(torch.isfinite(p).all() for p in params)
+        ok &= bool(moved)
+        line = dict(model=name, train_ms=zoo_spread(times),
+                    train_peak_gib=round(peak, 3))
+        print(f"  train step B={TRAIN_B}: {line['train_ms']}, peak memory "
+              f"{peak:.3f} GiB [{card}]")
+        del m, opt, sched, params
+
+        # kernel and twin time of the step's calls, and K1's backward
+        bwd_cases = []
+        for cname, args, _, need in calls:
+            if cname != "window_key_conv_batched":
+                continue
+            feats, keys, nkeys = args[:3]
+            dout = torch.randn(feats.shape[0], nkeys.shape[1],
+                               args[4].shape[-1], generator=gen(),
+                               device=DEVICE)
+            _, rb = window_key_conv_fwd(*args, rulebook=True)
+            bwd_cases.append((args, need, dout, rb))
+        with torch.no_grad():
+            per = time_kernels(calls, bwd_cases)
+        kern_line = {}
+        for k in ZOO_KERNELS:
+            if k in per:
+                kern_line[k] = dict(launches=launches[k],
+                                    ms=round(per[k]["ms"], 3),
+                                    plain_ms=round(per[k]["plain_ms"], 3),
+                                    bound_ms=round(per[k]["bound_ms"], 4))
+                print(f"  {k}: {describe(per[k])} per training step, "
+                      f"{launches[k]} launches [{card}]")
+        line["kernels"] = kern_line
+        del calls, bwd_cases, batch
+
+        # detections at B = 1 and 4, kernel path against plain path: the
+        # dense outputs within 1e-4; the two-stage models' detections on
+        # the kernel path's proposals (random weights tie the scores so
+        # densely that 1e-6 noise reorders the NMS cuts: the unpinned
+        # share is information)
+        model = zoo_model(name, SEED, own_init=False).eval()
+        ebatch = zoo_batch(kind, eval_frames, spec)
+        for b in ZOO_EVAL_B:
+            bb = {k: (v[:b] if torch.is_tensor(v) else
+                      {kk: vv[:b] for kk, vv in v.items()})
+                  for k, v in ebatch.items()}
+            with torch.inference_mode():
+                model.ops = KERNELS
+                cuda_ops.reset_launch_counts()
+                out_k = model(bb)
+                det_k = zoo_post(model, out_k)
+                torch.cuda.synchronize()
+                ev_launch = {k: v for k, v in
+                             cuda_ops.launch_counts().items()
+                             if k in ZOO_KERNELS and v}
+                model.ops = PLAIN
+                out_p = model(bb)
+                share, total = match_share(det_k, zoo_post(model, out_p))
+                good = ev_launch == {k: v for k, v in per_fwd.items() if v}
+                good &= total > 0 and all(bool(torch.isfinite(
+                    det_k[k]).all()) for k in ("boxes", "scores"))
+                for k in ("batch_box_preds", "batch_cls_preds",
+                          "point_cls_logits", "point_box_reg"):
+                    if k in out_k:
+                        good &= report(f"B={b} {k}",
+                                       rel_err(out_k[k], out_p[k]))
+                pinned_share = None
+                if "proposals" in out_k:
+                    module.proposal_layer = lambda *a, **kw: out_k[
+                        "proposals"]
+                    try:
+                        pinned_share, _ = match_share(
+                            det_k, zoo_post(model, model(bb)))
+                    finally:
+                        module.proposal_layer = own_layer
+                    good &= pinned_share >= MATCH_SHARE
+                model.ops = KERNELS
+                ms = [cuda_ms(lambda: zoo_post(model, model(bb)), reps=1,
+                              warmup=int(i == 0)) for i in range(ZOO_REPS)]
+            ok &= good
+            line[f"detect_b{b}_ms"] = zoo_spread(ms)
+            pinned = ("" if pinned_share is None else
+                      f", {pinned_share:.4f} on the kernel path's proposals")
+            print(f"  detect B={b}: {zoo_spread(ms)}; detections "
+                  f"{det_k['valid'].sum(1).tolist()}; matched on the plain "
+                  f"path {share:.4f} of {total} (information){pinned}; "
+                  f"launches {ev_launch} {'ok' if good else 'FAIL'} "
+                  f"[{card}]")
+            del det_k, out_k, out_p
+        del model, ebatch
+        summary.append(line)
+        print("  " + json.dumps(line))
+        if not ok:
+            raise AssertionError(f"zoo: {name} failed a gate")
+    return summary
 
 
 def main():

@@ -1,7 +1,9 @@
 """Builders: a config loaded with
 ``detmatch_tpu_torch.config.Config.fromfile`` → datasets and their
 pipelines, detectors, the SSL detector and the voxelizer (counterpart of
-``detmatch_tpu/apis/build.py``; the port has PV-RCNN and Faster R-CNN).
+``detmatch_tpu/apis/build.py``): PV-RCNN, Faster R-CNN and the LiDAR
+zoo of JAX's registry (SECOND, SECOND-IoU, PointPillars, Part-A2, Voxel
+R-CNN, PointRCNN); CaDDN is not ported.
 Every model comes in eval mode on ``device``: the card unless the caller
 asks for another device (the CPU tests pass ``device="cpu"``); there is
 no fallback when no card is found. Datasets are host numpy."""
@@ -15,7 +17,12 @@ import torch
 
 from ..data import dbsampler, kitti, pipelines
 from ..models.frcnn.faster_rcnn import FasterRCNN
+from ..models.pvrcnn.parta2 import PartA2
+from ..models.pvrcnn.pointpillars import PointPillars
+from ..models.pvrcnn.pointrcnn import PointRCNN
 from ..models.pvrcnn.pvrcnn import PVRCNN
+from ..models.pvrcnn.second import SECOND, SECONDIoU
+from ..models.pvrcnn.voxelrcnn import VoxelRCNN
 from ..ops.voxelize import VoxelizerSpec
 from ..ssl.detector import SSLConfig, SSLDetector
 
@@ -85,7 +92,13 @@ def build_dataset(cfg: Dict[str, Any], rng=None):
     return ds
 
 
-DETECTORS = {"PVRCNN": PVRCNN, "FasterRCNN": FasterRCNN}
+# JAX's registry names (``detmatch_tpu/apis/build.py:80-92``)
+DETECTORS = {"PVRCNN": PVRCNN, "SECOND": SECOND, "SECONDNetIoU": SECONDIoU,
+             "PointPillar": PointPillars, "PartA2Net": PartA2,
+             "PointRCNN": PointRCNN, "VoxelRCNN": VoxelRCNN,
+             "FasterRCNN": FasterRCNN}
+# in JAX's registry, not ported yet (ROADMAP queue 1)
+NOT_PORTED = {"CaDDN": "the camera-only CaDDN (ROADMAP queue 1, item 5)"}
 DEFAULT_TYPE = {"detector_3d": "PVRCNN", "detector_2d": "FasterRCNN"}
 
 
@@ -108,8 +121,12 @@ def compute_dtype(name):
 def _make(cfg: Dict[str, Any], key: str):
     det = dict(cfg["model"].get(key, {}))
     kind = det.pop("type", DEFAULT_TYPE[key])
+    if kind in NOT_PORTED:
+        raise NotImplementedError(f"detector type {kind!r} is not ported: "
+                                  f"{NOT_PORTED[kind]}")
     if kind not in DETECTORS:
-        raise NotImplementedError(f"detector type {kind!r} is not ported")
+        raise KeyError(f"unknown detector type {kind!r}; expected one of "
+                       f"{sorted(DETECTORS)}")
     if "compute_dtype" in det:
         det["compute_dtype"] = compute_dtype(det["compute_dtype"])
     return DETECTORS[kind](**det)
@@ -117,8 +134,8 @@ def _make(cfg: Dict[str, Any], key: str):
 
 def build_detector(cfg: Dict[str, Any], device="cuda", key="detector_3d"):
     """The detector of ``cfg['model'][key]`` (``detector_3d``, a PV-RCNN
-    by default, or ``detector_2d``, a Faster R-CNN), eval mode, on
-    ``device``."""
+    by default or any 3D type of ``DETECTORS``, or ``detector_2d``, a
+    Faster R-CNN), eval mode, on ``device``."""
     return _make(cfg, key).to(device).eval()
 
 

@@ -1,5 +1,7 @@
 """JAX model variables → the port's state dicts: PV-RCNN (pcdet names),
-Faster R-CNN (mmdet names) and the SSL detector's teacher and student.
+the LiDAR zoo (``FROM_JAX``, by registry name, and the multi-group anchor
+head), Faster R-CNN (mmdet names) and the SSL detector's teacher and
+student.
 
 :func:`from_jax_pvrcnn` is the exact inverse of
 ``tools/model_converters/import_torch_ckpt.py:convert_pvrcnn`` (pcdet
@@ -50,6 +52,104 @@ def _unpermute(rows, perm):
     return out
 
 
+class _Writer:
+    """Builds a state dict from JAX leaves, undoing the layout bridges."""
+
+    def __init__(self):
+        self.sd = OrderedDict()
+
+    def put(self, key, arr):
+        self.sd[key] = torch.from_numpy(np.array(arr, order="C"))
+
+    def bn(self, key, p, s):
+        self.put(key + ".weight", p["scale"])
+        self.put(key + ".bias", p["bias"])
+        self.put(key + ".running_mean", s["mean"])
+        self.put(key + ".running_var", s["var"])
+        self.sd[key + ".num_batches_tracked"] = torch.tensor(0)
+
+    def linear(self, key, p, shape_tail=()):
+        """Dense (in, out) → Linear (out, in) / 1x1 conv (out, in, 1...)."""
+        k = np.asarray(p["kernel"]).T
+        self.put(key + ".weight", k.reshape(k.shape + shape_tail))
+        if "bias" in p:
+            self.put(key + ".bias", p["bias"])
+
+    def conv2d(self, key, p):
+        self.put(key + ".weight",
+                 np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+        if "bias" in p:
+            self.put(key + ".bias", p["bias"])
+
+    def spconv(self, key, p3, s3, name, ks=(3, 3, 3)):
+        """A (conv, BN) block: (K, in, out) → (kz, ky, kx, in, out)."""
+        w = np.asarray(p3[name + "_w"])
+        self.put(key + ".0.weight", w.reshape(ks + w.shape[1:]))
+        self.bn(key + ".1", p3[name + "_bn"], s3[name + "_bn"])
+
+    def mlp(self, key, p, s, stride=3, shape_tail=()):
+        """JAX ``MLP`` / ``SAGroupMLP`` ``dense{k}`` / ``bn{k}`` →
+        ``{key}.{stride*k}`` / ``{key}.{stride*k+1}``."""
+        for kk in range(len([n for n in p if n.startswith("dense")])):
+            self.linear(f"{key}.{stride * kk}", p[f"dense{kk}"], shape_tail)
+            self.bn(f"{key}.{stride * kk + 1}", p[f"bn{kk}"], s[f"bn{kk}"])
+
+    def fc_stack(self, key, p, s, out):
+        """JAX ``MLP`` + a closing Dense ``out`` → pcdet
+        ``make_fc_layers``."""
+        self.mlp(key, p, s)
+        n = len([k for k in p if k.startswith("dense")])
+        self.linear(f"{key}.{3 * n}", out)
+
+
+def _voxel_backbone(w, p3, s3):
+    w.spconv("backbone_3d.conv_input", p3, s3, "conv_input")
+    w.spconv("backbone_3d.conv1.0", p3, s3, "conv1_0")
+    for lvl in (2, 3, 4):
+        w.spconv(f"backbone_3d.conv{lvl}.0", p3, s3, f"conv{lvl}_down")
+        for j in (0, 1):
+            w.spconv(f"backbone_3d.conv{lvl}.{j + 1}", p3, s3,
+                     f"conv{lvl}_{j}")
+    w.spconv("backbone_3d.conv_out", p3, s3, "conv_out", (3, 1, 1))
+
+
+def _bev(w, p2, s2, layer_nums, hc=None):
+    """BaseBEVBackbone; ``hc`` the HeightCompression permutation of the
+    first conv's input channels (None for a pillar BEV)."""
+    for i, n_layers in enumerate(layer_nums):
+        blk = p2[f"block{i}_0"]
+        kernel = np.asarray(blk["conv"]["kernel"])
+        if i == 0 and hc is not None:  # consumes the HeightCompression
+            kernel = _unpermute(kernel.transpose(2, 0, 1, 3), hc
+                                ).transpose(1, 2, 0, 3)
+        w.conv2d(f"backbone_2d.blocks.{i}.1", dict(kernel=kernel))
+        w.bn(f"backbone_2d.blocks.{i}.2", blk["bn"], s2[f"block{i}_0"]["bn"])
+        for j in range(n_layers):
+            idx = 4 + 3 * j
+            w.conv2d(f"backbone_2d.blocks.{i}.{idx}",
+                     p2[f"block{i}_{j + 1}"]["conv"])
+            w.bn(f"backbone_2d.blocks.{i}.{idx + 1}",
+                 p2[f"block{i}_{j + 1}"]["bn"],
+                 s2[f"block{i}_{j + 1}"]["bn"])
+        k = np.asarray(p2[f"deblock{i}"]["conv"]["kernel"])
+        w.put(f"backbone_2d.deblocks.{i}.0.weight",
+              k[::-1, ::-1].transpose(2, 3, 0, 1))
+        w.bn(f"backbone_2d.deblocks.{i}.1", p2[f"deblock{i}"]["bn"],
+             s2[f"deblock{i}"]["bn"])
+
+
+def _dense_head(w, ph):
+    for ours, ref in (("conv_cls", "conv_cls"), ("conv_box", "conv_box"),
+                      ("conv_dir", "conv_dir_cls")):
+        w.conv2d(f"dense_head.{ref}", ph[ours])
+
+
+def _hc(cfg, out_channels=128):
+    grid = cfg.get("grid_size", (1408, 1600, 40))
+    hc_z = level_shapes((grid[2] + 1, grid[1], grid[0]))[-1][0]
+    return hc_z, out_channels
+
+
 def from_jax_pvrcnn(params, batch_stats, cfg):
     """(params, batch_stats) of the JAX ``PVRCNN`` → pcdet state dict.
 
@@ -62,88 +162,22 @@ def from_jax_pvrcnn(params, batch_stats, cfg):
         OrderedDict of float32 tensors that ``PVRCNN(**cfg)`` loads with
         ``load_state_dict``.
     """
-    sd = OrderedDict()
-
-    def put(key, arr):
-        sd[key] = torch.from_numpy(np.array(arr, order="C"))
-
-    def bn(key, p, s):
-        put(key + ".weight", p["scale"])
-        put(key + ".bias", p["bias"])
-        put(key + ".running_mean", s["mean"])
-        put(key + ".running_var", s["var"])
-        sd[key + ".num_batches_tracked"] = torch.tensor(0)
-
-    def linear(key, p, shape_tail=()):
-        k = np.asarray(p["kernel"]).T
-        put(key + ".weight", k.reshape(k.shape + shape_tail))
-        if "bias" in p:
-            put(key + ".bias", p["bias"])
-
-    def conv2d(key, p):
-        put(key + ".weight", np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
-        if "bias" in p:
-            put(key + ".bias", p["bias"])
-
-    # ---- backbone_3d ----
-    p3, s3 = params["backbone3d"], batch_stats["backbone3d"]
-
-    def spconv(key, name, ks=(3, 3, 3)):
-        w = np.asarray(p3[name + "_w"])
-        put(key + ".0.weight", w.reshape(ks + w.shape[1:]))
-        bn(key + ".1", p3[name + "_bn"], s3[name + "_bn"])
-
-    spconv("backbone_3d.conv_input", "conv_input")
-    spconv("backbone_3d.conv1.0", "conv1_0")
-    for lvl in (2, 3, 4):
-        spconv(f"backbone_3d.conv{lvl}.0", f"conv{lvl}_down")
-        for j in (0, 1):
-            spconv(f"backbone_3d.conv{lvl}.{j + 1}", f"conv{lvl}_{j}")
-    spconv("backbone_3d.conv_out", "conv_out", (3, 1, 1))
-
-    # ---- backbone_2d ----
-    grid = cfg.get("grid_size", (1408, 1600, 40))
-    hc_z = level_shapes((grid[2] + 1, grid[1], grid[0]))[-1][0]
-    hc_c = (cfg.get("backbone3d_cfg") or {}).get("out_channels", 128)
+    w = _Writer()
+    _voxel_backbone(w, params["backbone3d"], batch_stats["backbone3d"])
+    hc_z, hc_c = _hc(cfg, (cfg.get("backbone3d_cfg") or {}).get(
+        "out_channels", 128))
     hc = _hc_perm(hc_z, hc_c)
-    p2, s2 = params["backbone2d"], batch_stats["backbone2d"]
-    layer_nums = (cfg.get("bev_cfg") or {}).get("layer_nums", (5, 5))
-    for i, n_layers in enumerate(layer_nums):
-        blk = p2[f"block{i}_0"]
-        kernel = np.asarray(blk["conv"]["kernel"])
-        if i == 0:  # consumes the HeightCompression output
-            kernel = _unpermute(kernel.transpose(2, 0, 1, 3), hc
-                                ).transpose(1, 2, 0, 3)
-        conv2d(f"backbone_2d.blocks.{i}.1", dict(kernel=kernel))
-        bn(f"backbone_2d.blocks.{i}.2", blk["bn"],
-           s2[f"block{i}_0"]["bn"])
-        for j in range(n_layers):
-            idx = 4 + 3 * j
-            conv2d(f"backbone_2d.blocks.{i}.{idx}",
-                   p2[f"block{i}_{j + 1}"]["conv"])
-            bn(f"backbone_2d.blocks.{i}.{idx + 1}",
-               p2[f"block{i}_{j + 1}"]["bn"], s2[f"block{i}_{j + 1}"]["bn"])
-        k = np.asarray(p2[f"deblock{i}"]["conv"]["kernel"])
-        put(f"backbone_2d.deblocks.{i}.0.weight",
-            k[::-1, ::-1].transpose(2, 3, 0, 1))
-        bn(f"backbone_2d.deblocks.{i}.1", p2[f"deblock{i}"]["bn"],
-           s2[f"deblock{i}"]["bn"])
-
-    # ---- dense_head ----
-    for ours, ref in (("conv_cls", "conv_cls"), ("conv_box", "conv_box"),
-                      ("conv_dir", "conv_dir_cls")):
-        conv2d(f"dense_head.{ref}", params["dense_head"][ours])
+    _bev(w, params["backbone2d"], batch_stats["backbone2d"],
+         (cfg.get("bev_cfg") or {}).get("layer_nums", (5, 5)), hc)
+    _dense_head(w, params["dense_head"])
 
     # ---- pfe ----
     pp, sp = params["pfe"], batch_stats["pfe"]
 
     def sa_branch(key, name):
         for g in sorted(int(n[3:]) for n in pp[name] if n.startswith("mlp")):
-            mp, ms = pp[name][f"mlp{g}"], sp[name][f"mlp{g}"]
-            for kk in range(len([n for n in mp if n.startswith("dense")])):
-                linear(f"{key}.mlps.{g}.{3 * kk}", mp[f"dense{kk}"], (1, 1))
-                bn(f"{key}.mlps.{g}.{3 * kk + 1}", mp[f"bn{kk}"],
-                   ms[f"bn{kk}"])
+            w.mlp(f"{key}.mlps.{g}", pp[name][f"mlp{g}"],
+                  sp[name][f"mlp{g}"], shape_tail=(1, 1))
 
     sa_branch("pfe.SA_rawpoints", "sa_raw_points")
     for li in range(4):
@@ -152,8 +186,8 @@ def from_jax_pvrcnn(params, batch_stats, cfg):
     n_bev = hc_z * hc_c
     fusion = np.concatenate([_unpermute(fusion[:n_bev], hc),
                              fusion[n_bev:]])
-    linear("pfe.vsa_point_feature_fusion.0", dict(kernel=fusion))
-    bn("pfe.vsa_point_feature_fusion.1", pp["fusion_bn"], sp["fusion_bn"])
+    w.linear("pfe.vsa_point_feature_fusion.0", dict(kernel=fusion))
+    w.bn("pfe.vsa_point_feature_fusion.1", pp["fusion_bn"], sp["fusion_bn"])
 
     # ---- point_head ----
     ph, sh = params["point_head"], batch_stats["point_head"]
@@ -167,43 +201,182 @@ def from_jax_pvrcnn(params, batch_stats, cfg):
             k0 = np.asarray(p["kernel"])
             p = dict(kernel=np.concatenate([_unpermute(k0[:n_bev], hc),
                                             k0[n_bev:]]))
-        linear(f"point_head.cls_layers.{3 * kk}", p)
-        bn(f"point_head.cls_layers.{3 * kk + 1}", ph["cls_mlp"][f"bn{kk}"],
-           sh["cls_mlp"][f"bn{kk}"])
-    linear(f"point_head.cls_layers.{3 * n_fc}", ph["cls_out"])
+        w.linear(f"point_head.cls_layers.{3 * kk}", p)
+        w.bn(f"point_head.cls_layers.{3 * kk + 1}", ph["cls_mlp"][f"bn{kk}"],
+             sh["cls_mlp"][f"bn{kk}"])
+    w.linear(f"point_head.cls_layers.{3 * n_fc}", ph["cls_out"])
 
     # ---- roi_head ----
     pr, sr = params["roi_head"], batch_stats["roi_head"]
     for g in sorted(int(n[8:]) for n in pr if n.startswith("pool_mlp")):
-        mp, ms = pr[f"pool_mlp{g}"], sr[f"pool_mlp{g}"]
-        for kk in range(len([n for n in mp if n.startswith("dense")])):
-            linear(f"roi_head.roi_grid_pool_layer.mlps.{g}.{3 * kk}",
-                   mp[f"dense{kk}"], (1, 1))
-            bn(f"roi_head.roi_grid_pool_layer.mlps.{g}.{3 * kk + 1}",
-               mp[f"bn{kk}"], ms[f"bn{kk}"])
+        w.mlp(f"roi_head.roi_grid_pool_layer.mlps.{g}", pr[f"pool_mlp{g}"],
+              sr[f"pool_mlp{g}"], shape_tail=(1, 1))
     g3 = (cfg.get("roi_head_cfg") or {}).get("grid_size", 6) ** 3
     fc0 = np.asarray(pr["shared_fc0"]["kernel"])  # (G^3 * C, out)
     cin = fc0.shape[0] // g3
     perm = np.asarray([ci * g3 + gi for gi in range(g3) for ci in range(cin)],
                       np.int64)
+    _roi_fcs(w, pr, sr, "roi_head", shared_fc0=_unpermute(fc0, perm))
+    return w.sd
+
+
+def _roi_fcs(w, pr, sr, key, heads=(("cls", "cls_layers"),
+                                    ("reg", "reg_layers")),
+             shared_fc0=None):
+    """The RoI heads' fc stacks: JAX ``shared_fc{k}`` / ``shared_bn{k}``
+    and per head ``{name}_fc{k}`` / ``{name}_bn{k}`` / ``{name}_out`` →
+    ``shared_fc_layer`` and the heads' ``_fc_layers`` Sequentials
+    (Conv1d, BN, ReLU per layer; a Dropout after the shared layers but
+    the last and after each head's first)."""
     n_shared = len([n for n in pr if n.startswith("shared_fc")])
+    idx = 0
     for kk in range(n_shared):
-        p = (dict(kernel=_unpermute(fc0, perm)) if kk == 0
+        p = (dict(kernel=shared_fc0) if kk == 0 and shared_fc0 is not None
              else pr[f"shared_fc{kk}"])
-        # Conv1d, BN, ReLU per layer, Dropout between layers
-        linear(f"roi_head.shared_fc_layer.{4 * kk}", p, (1,))
-        bn(f"roi_head.shared_fc_layer.{4 * kk + 1}", pr[f"shared_bn{kk}"],
-           sr[f"shared_bn{kk}"])
-    for name, ref in (("cls", "cls_layers"), ("reg", "reg_layers")):
+        w.linear(f"{key}.shared_fc_layer.{idx}", p, (1,))
+        w.bn(f"{key}.shared_fc_layer.{idx + 1}", pr[f"shared_bn{kk}"],
+             sr[f"shared_bn{kk}"])
+        idx += 4 if kk < n_shared - 1 else 3
+    for name, ref in heads:
         n_fc = len([n for n in pr if n.startswith(f"{name}_fc")])
         idx = 0
         for kk in range(n_fc):
-            linear(f"roi_head.{ref}.{idx}", pr[f"{name}_fc{kk}"], (1,))
-            bn(f"roi_head.{ref}.{idx + 1}", pr[f"{name}_bn{kk}"],
-               sr[f"{name}_bn{kk}"])
+            w.linear(f"{key}.{ref}.{idx}", pr[f"{name}_fc{kk}"], (1,))
+            w.bn(f"{key}.{ref}.{idx + 1}", pr[f"{name}_bn{kk}"],
+                 sr[f"{name}_bn{kk}"])
             idx += 4 if kk == 0 else 3  # Dropout after the first layer
-        linear(f"roi_head.{ref}.{idx}", pr[f"{name}_out"], (1,))
-    return sd
+        w.linear(f"{key}.{ref}.{idx}", pr[f"{name}_out"], (1,))
+
+
+def _anchor_stack(w, params, batch_stats, cfg):
+    """Sparse backbone, BEV and anchor head of the zoo's voxel models."""
+    _voxel_backbone(w, params["backbone3d"], batch_stats["backbone3d"])
+    _bev(w, params["backbone2d"], batch_stats["backbone2d"], (5, 5),
+         _hc_perm(*_hc(cfg)))
+    _dense_head(w, params["dense_head"])
+
+
+def from_jax_second(params, batch_stats, cfg):
+    """JAX ``SECOND`` / ``SECONDIoU`` variables → the port's state dict
+    (``cfg`` the model's keyword config). The RoI head's fc input stays
+    in JAX's (g², C) order, which the port keeps."""
+    w = _Writer()
+    _anchor_stack(w, params, batch_stats, cfg)
+    if "roi_head" in params:
+        _roi_fcs(w, params["roi_head"], batch_stats["roi_head"], "roi_head",
+                 heads=(("iou", "iou_layers"),))
+    return w.sd
+
+
+def from_jax_voxelrcnn(params, batch_stats, cfg):
+    """JAX ``VoxelRCNN`` variables → the port's state dict."""
+    w = _Writer()
+    _anchor_stack(w, params, batch_stats, cfg)
+    pr, sr = params["roi_head"], batch_stats["roi_head"]
+    for g in sorted(int(n[8:]) for n in pr if n.startswith("pool_mlp")):
+        w.mlp(f"roi_head.roi_grid_pool_layers.{g}.mlps.0",
+              pr[f"pool_mlp{g}"], sr[f"pool_mlp{g}"], shape_tail=(1, 1))
+    _roi_fcs(w, pr, sr, "roi_head")
+    return w.sd
+
+
+def from_jax_parta2(params, batch_stats, cfg):
+    """JAX ``PartA2`` variables → the port's state dict (UNet names
+    pcdet's; dense 3D conv kernels (3, 3, 3, in, out) → (out, in, 3, 3,
+    3))."""
+    w = _Writer()
+    p3, s3 = params["backbone3d"], batch_stats["backbone3d"]
+    _anchor_stack(w, params, batch_stats, cfg)
+    for k in (1, 2, 3, 4):
+        for c, ours in (("c1", "conv1"), ("c2", "conv2")):
+            name = f"up{k}_t_{c}"
+            wt = np.asarray(p3[name + "_w"])
+            w.put(f"backbone_3d.conv_up_t{k}.{ours}.weight",
+                  wt.reshape((3, 3, 3) + wt.shape[1:]))
+            w.bn(f"backbone_3d.conv_up_t{k}.bn{ours[-1]}", p3[name + "_bn"],
+                 s3[name + "_bn"])
+        w.spconv(f"backbone_3d.conv_up_m{k}", p3, s3, f"up{k}_m")
+        if k > 1:
+            w.spconv(f"backbone_3d.inv_conv{k}", p3, s3, f"inv{k}")
+    w.spconv("backbone_3d.conv5", p3, s3, "conv5")
+    ph, sh = params["point_head"], batch_stats["point_head"]
+    w.fc_stack("point_head.cls_layers", ph["cls_mlp"], sh["cls_mlp"],
+               ph["cls_out"])
+    w.fc_stack("point_head.part_reg_layers", ph["part_mlp"], sh["part_mlp"],
+               ph["part_out"])
+    pr, sr = params["roi_head"], batch_stats["roi_head"]
+    for tower, ours in (("part", "conv_part"), ("rpn", "conv_rpn")):
+        for i in (0, 1):
+            blk = f"{tower}_c{i}"
+            w.put(f"roi_head.{ours}.{i}.conv.weight", np.asarray(
+                pr[blk]["conv"]["kernel"]).transpose(4, 3, 0, 1, 2))
+            w.bn(f"roi_head.{ours}.{i}.bn", pr[blk]["bn"], sr[blk]["bn"])
+    _roi_fcs(w, pr, sr, "roi_head")
+    return w.sd
+
+
+def from_jax_pointpillars(params, batch_stats, cfg):
+    """JAX ``PointPillars`` variables → the port's state dict."""
+    w = _Writer()
+    w.linear("vfe.pfn_layers.0.linear", params["vfe"]["pfn"])
+    w.bn("vfe.pfn_layers.0.norm", params["vfe"]["pfn_bn"],
+         batch_stats["vfe"]["pfn_bn"])
+    _bev(w, params["backbone2d"], batch_stats["backbone2d"],
+         cfg.get("layer_nums", (3, 5, 5)))
+    _dense_head(w, params["dense_head"])
+    return w.sd
+
+
+def from_jax_pointrcnn(params, batch_stats, cfg):
+    """JAX ``PointRCNN`` variables → the port's state dict."""
+    w = _Writer()
+    pb, sb = params["backbone3d"], batch_stats["backbone3d"]
+
+    def sa(key, p, s):
+        for g in sorted(int(n[3:]) for n in p if n.startswith("mlp")):
+            w.mlp(f"{key}.mlps.{g}", p[f"mlp{g}"], s[f"mlp{g}"],
+                  shape_tail=(1, 1))
+
+    for lv in sorted(int(n[2:]) for n in pb if n.startswith("sa")):
+        sa(f"backbone_3d.SA_modules.{lv}", pb[f"sa{lv}"], sb[f"sa{lv}"])
+    for lv in sorted(int(n[2:]) for n in pb if n.startswith("fp")):
+        w.mlp(f"backbone_3d.FP_modules.{lv}", pb[f"fp{lv}"], sb[f"fp{lv}"])
+    ph, sh = params["point_head"], batch_stats["point_head"]
+    w.fc_stack("point_head.cls_layers", ph["cls_mlp"], sh["cls_mlp"],
+               ph["cls_out"])
+    w.fc_stack("point_head.box_layers", ph["reg_mlp"], sh["reg_mlp"],
+               ph["reg_out"])
+    pr, sr = params["roi_head"], batch_stats["roi_head"]
+    w.mlp("roi_head.xyz_up_layer", pr["xyz_up"], sr["xyz_up"])
+    w.mlp("roi_head.merge_down_layer", pr["merge_down"], sr["merge_down"])
+    for lv in sorted(int(n[2:]) for n in pr if n.startswith("sa")):
+        sa(f"roi_head.SA_modules.{lv}", pr[f"sa{lv}"], sr[f"sa{lv}"])
+    for name, ref in (("cls", "cls_layers"), ("reg", "reg_layers")):
+        w.fc_stack(f"roi_head.{ref}", pr[f"{name}_mlp"], sr[f"{name}_mlp"],
+                   pr[f"{name}_out"])
+    return w.sd
+
+
+def from_jax_anchor_head_multi(params, key="dense_head"):
+    """JAX ``AnchorHeadMulti`` params → the port's ``AnchorHeadMulti``
+    state dict (under ``key`` if given): ``shared_conv`` and
+    ``rpn_heads.{i}.conv_cls / conv_box / conv_dir_cls``."""
+    w = _Writer()
+    pre = f"{key}." if key else ""
+    w.conv2d(pre + "shared_conv", params["shared_conv"])
+    for i in range(len([n for n in params if n.endswith("_cls")
+                        and n.startswith("head")])):
+        for ours, ref in (("cls", "conv_cls"), ("box", "conv_box"),
+                          ("dir", "conv_dir_cls")):
+            w.conv2d(f"{pre}rpn_heads.{i}.{ref}", params[f"head{i}_{ours}"])
+    return w.sd
+
+
+FROM_JAX = {"PVRCNN": from_jax_pvrcnn, "SECOND": from_jax_second,
+            "SECONDNetIoU": from_jax_second,
+            "PointPillar": from_jax_pointpillars,
+            "PartA2Net": from_jax_parta2, "VoxelRCNN": from_jax_voxelrcnn,
+            "PointRCNN": from_jax_pointrcnn}
 
 
 def from_jax_frcnn(params, frozen, cfg=None):

@@ -1,6 +1,6 @@
 """Box coders (counterpart of ``detmatch_tpu/core/coders.py``): the 7-dof
-residual coder that PV-RCNN uses, the 2D delta coder of Faster R-CNN
-and the xyxy / cxcywh conversions."""
+residual coder that PV-RCNN uses, PointRCNN's point-anchored coder, the
+2D delta coder of Faster R-CNN and the xyxy / cxcywh conversions."""
 from __future__ import annotations
 
 import numpy as np
@@ -111,3 +111,51 @@ def cxcywh_to_xyxy(boxes):
     cx, cy, w, h = boxes[..., 0], boxes[..., 1], boxes[..., 2], boxes[..., 3]
     return torch.stack([cx - w * 0.5, cy - h * 0.5, cx + w * 0.5,
                         cy + h * 0.5], dim=-1)
+
+
+class PointResidualCoder:
+    """Point-anchored 8-code coder (pcdet ``PointResidualCoder``): offsets
+    normalised by per-class mean sizes, log sizes, cos / sin heading.
+    PointRCNN's point head."""
+
+    code_size = 8
+
+    def __init__(self, mean_size=((3.9, 1.6, 1.56), (0.8, 0.6, 1.73),
+                                  (1.76, 0.6, 1.73)), use_mean_size=True):
+        self.use_mean_size = use_mean_size
+        self.mean_size = np.asarray(mean_size, np.float32)
+
+    def _anchor_dims(self, classes, like):
+        """(...) 1-based classes → (..., 3) mean sizes (ones without
+        ``use_mean_size``)."""
+        if not self.use_mean_size:
+            return torch.ones(like.shape[:-1] + (3,), dtype=like.dtype,
+                              device=like.device)
+        ms = torch.as_tensor(self.mean_size, device=like.device)
+        return ms[torch.clamp(classes.long() - 1, 0, ms.shape[0] - 1)]
+
+    def encode(self, gt_boxes, points, gt_classes=None):
+        """gt_boxes (..., 7), points (..., 3) → (..., 8)."""
+        dims = torch.clamp(gt_boxes[..., 3:6], min=1e-5)
+        a = self._anchor_dims(gt_classes, gt_boxes)
+        diag = torch.sqrt(a[..., 0] ** 2 + a[..., 1] ** 2)
+        return torch.stack([
+            (gt_boxes[..., 0] - points[..., 0]) / diag,
+            (gt_boxes[..., 1] - points[..., 1]) / diag,
+            (gt_boxes[..., 2] - points[..., 2]) / a[..., 2],
+            torch.log(dims[..., 0] / a[..., 0]),
+            torch.log(dims[..., 1] / a[..., 1]),
+            torch.log(dims[..., 2] / a[..., 2]),
+            torch.cos(gt_boxes[..., 6]), torch.sin(gt_boxes[..., 6])], -1)
+
+    def decode(self, encodings, points, pred_classes=None):
+        """encodings (..., 8), points (..., 3) → (..., 7)."""
+        a = self._anchor_dims(pred_classes, encodings)
+        diag = torch.sqrt(a[..., 0] ** 2 + a[..., 1] ** 2)
+        xyz = torch.stack([encodings[..., 0] * diag + points[..., 0],
+                           encodings[..., 1] * diag + points[..., 1],
+                           encodings[..., 2] * a[..., 2] + points[..., 2]],
+                          -1)
+        dims = torch.exp(encodings[..., 3:6]) * a
+        rg = torch.atan2(encodings[..., 7], encodings[..., 6])
+        return torch.cat([xyz, dims, rg[..., None]], -1)

@@ -24,7 +24,8 @@ from .anchor_head import AnchorHeadSingle
 from .backbone3d import VoxelBackbone8x, level_shapes
 from .bev import BaseBEVBackbone, height_compression
 from .point_head import PointHeadSimple
-from .roi_head import PVRCNNHead, proposal_layer, roi_head_loss_terms
+from .roi_head import (PVRCNNHead, proposal_layer, roi_head_loss_terms,
+                       second_stage_rois)
 from .vsa import VoxelSetAbstraction
 
 # DetMatch PV-RCNN anchor config (``split_0.py:132-160``)
@@ -149,17 +150,8 @@ class PVRCNN(nn.Module):
             kp_valid=vsa["kp_valid"], point_features=vsa["point_features"],
             point_features_before_fusion=vsa["point_features_before_fusion"],
             proposals=proposals)
-        if train:
-            targets = self.roi_head.assign_targets(generator, proposals,
-                                                   batch["gt_boxes"])
-            out.update(roi_targets=targets, rois=targets["rois"],
-                       roi_labels=targets["roi_labels"],
-                       roi_scores_full=targets["roi_scores_full"])
-        else:
-            out.update(rois=proposals["rois"],
-                       roi_labels=proposals["roi_labels"],
-                       roi_scores=proposals["roi_scores"],
-                       roi_scores_full=proposals["roi_scores_full"])
+        out.update(second_stage_rois(proposals, batch.get("gt_boxes"), train,
+                                     generator, self.roi_head.target_cfg))
         rois = out["rois"]
         rcnn_cls, rcnn_reg = self.roi_head(
             rois, vsa["keypoints"], vsa["kp_valid"], vsa["point_features"],
@@ -236,10 +228,20 @@ def post_processing(out, nms_pre=4096, nms_post=500, nms_thresh=0.1,
         return dict(boxes=out["batch_box_preds_rcnn"], scores=cls,
                     labels=out["roi_labels"], sem_scores_full=full,
                     valid=cls >= score_thresh)
+    return nms_detections(out["batch_box_preds_rcnn"], cls,
+                          out["roi_labels"], full, nms_pre, nms_post,
+                          nms_thresh, score_thresh)
+
+
+def nms_detections(boxes, scores, labels, sem_full, nms_pre, nms_post,
+                   nms_thresh, score_thresh):
+    """Per frame: the ``nms_pre`` best boxes at or above ``score_thresh``
+    (stable descending sort = ``lax.top_k``'s order), class-agnostic BEV
+    NMS to ``nms_post`` slots, invalid slots zero → the dict of
+    :func:`post_processing`."""
     res = {k: [] for k in ("boxes", "scores", "labels", "sem_scores_full",
                            "valid")}
-    for b, s, lab, f in zip(out["batch_box_preds_rcnn"], cls,
-                            out["roi_labels"], full):
+    for b, s, lab, f in zip(boxes, scores, labels, sem_full):
         masked = torch.where(s >= score_thresh, s, nms_mod.NEG_INF)
         k = min(nms_pre, masked.shape[0])
         top_s, top_i = torch.sort(masked, descending=True, stable=True)

@@ -213,6 +213,22 @@ def assign_roi_targets(generator, proposals, gt_boxes, cfg=None):
     return targets
 
 
+def second_stage_rois(proposals, gt_boxes, train, generator,
+                      target_cfg=None):
+    """The RoIs a two-stage head refines: in train mode the sampled RoIs
+    of :func:`assign_roi_targets` (``roi_targets`` holds their targets),
+    else the proposals themselves. Returns the forward's ``rois``,
+    ``roi_labels``, ``roi_scores_full`` (and ``roi_scores`` or
+    ``roi_targets``)."""
+    if train:
+        t = assign_roi_targets(generator, proposals, gt_boxes, target_cfg)
+        return dict(roi_targets=t, rois=t["rois"], roi_labels=t["roi_labels"],
+                    roi_scores_full=t["roi_scores_full"])
+    return dict(rois=proposals["rois"], roi_labels=proposals["roi_labels"],
+                roi_scores=proposals["roi_scores"],
+                roi_scores_full=proposals["roi_scores_full"])
+
+
 def roi_head_loss_terms(rcnn_cls, rcnn_reg, targets):
     """Per-sample (numerator, denominator) pairs of the RoI losses (all
     weights 1, as the JAX defaults)."""
@@ -256,13 +272,14 @@ def roi_head_loss(rcnn_cls, rcnn_reg, targets):
             for k, (numer, denom) in terms.items()}
 
 
-def _fc_layers(cin, channels, dropout_after, dp_ratio):
+def _fc_layers(cin, channels, dropout_after, dp_ratio, eps=1e-5):
     """pcdet fc stacks: (Conv1d, BatchNorm1d, ReLU) per layer, Dropout
-    after the layers ``dropout_after`` selects."""
+    after the layers ``dropout_after`` selects; ``eps`` the batch norm's
+    (the zoo's heads take JAX's ``MaskedBatchNorm`` default, 1e-3)."""
     layers = []
     for k, c in enumerate(channels):
         layers += [nn.Conv1d(cin, c, 1, bias=False),
-                   nn.BatchNorm1d(c, momentum=0.01), nn.ReLU()]
+                   nn.BatchNorm1d(c, eps=eps, momentum=0.01), nn.ReLU()]
         if dropout_after(k):
             layers.append(nn.Dropout(dp_ratio))
         cin = c
@@ -349,10 +366,6 @@ class PVRCNNHead(nn.Module):
                            generator, self.dtype)
         return tuple(_apply_fc(seq, shared, generator, self.dtype)
                      for seq in (self.cls_layers, self.reg_layers))
-
-    def assign_targets(self, generator, proposals, gt_boxes):
-        return assign_roi_targets(generator, proposals, gt_boxes,
-                                  self.target_cfg)
 
     decode_boxes = staticmethod(decode_roi_boxes)
     loss = staticmethod(roi_head_loss)

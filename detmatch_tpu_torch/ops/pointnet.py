@@ -1,6 +1,7 @@
 """PointNet++-style set ops (counterpart of ``detmatch_tpu/ops/pointnet.py``):
-row gather and the plain farthest-point sampling and ball query that the
-CUDA kernels in ``ops/cuda`` are held against.
+row gather, the plain farthest-point sampling and ball query that the
+CUDA kernels in ``ops/cuda`` are held against, and the 3-NN
+interpolation of PointNet++'s feature propagation.
 
 Squared distances are written as three products and two sums in a fixed
 order, ``dx*dx + dy*dy + dz*dz``: the kernels compute the same with
@@ -143,3 +144,41 @@ def radius_sq(radius):
     squared in float32."""
     r = np.float32(radius)
     return np.float32(r * r)
+
+
+def three_nn(queries, queries_valid, points, points_valid, chunk=4096):
+    """The 3 nearest valid points of each query (pcdet ``three_nn``),
+    batched; ties go to the lower index, as ``lax.top_k``'s.
+
+    Args:
+        queries: (B, Q, 3); points: (B, N, 3), N >= 3; *_valid: bool.
+    Returns:
+        (dists (B, Q, 3) nearest first, BIG_DIST for an invalid query;
+        idx (B, Q, 3) int32).
+    """
+    px, py, pz = (t[:, None, :] for t in points.unbind(-1))
+    d_out, i_out = [], []
+    for s in range(0, queries.shape[1], chunk):
+        qx, qy, qz = (t[..., None] for t in queries[:, s:s + chunk].unbind(-1))
+        d2 = torch.where(points_valid[:, None, :],
+                         sq_dist(qx, qy, qz, px, py, pz), BIG_DIST)
+        picks, vals = [], []
+        for _ in range(3):  # argmin takes the first minimum
+            i = torch.argmin(d2, dim=-1, keepdim=True)
+            vals.append(torch.gather(d2, -1, i))
+            picks.append(i)
+            d2 = d2.scatter(-1, i, torch.inf)
+        d_out.append(torch.sqrt(torch.clamp(torch.cat(vals, -1), min=0.0)))
+        i_out.append(torch.cat(picks, -1).to(torch.int32))
+    dists = torch.where(queries_valid[..., None], torch.cat(d_out, 1),
+                        BIG_DIST)
+    return dists, torch.cat(i_out, 1)
+
+
+def three_interpolate(feats, idx, dists, eps=1e-8):
+    """Inverse-squared-distance weighted sum over the 3 neighbours
+    (pcdet ``three_interpolate``): feats (B, N, C), idx (B, Q, 3),
+    dists (B, Q, 3) → (B, Q, C)."""
+    w = 1.0 / torch.clamp(dists * dists, min=eps)
+    w = w / w.sum(-1, keepdim=True)
+    return (gather_rows(feats, idx) * w[..., None]).sum(2)

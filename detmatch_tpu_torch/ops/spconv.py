@@ -5,7 +5,10 @@ A sparse tensor is a fixed-capacity (B, N, C) feature buffer plus
 (B, N) int32 keys, sorted ascending per sample with ``INVALID_KEY``
 padding. A conv resolves each output row's neighbour keys to input rows
 by binary search within the row's own sample, then contracts the
-gathered (K, Cin) neighbourhood with the (K, Cin, Cout) weights.
+gathered (K, Cin) neighbourhood with the (K, Cin, Cout) weights. The
+same machinery gives the inverse conv of the Part-A2 UNet (output rows
+on the fine keys of a strided conv), sparse max pooling and the dense
+scatter.
 """
 from __future__ import annotations
 
@@ -155,3 +158,76 @@ def to_dense_yxz(feats, keys, spatial_shape):
     idx = torch.where(keys == INVALID_KEY, Y * X * Z, keys).long()
     dense.scatter_(1, idx[..., None].expand(-1, -1, c), feats)
     return dense[:, :-1].reshape(b, Y, X, Z, c)
+
+
+def to_dense(feats, keys, spatial_shape):
+    """Scatter (B, N, C) sparse rows to a dense (B, Z, Y, X, C) grid."""
+    return to_dense_yxz(feats, keys, spatial_shape).permute(0, 3, 1, 2, 4)
+
+
+def inverse_neighbor_keys(fine_keys, spatial_shape_fine,
+                          spatial_shape_coarse, kernel_size, stride,
+                          padding):
+    """Neighbour keys of a SparseInverseConv (spconv
+    ``SparseInverseConv3d``): the output rows are the fine-grid keys of
+    the paired strided conv, and coarse position q feeds fine position p
+    under tap k where p = q * stride - pad + k, i.e. q = (p + pad - k) /
+    stride, exact divisions only.
+
+    Returns (B, N_fine, K) coarse-grid keys (INVALID_KEY where none).
+    Within a tap, distinct fine keys give distinct coarse keys.
+    """
+    dev = fine_keys.device
+    offs = torch.as_tensor(_offsets(_triple(kernel_size)), device=dev)
+    stride_ = torch.tensor(_triple(stride), dtype=torch.int32, device=dev)
+    pad_ = torch.tensor(_triple(padding), dtype=torch.int32, device=dev)
+    num = (_coords(fine_keys, spatial_shape_fine)[:, :, None, :] + pad_
+           - offs)
+    qc = num // stride_
+    shape_c = torch.tensor(spatial_shape_coarse, dtype=torch.int32,
+                           device=dev)
+    ok = (((num % stride_ == 0) & (qc >= 0) & (qc < shape_c)).all(-1)
+          & (fine_keys != INVALID_KEY)[..., None])
+    return torch.where(ok, linearize(qc, spatial_shape_coarse), INVALID_KEY)
+
+
+def sparse_inverse_conv_batched(coarse_feats, coarse_keys, fine_keys,
+                                spatial_shape_fine, spatial_shape_coarse,
+                                kernel_size, stride, padding, weights):
+    """Plain SparseInverseConv: coarse features (B, Nc, C) back onto the
+    fine key set (B, Nf) of the paired strided conv; weights
+    (K, C, Cout) → (B, Nf, Cout)."""
+    nkeys = inverse_neighbor_keys(fine_keys, spatial_shape_fine,
+                                  spatial_shape_coarse, kernel_size, stride,
+                                  padding)
+    return gather_conv_batched(coarse_feats,
+                               rulebook_batched(coarse_keys, nkeys), weights)
+
+
+def sparse_maxpool_batched(feats, in_keys, spatial_shape_in, kernel_size,
+                           stride, padding, out_cap):
+    """Sparse max pooling (spconv ``SparseMaxPool3d``): the output keys
+    are a strided sparse conv's of the same geometry; each output row
+    takes the max over its present input taps.
+
+    Args:
+        feats: (B, N, C); in_keys: (B, N) sorted.
+    Returns:
+        (out_feats (B, out_cap, C), out_keys (B, out_cap), counts (B,)).
+    """
+    geom = (_triple(kernel_size), _triple(stride), _triple(padding))
+    shape_out = output_spatial_shape(spatial_shape_in, *geom)
+    out_keys, counts = downsample_keys_batched(
+        in_keys, spatial_shape_in, shape_out, *geom, out_cap)
+    rb = rulebook_batched(in_keys, sparse_neighbor_keys(
+        out_keys, spatial_shape_in, shape_out, *geom))
+    b, n, c = feats.shape
+    m, k = rb.shape[1], rb.shape[2]
+    valid = rb >= 0
+    base = (torch.arange(b, device=feats.device) * n)[:, None, None]
+    idx = torch.where(valid, rb + base, 0).reshape(-1)
+    gathered = torch.index_select(feats.reshape(b * n, c), 0, idx
+                                  ).reshape(b, m, k, c)
+    pooled = torch.where(valid[..., None], gathered, -torch.inf).amax(2)
+    keep = (out_keys != INVALID_KEY)[..., None] & torch.isfinite(pooled)
+    return torch.where(keep, pooled, 0.0), out_keys, counts

@@ -108,7 +108,10 @@ def _voxelize_one(points, points_valid, spec: VoxelizerSpec):
     return dict(features=features, coords=coords, keys=vkeys,
                 num_voxels=num_voxels.to(torch.int32),
                 num_dropped_voxels=(total_voxels - num_voxels).to(
-                    torch.int32))
+                    torch.int32),
+                # the grouped per-point view (PointPillars' PillarVFE)
+                point_feats=sfeat, point_voxel_id=voxel_id.to(torch.int32),
+                point_contrib=contrib, voxel_counts=cnt)
 
 
 def voxelize_mean(points, points_valid, spec: VoxelizerSpec):
@@ -121,7 +124,12 @@ def voxelize_mean(points, points_valid, spec: VoxelizerSpec):
     Returns:
         dict of batched tensors: features (B, V, 3 + C), coords (B, V, 3)
         int32 zyx, keys (B, V) int32 sorted ascending with INVALID_KEY
-        padding, num_voxels (B,), num_dropped_voxels (B,).
+        padding, num_voxels (B,), num_dropped_voxels (B,), and the
+        grouped per-point view: point_feats (B, P, 3 + C) the points in
+        key order, point_voxel_id (B, P) int32 their voxel row (-1 out of
+        range; rows past the cap are >= V), point_contrib (B, P) bool
+        whether a point enters its voxel's mean, voxel_counts (B, V)
+        float the points each mean took.
     """
     outs = [_voxelize_one(p, v, spec) for p, v in zip(points, points_valid)]
     return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}

@@ -1178,3 +1178,147 @@ def test_onehot_take_rows_exact_at_any_width(dev, c, offset):
     assert torch.equal(out, onehot_rows.take_rows_plain(xd, idd))
     assert torch.equal(out.cpu(), onehot_rows.take_rows_plain(x, idx))
     assert not out[idd >= n].any()
+
+
+# ---- the LiDAR zoo's new kernel paths ----
+
+ZOO_SPEC = voxelize.VoxelizerSpec(SSL_PCR, (0.05, 0.05, 0.1), 16000, 5)
+
+
+@pytest.fixture(scope="module")
+def unet_convs():
+    """The 28 K1 calls of one Part-A2 UNet forward (B=2 synthetic frames
+    of 18,000 points, ``split_0.py``'s voxelizer, pcdet's widths and
+    caps), recorded on the twin: the encoder's 12, the UR blocks' 12
+    (their merge convs at C = 128 -> 64) and the three inverse convs on
+    the coarse key tables, and conv5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the H100: see the README)")
+    from detmatch_tpu_torch.models.pvrcnn.unet import UNetBackbone
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pts, valid = lidar_batch(np.random.RandomState(14), 2, 18000, SSL_PCR)
+    vox = voxelize.voxelize_mean(torch.from_numpy(pts).cuda(),
+                                 torch.from_numpy(valid).cuda(), ZOO_SPEC)
+    torch.manual_seed(14)
+    net = UNetBackbone(ZOO_SPEC.spatial_shape).cuda().eval()
+    calls = []
+
+    def rec(*args):
+        calls.append(tuple(a.detach() if torch.is_tensor(a) else a
+                           for a in args))
+        return window_key_conv.window_key_conv_plain(*args)
+
+    ops = cuda_ops.PLAIN._replace(window_key_conv_batched=rec)
+    with torch.no_grad():
+        net(vox["features"], vox["keys"], ops)
+    assert len(calls) == 28
+    return calls
+
+
+@pytest.mark.parametrize("i", range(28))
+def test_window_key_conv_at_unet_shapes(unet_convs, i):
+    """K1 forward and backward at each UNet conv's shapes and geometry
+    (subm, stride 2, (3,1,1), inverse): within 1e-5 of the twin, the
+    forward's rulebook equal to the plain one, forward and backward
+    bit-equal over two launches."""
+    feats, keys, nk, out_keys, w, band = unet_convs[i]
+    out = window_key_conv.window_key_conv_batched(feats, keys, nk, out_keys,
+                                                  w, band)
+    again, rb = window_key_conv.window_key_conv_fwd(feats, keys, nk,
+                                                    out_keys, w, band,
+                                                    rulebook=True)
+    ref = window_key_conv.window_key_conv_plain(feats, keys, nk, out_keys,
+                                                w, band)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    assert float((out - ref).abs().max() / ref.abs().max()) <= 1e-5
+    assert torch.equal(rb, spconv.rulebook_batched(keys, nk))
+    g = torch.Generator().manual_seed(i)
+    dout = torch.randn(out.shape, generator=g).cuda()
+    first = window_key_conv.window_key_conv_bwd(dout, feats, rb, w)
+    second = window_key_conv.window_key_conv_bwd(dout, feats, rb, w)
+    want = _grads(window_key_conv.window_key_conv_plain, feats, keys, nk,
+                  out_keys, w, dout, band, True)
+    torch.cuda.synchronize()
+    for a, a2, r in zip(first, second, want):
+        assert torch.equal(a, a2)
+        assert float((a - r).abs().max() / r.abs().max()) <= 1e-5
+
+
+def test_unet_shapes_reach_c128_and_the_inverse_geometry(unet_convs):
+    """The recorded calls include the two 128-channel merge convs, and 7
+    whose output rows are not the table's rows: the 4 strided convs and
+    the 3 inverse convs."""
+    shapes = [(c[0].shape[-1], c[4].shape[-1]) for c in unet_convs]
+    assert shapes.count((128, 64)) == 2
+    assert sum(c[3].data_ptr() != c[1].data_ptr() for c in unet_convs) == 7
+
+
+@pytest.mark.parametrize("radius", [0.4, 0.8, 1.6])
+def test_ball_query_on_voxel_centre_tables(dev, radius):
+    """Voxel R-CNN's call: the RoI grid points (B=2, 128 RoIs x 216) over
+    a level's voxel centres, the table's padded rows masked."""
+    from detmatch_tpu_torch.models.pvrcnn.vsa import voxel_centers
+    pts, valid = lidar_batch(np.random.RandomState(15), 2, 18000, SSL_PCR)
+    vox = voxelize.voxelize_mean(torch.from_numpy(pts).to(dev),
+                                 torch.from_numpy(valid).to(dev),
+                                 voxelize.VoxelizerSpec(
+                                     SSL_PCR, (0.2, 0.2, 0.4), 12000, 5))
+    keys = vox["keys"]
+    shape = voxelize.VoxelizerSpec(SSL_PCR, (0.2, 0.2, 0.4), 12000,
+                                   5).spatial_shape
+    mask = keys != voxelize.INVALID_KEY
+    assert not mask.all()
+    cen = voxel_centers(keys, shape, 1, (0.2, 0.2, 0.4), SSL_PCR)
+    g = torch.Generator(device=dev).manual_seed(15)
+    roi = cen[:, torch.randint(0, 5000, (128,), generator=g, device=dev)]
+    grid = (roi[:, :, None] + torch.rand(2, 128, 216, 3, generator=g,
+                                         device=dev) * 2 - 1).reshape(
+        2, -1, 3).contiguous()
+    gv = torch.ones(grid.shape[:2], dtype=torch.bool, device=dev)
+    c_s, v_s, perm = ball_query.sort_points_by_y(cen, mask)
+    table = ball_query.pack_table(c_s, v_s, perm)
+    ki, kc = ball_query.ball_query_batched(grid, gv, c_s, v_s, radius, 16,
+                                           point_perm=perm, table=table)
+    pi, pc = ball_query.ball_query_plain(grid, gv, c_s, v_s, radius, 16,
+                                         point_perm=perm)
+    assert torch.equal(ki, pi) and torch.equal(kc, pc)
+    assert (kc > 0).any() and (kc == 0).any()
+
+
+def test_ball_query_group_all_512_slots_over_32_points(dev):
+    """PointRCNN's group-all level: one center at the origin over each
+    problem's 32 points, radius 100, 512 slots (the unused ones repeat
+    the first hit); 256 problems, some with no valid point."""
+    g = torch.Generator(device=dev).manual_seed(16)
+    pts = torch.randn(256, 32, 3, generator=g, device=dev) * 2
+    pv = torch.ones(256, 32, dtype=torch.bool, device=dev)
+    pv[::7] = False
+    pv[3, 20:] = False
+    cen = torch.zeros(256, 1, 3, device=dev)
+    cv = pv.any(1, keepdim=True)
+    ki, kc = ball_query.ball_query_batched(cen, cv, pts, pv, 100.0, 512)
+    pi, pc = ball_query.ball_query_plain(cen, cv, pts, pv, 100.0, 512)
+    assert torch.equal(ki, pi) and torch.equal(kc, pc)
+    assert kc.max() == 32 and kc[3] == 20 and (kc[::7] == 0).all()
+
+
+def test_fps_16384_to_4096(dev):
+    """PointRCNN's first level: B=2 frames of 16,384 points → 4,096."""
+    xyz, valid = _lidar(dev, 2, 16384, 17)
+    out = fps.fps_batched(xyz, valid, 4096)
+    assert torch.equal(out, fps.fps_plain(xyz, valid, 4096))
+
+
+@pytest.mark.parametrize("n,k", [(512, 128), (128, 32)])
+def test_fps_on_roi_problems(dev, n, k):
+    """PointRCNN's RoI head: 256 problems (B=2 x 128 RoIs) of 512 → 128
+    and 128 → 32 points in a RoI's frame, every eighth one empty (no
+    valid point: index 0 throughout)."""
+    g = torch.Generator(device=dev).manual_seed(18 + n)
+    xyz = torch.randn(256, n, 3, generator=g, device=dev)
+    valid = torch.ones(256, n, dtype=torch.bool, device=dev)
+    valid[::8] = False
+    out = fps.fps_batched(xyz, valid, k)
+    assert torch.equal(out, fps.fps_plain(xyz, valid, k))
+    assert (out[::8] == 0).all()

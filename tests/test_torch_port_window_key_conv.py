@@ -1,6 +1,6 @@
 """The host-side plan of K1's kernels (``ops/cuda/window_key_conv``): the
-gather-GEMM tile of every backbone conv, forward and input gradient, fits
-the H100's shared memory; the backward's pair chunks and workspace; and
+gather-GEMM tile of every backbone conv and of every conv of Part-A2's
+UNet, forward and input gradient, fits the H100's shared memory; the backward's pair chunks and workspace; and
 the constants the wrapper mirrors from ``csrc/``. Runs on the CPU: the
 plan is plain Python, and the kernels read it as launch arguments.
 """
@@ -17,6 +17,7 @@ sys.path.insert(0, str(ROOT))
 
 from detmatch_tpu_torch.models.pvrcnn.backbone3d import (  # noqa: E402
     SparseConv3d, VoxelBackbone8x)
+from detmatch_tpu_torch.models.pvrcnn.unet import UNetBackbone  # noqa: E402
 from detmatch_tpu_torch.ops.cuda import window_key_conv as wkc  # noqa: E402
 
 CSRC = ROOT / "detmatch_tpu_torch" / "csrc"
@@ -30,7 +31,17 @@ def _backbone_convs():
             if isinstance(m, SparseConv3d)]
 
 
+def _unet_convs():
+    """("unet.<name>", K, C, Co) of the Part-A2 UNet's 28 convs at the
+    default widths."""
+    net = UNetBackbone((41, 1600, 1408))
+    return [(f"unet.{name}", *m.taps().shape)
+            for name, m in net.named_modules()
+            if isinstance(m, SparseConv3d)]
+
+
 CONVS = _backbone_convs()
+UNET_CONVS = _unet_convs()
 
 
 def test_backbone_has_twelve_convs():
@@ -40,7 +51,18 @@ def test_backbone_has_twelve_convs():
         (27, 64, 64), (3, 64, 128)}
 
 
-@pytest.mark.parametrize("name,k,c,co", CONVS, ids=[c[0] for c in CONVS])
+def test_unet_has_twenty_eight_convs():
+    """The encoder's 12, the UR blocks' 12 (their merge convs at 2C in),
+    three inverse convs and conv5: C up to 128."""
+    assert len(UNET_CONVS) == 28
+    assert {(k, c, co) for _, k, c, co in UNET_CONVS} == {
+        (27, 4, 16), (27, 16, 16), (27, 16, 32), (27, 32, 32), (27, 32, 64),
+        (27, 64, 64), (3, 64, 128), (27, 128, 64), (27, 64, 32),
+        (27, 32, 16)}
+
+
+@pytest.mark.parametrize("name,k,c,co", CONVS + UNET_CONVS,
+                         ids=[c[0] for c in CONVS + UNET_CONVS])
 def test_tile_fits_shared_memory(name, k, c, co):
     """Forward (Cx = C, Cy = Co) and dF (Cx = Co, Cy = C) tiles: rows a
     multiple of 32 up to 128, at most 227 KB, and 128 rows only where
