@@ -178,12 +178,29 @@ Phases (any failure exits non-zero without printing the result line):
    proposals against it (99% matched; unpinned, information: random
    weights tie the scores densely), launches, ms a detect call (forward +
    post-processing) in 3 runs;
-14. a JSON line of the kernels (per SSL iteration, with their bounds;
+14. data parallel (``dist_phases``, ``detmatch_tpu_torch/parallel``):
+   two SSL iterations of ``train_ssl_batches`` at ``split_0.py``'s widths
+   on a global batch of 4 + 4 frames, one process against two processes
+   over gloo on the one card (2 + 2 frames each; process 1 starts from
+   other weights, which ``broadcast_state`` replaces), the teacher's
+   pseudo-labels and the student's proposals pinned to the one process's
+   (``SSLPins``): logs within 1e-4, gradients and AdamW first moments
+   within 1e-3 of each tensor's largest magnitude (or twice float32's
+   spread between the two exact batch-norm formulas, where wider),
+   running statistics within 1e-4, the rest of the state within twice
+   the AdamW steps' rates, the two processes' states bit-equal, K1 fwd /
+   bwd, K2, K3, K4 launched in each; each process's own teacher against
+   the pins, its peak memory, and the flat gradient all-reduce's bytes
+   and ms (gloo staged through the host); one process over NCCL against
+   no process group (bit for bit, under deterministic algorithms), and
+   NCCL refusing two processes on the one card;
+15. a JSON line of the kernels (per SSL iteration, with their bounds;
    K6 and K8 over the replayed calls, with 0 launches on the model
    path), then the result line.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -1127,6 +1144,7 @@ def run():
     finally:
         tmp.cleanup()
     zoo_phases(card, stats)
+    dist_phases(card)
 
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=meta["source"],
@@ -1999,17 +2017,17 @@ def teacher_phases(card, stats):
     return {"solve_masked_batched": per}
 
 
-def ssl_model(cfg):
-    """The SSL detector of ``cfg`` on the card with the models' own
-    initialisers seeded from SEED (student = teacher, the state an SSL
+def ssl_model(cfg, seed=SEED):
+    """The SSL detector of ``cfg`` on DEVICE with the models' own
+    initialisers seeded from ``seed`` (student = teacher, the state an SSL
     run starts from after pretraining), the class biases of the PV-RCNN
     anchor head and the Faster R-CNN box head spread around zero so that
     the teacher's boxes pass the 0.1 score filters."""
     from detmatch_tpu_torch.apis.build import build_ssl
     with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(SEED)
-        model = build_ssl(cfg)  # the card: build_ssl's default
-    g = torch.Generator().manual_seed(SEED)
+        torch.manual_seed(seed)
+        model = build_ssl(cfg, device=DEVICE)
+    g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for bias in (model.student["det3d"].dense_head.conv_cls.bias,
                      model.student["det2d"].roi_head.bbox_head.fc_cls.bias):
@@ -3924,6 +3942,793 @@ def zoo_phases(card, stats):
         if not ok:
             raise AssertionError(f"zoo: {name} failed a gate")
     return summary
+
+
+# ------------------------------------------------------------ data parallel
+
+DIST_WORLD = 2
+DIST_ITERS = 2
+# the recipe's rates at 4 + 4 frames, its warmup's first two steps at
+# 0.001 and 0.003 of them: each iteration starts from the one process's
+# state (``dist_ssl_run``'s ``resume``), so that float32 noise on
+# near-zero gradients, which AdamW's first steps turn into moves of a
+# whole step either way, does not carry into the next iteration; and
+# the moves stay well above float32's rounding of the weights, so that
+# the state's gates see a wrong or missing step
+DIST_LR = (0.04, 0.08)
+DIST_WARMUP = 500
+DIST_KERNELS = ("window_key_conv_batched", "window_key_conv_bwd",
+                "ball_query_batched", "fps_batched", "solve_masked_batched")
+DIST_LOG_RTOL = 1e-4
+DIST_STAT_RTOL = 1e-4
+# gradients and AdamW moments: each tensor's L2 difference over its norm.
+# Not GRAD_TOL of its largest entry: at the SSL config's full width the
+# order of the batch norms' sums alone (two processes' partial sums
+# added) moves the 3D trunk's gradients by up to 7.1e-3 in L2 and 7.9e-3
+# of their largest entry, one process against itself on the H100, and
+# two processes against one by up to 1.4e-2 in L2 (a batch norm's bias,
+# a sum over 10^4 rows); every planted fault of
+# tools/port_probes/dist_faults.py moves some tensor by 1.2 or more
+DIST_GRAD_RTOL = 5e-2
+# the move of the students' and the EMA teacher's weights over an
+# iteration, L2 over the norm of one process's move (``step_err``):
+# float32's order of sums reaches 2.2e-2 through AdamW's sign-like first
+# steps; a skipped, local or wrong step or EMA 0.7 or more
+DIST_STEP_RTOL = 0.1
+# an AdamW first moment settles its weight's direction where it is more
+# than this share of its tensor's largest from zero (``adam_sure``)
+ADAM_SURE = 1e-2
+
+
+def _rows(tree, groups=1):
+    """This process's rows of a pinned global tensor tree (every tensor
+    batch-first; ``groups`` as ``parallel.global_rows``), on DEVICE."""
+    from detmatch_tpu_torch import parallel
+    n = next(iter(tree.values())).shape[0] // parallel.process_count()
+    idx, _ = parallel.global_rows(n, groups)
+    return {k: v[idx].to(DEVICE) for k, v in tree.items()}
+
+
+def _pick_rows(out, sel, valid):
+    """The post-processing result of the student's boxes at the pinned
+    survivors ``sel`` / ``valid`` (per frame), gradients kept."""
+    def take(t):
+        t = torch.stack([x[i] for x, i in zip(t, sel)])
+        return torch.where(valid.view(valid.shape + (1,) * (t.dim() - 2)),
+                           t, torch.zeros((), dtype=t.dtype, device=t.device))
+
+    return dict(boxes=take(out["batch_box_preds_rcnn"]),
+                scores=take(torch.sigmoid(out["rcnn_cls"][..., 0])),
+                labels=take(out["roi_labels"]),
+                sem_scores_full=take(torch.sigmoid(out["roi_scores_full"])),
+                valid=valid)
+
+
+class SSLPins:
+    """The pins of a data-parallel SSL comparison, one entry an
+    iteration: every decision of the student step that float32 noise
+    between batch sizes could flip, taken from one process's run on the
+    global batch and handed to each process for its rows.
+
+    * The teacher phase: its 2D boxes made to pair with its 3D ones
+      (:func:`matching_2d_boxes`), and the pseudo-labels with the clean
+      2D set made from the student's own boxes (:func:`student_2d_pins`).
+    * The student's proposals (``pvrcnn.proposal_layer``), the
+      consistency branch's survivors of the student's post-processing
+      NMS, its 2D NMS and its assignment (``core.hungarian.
+      assign_batched``), and the Faster R-CNN's proposals
+      (``frcnn.rpn.rpn_proposals``, one call a frame: the order of its
+      sort of near-equal scores would change which anchors its NMS
+      keeps).
+
+    ``pins`` None: made from this (one) process's own state and recorded
+    (``iters``); else handed back, each process taking its rows, with its
+    own teacher phase run beside them (``own``) and the pinned functions
+    run for their launches. ``install()`` routes ``train_ssl``'s teacher
+    step and those functions through the pins; it returns the undo."""
+
+    def __init__(self, pins=None):
+        self.pins = pins
+        self.iters, self.own = [], []
+        self._pin = None     # the iteration's pins once its teacher ran
+        self._nms = 0        # batched_nms_2d calls since then
+        self._rpn = 0        # rpn_proposals calls since then
+        self._in_rpn = False
+
+    def install(self):
+        from detmatch_tpu_torch.apis import train_ssl
+        from detmatch_tpu_torch.core import hungarian, nms
+        from detmatch_tpu_torch.models.frcnn import faster_rcnn
+        from detmatch_tpu_torch.models.pvrcnn import pvrcnn as pvrcnn_mod
+        from detmatch_tpu_torch.ssl import detector
+        own = dict(teacher=(train_ssl, "teacher_step"),
+                   props=(pvrcnn_mod, "proposal_layer"),
+                   post=(detector, "post_processing"),
+                   nms=(nms, "batched_nms_2d"),
+                   rpn=(faster_rcnn, "rpn_proposals"),
+                   assign=(hungarian, "assign_batched"))
+        real = {k: getattr(m, a) for k, (m, a) in own.items()}
+
+        def teacher_step(m, batch):
+            self._pin, self._nms, self._rpn = None, 0, 0
+            if self.pins is None:
+                pin = self._record(real["teacher"], m, batch)
+            else:
+                pin = self._replay(real["teacher"], m, batch)
+            self._pin = pin
+            return pin["pseudo_local"]
+
+        def proposal_layer(*a, **kw):
+            if self._pin is None:
+                return real["props"](*a, **kw)
+            return self._pin["props_local"]
+
+        def post_processing(out, **kw):
+            res = real["post"](out, **kw)
+            if self._pin is None:
+                return res
+            if self.pins is None:
+                same = (res["boxes"][:, :, None]
+                        == out["batch_box_preds_rcnn"][:, None]).all(-1)
+                self._pin["post"] = dict(sel=same.int().argmax(-1),
+                                         valid=res["valid"])
+                return res
+            p = _rows(self._pin["post"])
+            return _pick_rows(out, p["sel"], p["valid"])
+
+        def global_call(c):
+            """The global frame of this process's c-th per-frame call
+            (each model call's frames its rank-major share of a global
+            part)."""
+            from detmatch_tpu_torch import parallel
+            b = self._pin["b"]
+            return ((c // b) * b * parallel.process_count()
+                    + parallel.process_index() * b + c % b)
+
+        def batched_nms_2d(*a, **kw):
+            idx, ok = real["nms"](*a, **kw)
+            if self._pin is None or self._in_rpn:
+                return idx, ok
+            calls = self._pin.setdefault("nms", [])
+            if self.pins is None:
+                calls.append(dict(idx=idx, ok=ok))
+                return idx, ok
+            g = global_call(self._nms)
+            self._nms += 1
+            return (calls[g]["idx"].to(DEVICE), calls[g]["ok"].to(DEVICE))
+
+        def rpn_proposals(*a, **kw):
+            if self._pin is None:
+                return real["rpn"](*a, **kw)
+            calls = self._pin.setdefault("rpn", [])
+            if self.pins is None:
+                self._in_rpn = True  # its NMS is pinned with it
+                try:
+                    props, scores = real["rpn"](*a, **kw)
+                finally:
+                    self._in_rpn = False
+                calls.append(dict(props=props, scores=scores))
+                return props, scores
+            g = global_call(self._rpn)
+            self._rpn += 1
+            return (calls[g]["props"].to(DEVICE),
+                    calls[g]["scores"].to(DEVICE))
+
+        def assign_batched(*a, **kw):
+            col4row, mcost = real["assign"](*a, **kw)
+            if self._pin is None:
+                return col4row, mcost
+            if self.pins is None:
+                self._pin["assign"] = dict(col4row=col4row, mcost=mcost)
+                return col4row, mcost
+            p = _rows(self._pin["assign"])
+            return p["col4row"], p["mcost"]
+
+        patched = dict(teacher=teacher_step, props=proposal_layer,
+                       post=post_processing, nms=batched_nms_2d,
+                       rpn=rpn_proposals, assign=assign_batched)
+        for k, (m, a) in own.items():
+            setattr(m, a, patched[k])
+
+        def undo():
+            for k, (m, a) in own.items():
+                setattr(m, a, real[k])
+            self._pin = None
+        return undo
+
+    def _teacher(self, teacher, m, batch, t2):
+        m._det2d_teacher_boxes = lambda view, nms_cfg: t2
+        try:
+            return teacher(m, batch)
+        finally:
+            del m._det2d_teacher_boxes
+
+    def _record(self, teacher, m, batch):
+        import copy
+
+        from detmatch_tpu_torch.ssl import modules
+        u, tea = batch["unlab"]["stu"], batch["unlab"]["tea"]
+        with torch.no_grad():
+            t2 = matching_2d_boxes(m._det3d_teacher_boxes(tea), tea, u, 100,
+                                   m.cfg.score_filter_3d)
+        pseudo = self._teacher(teacher, m, batch, t2)
+        student = copy.deepcopy(m).train()
+        clean, props = student_2d_pins(
+            student, batch, pseudo, torch.Generator(DEVICE).manual_seed(SEED))
+        del student
+        pseudo = dict(pseudo, m2d_clean=clean, m2d_stu=modules.transform_2d(
+            clean, u["aug2d"], reverse=False))
+        pin = dict(t2=t2, pseudo=pseudo, props=props, props_local=props,
+                   pseudo_local=pseudo, b=u["points"].shape[0])
+        self.iters.append(pin)
+        return pin
+
+    def _replay(self, teacher, m, batch):
+        from detmatch_tpu_torch.ssl import boxset
+        pin = dict(self.pins[len(self.own)])
+        own = self._teacher(teacher, m, batch, _rows(pin["t2"]))
+        self.own.append(own)
+        pseudo = {k: _rows(v) for k, v in pin["pseudo"].items()
+                  if k != "logs"}
+        # the fusion's matched count, as the teacher logs it: the share of
+        # this process's frames
+        pseudo["logs"] = {"metrics.num_tea_hung":
+                          boxset.num_valid(pseudo["m3d_stu"])}
+        b = batch["lab"]["stu"]["points"].shape[0]
+        pin.update(pseudo_local=pseudo, props_local=_rows(pin["props"],
+                                                          (b, b)), b=b)
+        return pin
+
+
+def pins_to_save(rec):
+    """The recorded pins on the CPU, without the per-process views."""
+    def cpu(tree):
+        if isinstance(tree, list):
+            return [cpu(v) for v in tree]
+        if isinstance(tree, dict):
+            return {k: cpu(v) for k, v in tree.items()}
+        return tree.detach().cpu() if isinstance(tree, torch.Tensor) else tree
+
+    return [cpu({k: v for k, v in p.items()
+                 if k not in ("props_local", "pseudo_local")})
+            for p in rec.iters]
+
+
+def _cpu_state(model):
+    return {k: v.detach().cpu().clone() for k, v in
+            model.state_dict().items()}
+
+
+def dist_ssl_run(cfg, batches, pins, work_dir, seed=SEED, resume=None):
+    """DIST_ITERS iterations of ``train_ssl_batches`` through
+    :class:`SSLPins` (``pins`` None: record them) from ``ssl_model(cfg,
+    seed)``; ``batches``: this process's collated numpy batches.
+
+    ``resume``: one process's ``after`` list: after each iteration but
+    the last, the model and its optimizers take that iteration's state
+    from it, so that every iteration starts where the one process's did
+    (float32 noise does not compound through AdamW's first steps, which
+    move each weight by the learning rate in the direction of its
+    gradient's sign, a near-zero gradient's too).
+
+    Returns the model, the pins object and the results: each
+    iteration's logs and gradients; after each iteration the state and
+    the AdamW first moments (with the optimizers' states where ``resume``
+    is None: what another run resumes from); the state at the start of
+    each iteration; the kernels' launches and the peak memory."""
+    from detmatch_tpu_torch.apis.build import build_voxelizer
+    from detmatch_tpu_torch.apis.train_ssl import train_ssl_batches
+    from detmatch_tpu_torch.ops import cuda as cuda_ops
+    model = ssl_model(cfg, seed)
+    starts = [_cpu_state(model)]
+    rec = SSLPins(pins)
+    undo = rec.install()
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    cuda_ops.reset_launch_counts()
+    grads, after = [], []
+
+    def keep(n, opts, generator, logger):
+        grads.append({k: p.grad.detach().cpu() for k, p in
+                      model.student.named_parameters() if p.grad is not None})
+        snap = dict(state=_cpu_state(model), mu=first_moments(model, opts))
+        after.append(snap)
+        if n == DIST_ITERS:
+            return
+        if resume is None:
+            snap["opts"] = [{k: [t.cpu() for t in v] if isinstance(v, list)
+                             else v for k, v in o.state_dict().items()}
+                            for o in opts]
+            starts.append(snap["state"])
+        else:
+            model.load_state_dict(resume[n - 1]["state"])
+            for o, state in zip(opts, resume[n - 1]["opts"]):
+                o.load_state_dict(state)
+            starts.append(resume[n - 1]["state"])
+
+    try:
+        _, opts, hist = train_ssl_batches(
+            model, build_voxelizer(cfg), iter(batches), work_dir,
+            max_iters=DIST_ITERS, lr_3d=DIST_LR[0], lr_2d=DIST_LR[1],
+            warmup_iters=DIST_WARMUP, log_interval=1, seed=SEED,
+            after_iter=keep)
+    finally:
+        undo()
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    res = dict(hist=hist, launches=cuda_ops.launch_counts(),
+               peak_gib=(torch.cuda.max_memory_allocated() / 2 ** 30
+                         if DEVICE == "cuda" else None),
+               grads=grads, after=after, starts=starts)
+    return model, rec, res
+
+
+@contextlib.contextmanager
+def several_process_bn():
+    """One process taking every batch norm's statistics by the formula of
+    a process group (``layers.global_moments``: two-pass sums, where the
+    BEV's batch norms are otherwise torch's own), over its own rows: the
+    one-process runs that two processes are held to compute their
+    statistics as the processes do."""
+    from detmatch_tpu_torch.models import layers
+    count = layers.process_count
+    layers.process_count = lambda: 2  # no group: the sums stay local
+    try:
+        yield
+    finally:
+        layers.process_count = count
+
+
+def first_moments(model, opts):
+    """The student PV-RCNN's AdamW first moments by parameter name (its
+    optimizer holds them in the order of ``parameters()``), on the
+    CPU."""
+    names = [n for n, _ in model.student["det3d"].named_parameters()]
+    return dict(zip(names, (t.cpu() for t in
+                            opts[0].state_dict()["mu"])))
+
+
+def rel_l2(a, b):
+    """The L2 norm of ``a - b`` over ``b``'s."""
+    norm = float(b.double().norm())
+    diff = float((a.double() - b.double()).norm())
+    return diff / norm if norm else (0.0 if diff == 0 else float("inf"))
+
+
+def step_err(a, b, a_start, b_start, keep=None):
+    """The move of ``a`` from ``a_start`` against the move of ``b`` from
+    ``b_start``, over the entries where ``keep`` (all if None): the L2
+    norm of their difference over the norm of ``b``'s move (where ``b``
+    did not move, ``a`` must not either). An entry's difference counts
+    past one float32 spacing of ``b``'s value only: a move below the
+    rounding of its weight is not measured."""
+    ulp = (torch.nextafter(b, torch.full_like(b, float("inf"))) - b).double()
+    da, db = a.double() - a_start.double(), b.double() - b_start.double()
+    diff = ((da - db).abs() - ulp).clamp(min=0)
+    if keep is not None:
+        diff, db = diff[keep], db[keep]
+    diff, norm = float(diff.norm()), float(db.norm())
+    return diff / norm if norm else (0.0 if diff == 0 else float("inf"))
+
+
+def adam_sure(mu):
+    """The entries of an AdamW first moment farther than ADAM_SURE of its
+    largest from zero: AdamW's first steps move a weight by about a whole
+    step in the direction of that sign, so a weight whose moment is
+    within float32's noise of zero may move either way in two runs that
+    are both right."""
+    return mu.abs() > ADAM_SURE * mu.abs().max()
+
+
+def dist_diffs(res, ref, starts=None):
+    """Every compared value of the run ``res`` against one process's
+    ``ref``, per iteration, as rows (kind, where, largest absolute
+    difference, the error that its gate reads, information): a logged
+    value's relative difference; a gradient's and an AdamW first
+    moment's :func:`rel_l2`, with its largest difference over its
+    tensor's largest entry (:func:`rel_err`) beside it; the move of each
+    floating-point state entry over the iteration against ``ref``'s
+    (:func:`step_err`; "parameters", "running stats": the students';
+    "EMA teacher": the teacher's, which follows the student's), from
+    ``starts`` (default ``res["starts"]``) and ``ref["starts"]``, on the
+    PV-RCNN's weights over the entries that :func:`adam_sure` keeps; a
+    counter's number of differing entries. A value missing on one side,
+    or not a number, has an infinite error."""
+    inf = float("inf")
+    starts = res["starts"] if starts is None else starts
+    rows = []
+
+    def number(kind, where, x, y):
+        d = abs(x - y)
+        d = inf if d != d else d
+        rows.append((kind, where, d, d / max(abs(y), 1e-12),
+                     d / max(abs(y), 1e-12)))
+
+    for it, (a, b) in enumerate(zip(res["hist"], ref["hist"])):
+        for k in sorted(a.keys() | b.keys()):
+            number("logs", f"iter {it + 1} {k}", a.get(k, inf),
+                   b.get(k, inf))
+    for it, (a, b) in enumerate(zip(res["grads"], ref["grads"])):
+        for n in sorted(a.keys() | b.keys()):
+            if n in a and n in b:
+                rows.append(("grads", f"iter {it + 1} {n}",
+                             float((a[n] - b[n]).abs().max()),
+                             rel_l2(a[n], b[n]), rel_err(a[n], b[n])))
+            else:
+                rows.append(("grads", f"iter {it + 1} {n} (one side)", inf,
+                             inf, inf))
+    for it, (a, b) in enumerate(zip(res["after"], ref["after"])):
+        for n, y in b["mu"].items():
+            x = a["mu"][n]
+            rows.append(("moments", f"iter {it + 1} det3d.{n}",
+                         float((x - y).abs().max()), rel_l2(x, y),
+                         rel_err(x, y)))
+        for k, v in b["state"].items():
+            x = a["state"][k]
+            if not v.is_floating_point():
+                n = float((x != v).sum())
+                rows.append(("counters", f"iter {it + 1} {k}", n, n, n))
+                continue
+            kind = ("EMA teacher" if k.startswith("teacher.") else
+                    "running stats" if k.endswith(("running_mean",
+                                                   "running_var"))
+                    else "parameters")
+            absd = float((x.double() - v.double()).abs().max()) \
+                if v.numel() else 0.0
+            mu = b["mu"].get(k.split(".det3d.", 1)[-1]) \
+                if ".det3d." in k else None
+            err = step_err(x, v, starts[it][k], ref["starts"][it][k],
+                           None if mu is None else adam_sure(mu))
+            rows.append((kind, f"iter {it + 1} {k}", absd, err, err))
+    return rows
+
+
+DIST_GATES = {"logs": DIST_LOG_RTOL, "grads": DIST_GRAD_RTOL,
+              "moments": DIST_GRAD_RTOL, "running stats": DIST_STAT_RTOL,
+              "parameters": DIST_STEP_RTOL, "EMA teacher": DIST_STEP_RTOL,
+              "counters": 0.0}
+
+
+def dist_verdict(rows):
+    """Rows (:func:`dist_diffs`) under their kinds' DIST_GATES, per kind:
+    (the largest error, the gate, where, how many exceed the gate, the
+    five largest as (error, where), the largest absolute difference and
+    where, the largest of the rows' last column and where)."""
+    seen = {}
+    for row in rows:
+        seen.setdefault(row[0], []).append(row)
+    out = {}
+    for kind, rs in seen.items():
+        gate = DIST_GATES[kind]
+        rs.sort(key=lambda r: -r[3])
+        big = max(rs, key=lambda r: r[2])
+        last = max(rs, key=lambda r: r[4])
+        out[kind] = (rs[0][3], gate, rs[0][1], sum(r[3] > gate for r in rs),
+                     [(r[3], r[1]) for r in rs[:5]], (big[2], big[1]),
+                     (last[4], last[1]))
+    return out
+
+
+def print_verdict(who, verdict):
+    """The lines of :func:`dist_verdict`; True if every value passed."""
+    ok = True
+    for kind, (err, gate, where, n, top, big, last) in sorted(
+            verdict.items()):
+        ok &= n == 0
+        line = (f"  {who}: {kind}: largest {err:.3e} ({where}), gate "
+                f"{gate:.1e}, {n} past it {'ok' if n == 0 else 'FAIL'}; "
+                f"largest absolute difference {big[0]:.3e} ({big[1]})")
+        if kind in ("grads", "moments"):
+            line += (f"; largest over its tensor's largest entry "
+                     f"{last[0]:.3e} ({last[1]}, information)")
+        print(line)
+        if n:
+            print("    " + "; ".join(f"{e:.2e} {w}" for e, w in top))
+    return ok
+
+
+def pins_share(own, pins):
+    """Share of the pinned 3D pseudo-labels of this process's rows that
+    its own teacher phase gave (box within 1e-3, scores within 1e-4)."""
+    shares = [boxset_share(o["m3d_stu"], _rows(p["pseudo"]["m3d_stu"]))
+              for o, p in zip(own, pins)]
+    matched = sum(s * n for s, n in shares)
+    total = sum(n for _, n in shares)
+    return matched / max(total, 1), total
+
+
+def dist_rank_main(rank, work):
+    """One process of the two-process comparison, as :func:`dist_spawn`
+    starts it: joins the gloo group on the card and runs
+    :func:`dist_rank` on the SSL config."""
+    from detmatch_tpu_torch import parallel
+    from detmatch_tpu_torch.config import Config
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    parallel.start_group(f"file://{work}/store", DIST_WORLD, rank,
+                         backend="gloo")
+    dist_rank(Config.fromfile(str(SSL_CONFIG)), Path(work))
+    parallel.shutdown()
+    return 0
+
+
+def dist_rank(cfg, work):
+    """In a process of a started group: train on its rows of the global
+    batches with the pins of ``work/pins.pt``, compare with the
+    one-process results of ``work/ref.pt`` (:func:`dist_diffs`, from the
+    one process's start), check its state bit for bit against process
+    0's, time the flat gradient all-reduce of each student branch, and
+    write ``work/rank<r>.json``."""
+    from detmatch_tpu_torch import parallel
+    rank = parallel.process_index()
+    batches = [parallel.local_shard(b) for b in dist_batches(cfg)]
+    pins = torch.load(work / "pins.pt", weights_only=False)
+    ref = torch.load(work / "ref.pt", weights_only=False)
+    # process 1 starts from other weights: broadcast_state makes them 0's
+    model, rec, res = dist_ssl_run(cfg, batches, pins, work / "run",
+                                   seed=SEED + rank, resume=ref["after"])
+    rows = dist_diffs(res, ref, ref["starts"])
+    del ref
+    # bit-equal to process 0: its state broadcast, compared here
+    state = list(model.state_dict().values())
+    theirs = [t.clone() for t in state]
+    parallel.broadcast_state(*(_Holder(t) for t in theirs))
+    same = all(torch.equal(a, b) for a, b in zip(state, theirs))
+    differs = parallel.global_sum(torch.tensor([float(not same)],
+                                               device=DEVICE))
+    reduce_ms = {}
+    for k in ("det3d", "det2d"):
+        grads = [torch.randn_like(p) for p in model.student[k].parameters()
+                 if p.requires_grad]
+        times = []
+        for _ in range(4):
+            if DEVICE == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            parallel.all_reduce_flat(grads)
+            if DEVICE == "cuda":
+                torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        reduce_ms[k] = dict(ms=float(np.median(times[1:])),
+                            bytes=sum(4 * g.numel() for g in grads))
+    share, total = pins_share(rec.own, pins)
+    out = dict(rank=rank, rows=rows, launches=res["launches"],
+               peak_gib=res["peak_gib"], bit_equal=float(differs) == 0.0,
+               reduce=reduce_ms, own_share=share, own_total=total)
+    (work / f"rank{rank}.json").write_text(json.dumps(out))
+
+
+class _Holder(torch.nn.Module):
+    """A tensor as a module's buffer, for ``parallel.broadcast_state``."""
+
+    def __init__(self, t):
+        super().__init__()
+        self.register_buffer("t", t, persistent=False)
+
+
+def dist_batches(cfg):
+    """The DIST_ITERS global SSL batches (SSL_B + SSL_B frames), made
+    from SEED: every process makes them all and keeps its rows."""
+    rng = np.random.RandomState(SEED + 7)
+    return [ssl_batch_np(cfg, rng) for _ in range(DIST_ITERS)]
+
+
+def dist_reference(cfg, work, card):
+    """One process on the global batches under :func:`several_process_bn`,
+    recording the pins: writes ``work/pins.pt`` and ``work/ref.pt``
+    (what :func:`dist_rank` reads) and returns the results, the pins and
+    the students' trainable bytes per branch."""
+    t0 = time.perf_counter()
+    with several_process_bn():
+        model, rec, ref = dist_ssl_run(cfg, dist_batches(cfg), None,
+                                       work / "one")
+    per_frame = [p["pseudo"]["m3d_stu"]["valid"].sum(1).tolist()
+                 for p in rec.iters]
+    last = ref["hist"][-1]
+    print(f"  {DIST_ITERS} iterations in {time.perf_counter() - t0:.1f} s; "
+          f"pinned 3D pseudo-labels per frame {per_frame}; last logs: loss "
+          f"{last['loss']:.4f}, metrics.num_tea_hung "
+          f"{last['metrics.num_tea_hung']:.3f}, metrics.num_2D_to_3D_hung "
+          f"{last['metrics.num_2D_to_3D_hung']:.3f}; peak "
+          f"{gib(ref['peak_gib'])} [{card}]")
+    print(f"  launches: {ref['launches']}")
+    pins = pins_to_save(rec)
+    torch.save(pins, work / "pins.pt")
+    torch.save(ref, work / "ref.pt")
+    nbytes = {k: sum(4 * p.numel() for p in model.student[k].parameters()
+                     if p.requires_grad) for k in ("det3d", "det2d")}
+    del model, rec
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return ref, pins, nbytes
+
+
+def dist_spawn(work, prelude=""):
+    """Run :func:`dist_rank_main` in DIST_WORLD processes on ``work``
+    (``prelude``: Python source each runs first); raises if one fails,
+    else returns their ``rank<r>.json`` in rank order."""
+    logs = [open(work / f"rank{r}.log", "w+") for r in range(DIST_WORLD)]
+    code = ("import sys; sys.path.insert(0, {root!r}); import chip_smoke\n"
+            "{prelude}\nsys.exit(chip_smoke.dist_rank_main({r}, {work!r}))")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code.format(root=str(ROOT), r=r,
+                                           work=str(work), prelude=prelude)],
+        stdout=log, stderr=subprocess.STDOUT, cwd=str(ROOT))
+        for r, log in enumerate(logs)]
+    try:
+        for p in procs:
+            p.wait(timeout=600)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        log.seek(0)
+        text = log.read()
+        log.close()
+        if p.returncode != 0:
+            print(text[-6000:])
+            raise AssertionError(f"data-parallel process {r} failed")
+    return [json.loads((work / f"rank{r}.json").read_text())
+            for r in range(DIST_WORLD)]
+
+
+def dist_phases(card):
+    """Data-parallel training on the card (``parallel``): two processes
+    over gloo on the one card against one process on the same global
+    batches (pinned, each iteration from the one process's state), one
+    process over NCCL against no process group, and NCCL's refusal of
+    two processes on one card; the seconds of each part."""
+    import copy
+
+    from detmatch_tpu_torch import parallel
+    from detmatch_tpu_torch.config import Config
+    phase("data parallel: one process on the global batch (4 + 4, pinned)")
+    cfg = Config.fromfile(str(SSL_CONFIG))
+    split = {}
+    with tempfile.TemporaryDirectory(prefix="dist_") as tmp:
+        work = Path(tmp)
+        t0 = time.perf_counter()
+        ref, pins, nbytes = dist_reference(cfg, work, card)
+        split["one process"] = time.perf_counter() - t0
+        del ref
+        ok = True
+
+        phase(f"data parallel: {DIST_WORLD} processes over gloo on one card "
+              f"({SSL_B // DIST_WORLD} + {SSL_B // DIST_WORLD} frames each)")
+        t0 = time.perf_counter()
+        outs = dist_spawn(work)
+        split[f"{DIST_WORLD} processes (start, build, {DIST_ITERS} "
+              "iterations, checks)"] = time.perf_counter() - t0
+        for out in outs:
+            r = out["rank"]
+            ok &= print_verdict(f"process {r}", dist_verdict(out["rows"]))
+            launched = all(out["launches"][n] > 0 for n in DIST_KERNELS)
+            ok &= launched and out["bit_equal"]
+            print(f"  process {r}: state bit-equal to process 0 "
+                  f"{out['bit_equal']}; launches {out['launches']} "
+                  f"(K1 fwd / bwd, K2, K3, K4 each > 0: {launched}); peak "
+                  f"{gib(out['peak_gib'])} [{card}]")
+            print(f"  process {r}: its own teacher phase gave "
+                  f"{out['own_share']:.4f} of {out['own_total']} pinned 3D "
+                  "pseudo-labels (information: batch-size noise under NMS)")
+            for k, v in out["reduce"].items():
+                print(f"  process {r}: flat gradient all-reduce {k}: "
+                      f"{v['bytes']} bytes in {v['ms']:.3f} ms (gloo staged "
+                      f"through the host, no guide to NCCL over NVLink) "
+                      f"[{card}]")
+        total = sum(nbytes.values())
+        print(f"  gradient bytes all-reduced an iteration: {total} "
+              f"({total / 2 ** 20:.1f} MiB: PV-RCNN {nbytes['det3d']}, "
+              f"Faster R-CNN {nbytes['det2d']})")
+        if not ok:
+            raise AssertionError("two processes differ from one process on "
+                                 "the same global batch, from each other, "
+                                 "or left a kernel unlaunched")
+
+        phase("data parallel: one process over NCCL against no group; "
+              "NCCL's refusal of two processes on one card")
+        t0 = time.perf_counter()
+        # the refusal's two processes run beside the NCCL process's runs
+        code = ("import sys; sys.path.insert(0, {root!r}); "
+                "from detmatch_tpu_torch import parallel; "
+                "parallel.start_group('file://{work}/nccl_store', 2, {r}, "
+                "backend='nccl')")
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", code.format(root=str(ROOT),
+                                               work=str(work), r=r)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            cwd=str(ROOT)) for r in range(2)]
+        from detmatch_tpu_torch.apis.build import build_voxelizer
+        from detmatch_tpu_torch.apis.train_ssl import train_ssl_batches
+        batch = dist_batches(cfg)[:1]
+        base = ssl_model(cfg)
+        start = _cpu_state(base)
+
+        def one_iteration(nccl):
+            if nccl:
+                parallel.start_group(f"tcp://localhost:{_free_port()}", 1, 0,
+                                     backend="nccl")
+            m = copy.deepcopy(base)
+            undo = SSLPins(pins[:1]).install()
+            try:
+                _, opts, hist = train_ssl_batches(
+                    m, build_voxelizer(cfg), iter(batch), str(work / "b"),
+                    max_iters=1, lr_3d=DIST_LR[0], lr_2d=DIST_LR[1],
+                    warmup_iters=DIST_WARMUP, log_interval=1, seed=SEED)
+            finally:
+                undo()
+            params = [p.detach().clone() for p in m.student.parameters()]
+            flat = parallel.all_reduce_flat(params)
+            run = dict(
+                hist=hist, starts=[start], after=[dict(
+                    state=_cpu_state(m), mu=first_moments(m, opts))],
+                grads=[{n: p.grad.detach().cpu() for n, p in
+                        m.student.named_parameters() if p.grad is not None}],
+                flat=all(torch.equal(a, b) for a, b in zip(flat, params)),
+                backend=torch.distributed.get_backend() if nccl else None)
+            if nccl:
+                parallel.shutdown()
+            return run
+
+        def bit_equal(a, b):
+            return (a["hist"] == b["hist"] and all(
+                torch.equal(x[n], y[n]) for x, y in (
+                    (a["grads"][0], b["grads"][0]),
+                    (a["after"][0]["state"], b["after"][0]["state"]))
+                for n in y))
+
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        # no NaN fill of new buffers: the runs stay the ordinary ones
+        fill = torch.utils.deterministic.fill_uninitialized_memory
+        torch.utils.deterministic.fill_uninitialized_memory = False
+        try:
+            none, nccl = one_iteration(False), one_iteration(True)
+            same = bit_equal(nccl, none)
+            # no group against itself only where the NCCL run differs
+            reproducible = None if same else bit_equal(
+                one_iteration(False), none)
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.utils.deterministic.fill_uninitialized_memory = fill
+        del base
+        worst = dist_verdict(dist_diffs(nccl, none))
+        print(f"  backend {nccl['backend']}, world 1: the flat all-reduce "
+              f"returns its input bit for bit {nccl['flat']}; the iteration "
+              f"(logs, gradients, state) bit-equal to no group {same}"
+              + ("" if same else f"; no group twice bit-equal "
+                 f"{reproducible}; largest error " + ", ".join(
+                     f"{k} {w[0]:.3e}" for k, w in worst.items())))
+        ok = nccl["flat"] and nccl["backend"] == "nccl" and (same or (
+            not reproducible and all(w[3] == 0 for w in worst.values())))
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+        refused = all(p.returncode != 0 and "share a CUDA device" in o
+                      for p, o in zip(procs, outs))
+        print(f"  two processes on {torch.cuda.device_count()} card(s) with "
+              f"nccl: both refused with the message {refused}")
+        split["one NCCL process against no group (2 runs, 3 if they "
+              "differ), beside the refusal"] = time.perf_counter() - t0
+        print("  the phase's seconds: " + "; ".join(
+            f"{k} {v:.1f}" for k, v in split.items()))
+        if not ok:
+            raise AssertionError("one NCCL process differs from no process "
+                                 "group")
+        if not refused:
+            print("\n".join(o[-2000:] for o in outs))
+            raise AssertionError("NCCL took two processes on one card")
+
+
+def gib(x):
+    return "not measured" if x is None else f"{x:.2f} GiB"
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
 
 
 def main():

@@ -9,6 +9,13 @@ checkpoint (resume, bootstrapped resume or the pretrained detectors of
 ``load_from``), writes checkpoints and evaluates on a validation set;
 :func:`train_ssl_batches` is the loop itself on an iterator of collated
 batches, which the synthetic-batch callers use.
+
+Under several processes (``parallel``) each process draws its own
+batches (the loaders seeded per process, as JAX's), which together make
+the global batch; the state starts from process 0's, every logged value
+is the global batch's, and process 0 alone writes ``log.json``,
+tensorboard, checkpoints and pictures and runs the evaluation (the others
+wait at their next collective).
 """
 from __future__ import annotations
 
@@ -20,17 +27,24 @@ import torch
 
 from ..data.loader import Loader
 from ..ops.voxelize import VoxelizerSpec
+from ..parallel import (broadcast_state, is_primary, process_count,
+                        process_index, reduce_logs)
 from ..train import checkpoints
 from ..train.optim import detmatch_branch_optimizers
 from ..train.ssl_step import (ema_step, student_2d_step, student_3d_step,
                               teacher_step, to_device_views, voxelize_views)
 from ..train.tensorboard import TensorBoardSink
 from ..utils import visualize as V
-from ..utils.logging import JsonlLogger, MultiLogger
+from ..utils.logging import JsonlLogger, MultiLogger, NullLogger
 
 # iterations (after the start) whose span ``profile_dir`` traces, first
 # and last included: JAX's window (``train_ssl.py:194-235``)
 PROFILE_WINDOW = (12, 15)
+# logged values equal on every process (the rest are each process's share
+# of the global batch's value, summed over the processes)
+REPLICATED_LOGS = ("grad_skips", "ssl.weight", "ssl.ema_decay")
+# the per-process loaders' seed stride (JAX ``train_ssl.py:111``)
+SEED_STRIDE = 9973
 
 
 def ssl_optimizers(ssl, batch_size=4, lr_3d=None, lr_2d=None, lr_scale=1.0,
@@ -103,14 +117,16 @@ def _iteration(ssl, opts, vox_spec, batch_np, it, generator):
     logs["metrics.dropped_voxels"] = sum(
         v["voxel_dropped"].sum() for views in batch.values()
         for v in views.values())
+    logs = reduce_logs(logs, REPLICATED_LOGS)
     return {k: float(v) for k, v in logs.items()}, batch, pseudo
 
 
 def ssl_iteration(ssl, opts, vox_spec: VoxelizerSpec, batch_np, it,
                   generator):
-    """One SSL iteration on a collated numpy batch: the teacher phase,
-    one step of each enabled student branch, the teacher's EMA. Returns
-    the iteration's logs as floats."""
+    """One SSL iteration on a collated numpy batch (this process's rows of
+    the global batch): the teacher phase, one step of each enabled
+    student branch, the teacher's EMA. Returns the iteration's logs as
+    floats, the global batch's values."""
     return _iteration(ssl, opts, vox_spec, batch_np, it, generator)[0]
 
 
@@ -129,14 +145,17 @@ def train_ssl_batches(ssl, vox_spec: VoxelizerSpec, batches, work_dir,
             ``{"lab": {"stu", "tea"}, "unlab": {"stu", "tea"}}`` of views
             as ``data.collate.collate_ts`` or ``utils.synth_kitti.ssl_view``
             make them (the labeled student view with gt_boxes, gt_boxes2d,
-            gt_labels2d, gt2d_valid).
+            gt_labels2d, gt2d_valid): this process's rows of each global
+            batch. The state starts from process 0's
+            (``parallel.broadcast_state``).
         batch_size, num_unlabeled, lr_3d, lr_2d, lr_scale, warmup_iters:
             the optimizers' rates (:func:`ssl_optimizers`).
         work_dir: gets ``log.json``, one line per ``log_interval``
             iterations with the JAX loop's keys (``sup.3d.*``,
             ``sup.2d.*``, ``ssl.unlab.*``, ``metrics.*``, ``ssl.weight``,
             ``ssl.ema_decay``, ``grad_skips`` (both branches' skipped
-            steps), ``loss``, ``iter``, ``mode``, ``time``).
+            steps), ``loss``, ``iter``, ``mode``, ``time``), the global
+            batch's values, written by process 0.
         seed: seeds the ``torch.Generator`` that every sampler and dropout
             mask draws from.
         start: ``(opts, generator, start_iter)`` to continue from instead
@@ -148,7 +167,8 @@ def train_ssl_batches(ssl, vox_spec: VoxelizerSpec, batches, work_dir,
         profile_dir: a ``torch.profiler`` Chrome trace of the iterations
             ``start + PROFILE_WINDOW[0]`` to ``start + PROFILE_WINDOW[1]``
             (CPU, and CUDA on the card) to ``<profile_dir>/trace.json``.
-        vis_interval: every ``vis_interval`` iterations :func:`dump_vis`.
+        vis_interval: every ``vis_interval`` iterations :func:`dump_vis`
+            (one process only, as JAX's).
         tensorboard: also log every line to ``<work_dir>/tb``
             (``train/tensorboard.py``).
     Returns:
@@ -156,8 +176,10 @@ def train_ssl_batches(ssl, vox_spec: VoxelizerSpec, batches, work_dir,
         iterations' logs as floats.
     """
     os.makedirs(work_dir, exist_ok=True)
-    logger = JsonlLogger(os.path.join(work_dir, "log.json"))
-    if tensorboard:
+    primary = is_primary()
+    logger = (JsonlLogger(os.path.join(work_dir, "log.json")) if primary
+              else NullLogger())
+    if tensorboard and primary:
         logger = MultiLogger(logger, TensorBoardSink(
             os.path.join(work_dir, "tb")))
     device = next(ssl.parameters()).device
@@ -166,13 +188,15 @@ def train_ssl_batches(ssl, vox_spec: VoxelizerSpec, batches, work_dir,
                               num_unlabeled, warmup_iters)
         start = (opts, torch.Generator(device=device).manual_seed(seed), 0)
     opts, generator, start_iter = start
+    broadcast_state(ssl, *opts, generator)
     ssl.train()
     history = []
     prof = None
     t0 = time.perf_counter()
     try:
         for it in range(start_iter, max_iters):
-            if profile_dir and it == start_iter + PROFILE_WINDOW[0]:
+            if (profile_dir and primary
+                    and it == start_iter + PROFILE_WINDOW[0]):
                 prof = _start_profile(device)
             entry, batch, pseudo = _iteration(ssl, opts, vox_spec,
                                               next(batches), it, generator)
@@ -185,7 +209,8 @@ def train_ssl_batches(ssl, vox_spec: VoxelizerSpec, batches, work_dir,
                                 time=(time.perf_counter() - t0)
                                 / log_interval))
                 t0 = time.perf_counter()
-            if vis_interval and (it + 1) % vis_interval == 0:
+            if (vis_interval and (it + 1) % vis_interval == 0
+                    and process_count() == 1):
                 dump_vis(work_dir, it + 1, batch, pseudo)
             del batch, pseudo
             if after_iter is not None:
@@ -245,10 +270,11 @@ def train_ssl(ssl, vox_spec: VoxelizerSpec, lab_dataset, unlab_dataset,
     """DetMatch SSL training from datasets (JAX's ``train_ssl``).
 
     Batches: ``batch_size`` labeled samples and ``batch_size *
-    num_unlabeled`` unlabeled ones an iteration, from two ``Loader``s
-    seeded with ``seed`` and ``seed + 1``, collated by ``collate_fn``
-    (``data.collate.collate_ts``). A resumed run restarts both loaders
-    from their seeds, as the JAX loop does.
+    num_unlabeled`` unlabeled ones an iteration and a process (the
+    reference's samples per GPU), from two ``Loader``s seeded with
+    ``seed + r * 9973`` and one more on process ``r``, collated by
+    ``collate_fn`` (``data.collate.collate_ts``). A resumed run restarts
+    both loaders from their seeds, as the JAX loop does.
 
     Start, in this order of precedence (JAX's ``train_ssl.py:136-155``):
     ``resume_from`` (a checkpoint directory: the latest ``ckpt_<n>``'s
@@ -263,7 +289,8 @@ def train_ssl(ssl, vox_spec: VoxelizerSpec, lab_dataset, unlab_dataset,
     (``checkpoints.default_meta(**ckpt_meta)``); every ``eval_interval``
     iterations and at ``max_iters``, with a ``val_dataset``, ``eval_ssl``
     scores teacher and student (``val_collate_fn``, default
-    ``collate_fn``) into a ``mode="val"`` line of ``log.json``.
+    ``collate_fn``) into a ``mode="val"`` line of ``log.json``. Both on
+    process 0 only.
 
     The other arguments (``profile_dir``, ``vis_interval``,
     ``tensorboard`` among them) are :func:`train_ssl_batches`'s. Returns
@@ -294,6 +321,8 @@ def train_ssl(ssl, vox_spec: VoxelizerSpec, lab_dataset, unlab_dataset,
                 ssl, checkpoints.restore(path, step)["model"], det_key)
 
     def after_iter(n, opts, generator, logger):
+        if not is_primary():
+            return
         last = n == max_iters
         if n % ckpt_interval == 0 or last:
             checkpoints.save(
@@ -307,9 +336,10 @@ def train_ssl(ssl, vox_spec: VoxelizerSpec, lab_dataset, unlab_dataset,
                            vox_spec)
             logger.log(dict(res, iter=n, mode="val"))
 
-    lab_loader = Loader(lab_dataset, batch_size, collate_fn, seed=seed)
+    proc_seed = seed + process_index() * SEED_STRIDE
+    lab_loader = Loader(lab_dataset, batch_size, collate_fn, seed=proc_seed)
     unlab_loader = Loader(unlab_dataset, batch_size * num_unlabeled,
-                          collate_fn, seed=seed + 1)
+                          collate_fn, seed=proc_seed + 1)
 
     def batches():
         lab, unlab = iter(lab_loader), iter(unlab_loader)

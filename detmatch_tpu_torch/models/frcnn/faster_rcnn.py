@@ -21,6 +21,7 @@ import torch
 from torch import nn
 
 from ...ops.roialign import multilevel_roi_align
+from ...parallel import for_each_global_row
 from .resnet import FPN, ResNet50
 from .roi_head2d import (Shared2FCBBoxHead, decode_rcnn, multiclass_nms_2d,
                          rcnn_loss, sample_rcnn_targets)
@@ -122,7 +123,8 @@ class FasterRCNN(nn.Module):
 
         Args:
             generator: the ``torch.Generator`` the samplers draw from
-                (the RPN's images in order, then the RoI head's).
+                (the RPN's images in order, then the RoI head's; every
+                global image's, each process keeping its own).
             gt_boxes: (B, G, 4); gt_labels: (B, G) 0-based; gt_valid:
                 (B, G).
         Returns:
@@ -130,11 +132,11 @@ class FasterRCNN(nn.Module):
         """
         out = rpn_loss(generator, fwd["rpn_outs"], self.anchors, gt_boxes,
                        gt_valid)
-        per = [sample_rcnn_targets(generator, p, s > -1e9, gb, gl, gv,
-                                   num=self.rcnn_num_samples)
-               for p, s, gb, gl, gv in zip(fwd["proposals"],
-                                           fwd["proposal_scores"], gt_boxes,
-                                           gt_labels, gt_valid)]
+        props, pscores = fwd["proposals"], fwd["proposal_scores"]
+        per = for_each_global_row(
+            props.shape[0], lambda i: sample_rcnn_targets(
+                generator, props[i], pscores[i] > -1e9, gt_boxes[i],
+                gt_labels[i], gt_valid[i], num=self.rcnn_num_samples))
         targets = {k: torch.stack([t[k] for t in per]) for k in per[0]}
         cls_logits, reg_preds = self.roi_forward(fwd["feats"],
                                                  targets["rois"])

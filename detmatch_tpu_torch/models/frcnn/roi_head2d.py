@@ -15,6 +15,7 @@ from torch import nn
 
 from ...core import losses, nms as nms_mod
 from ...core.coders import DeltaXYWHCoder
+from ...parallel import global_sum
 from ..layers import linear
 from . import rpn
 
@@ -117,7 +118,7 @@ def rcnn_loss(cls_logits, reg_preds, targets, num_classes=3,
               focal_gamma=2.0, focal_alpha=0.5):
     """Focal loss over the C + 1 sigmoid channels (the background a
     channel of its own) and class-specific L1 on the positives, both
-    divided by the batch's sample count.
+    divided by the global batch's sample count.
 
     Args:
         cls_logits: (B, R, C+1); reg_preds: (B, R, 4C); targets: the
@@ -125,7 +126,7 @@ def rcnn_loss(cls_logits, reg_preds, targets, num_classes=3,
     """
     labels = torch.where(targets["is_pos"], targets["labels"], num_classes)
     valid = targets["slot_valid"].to(torch.float32)
-    avg = torch.clamp(valid.sum(), min=1.0)
+    avg = torch.clamp(global_sum(valid.sum()), min=1.0)
     onehot = F.one_hot(labels, num_classes + 1).to(torch.float32)
     p = torch.sigmoid(cls_logits)
     pt = (1 - p) * onehot + p * (1 - onehot)

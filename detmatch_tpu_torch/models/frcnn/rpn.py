@@ -9,7 +9,9 @@ takes sigmoid BCE on their objectness and L1 on the positives' deltas.
 
 Sampling draws its random numbers through :func:`sample_uniforms` from a
 ``torch.Generator``; the tests replace that function to hand over the
-JAX package's draws.
+JAX package's draws. Under several processes the draws are made for
+every global image, in global order, each process keeping its own, and
+the batch mean is over the global batch (``parallel``).
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from torch import nn
 
 from ...core import iou as iou_mod, losses, nms as nms_mod
 from ...core.coders import DeltaXYWHCoder
+from ...parallel import for_each_global_row, global_count
 from ..layers import conv
 
 
@@ -168,7 +171,8 @@ def rpn_loss(generator, rpn_outs, anchors_per_level, gt_boxes, gt_valid,
              num_samples=256, pos_fraction=0.5):
     """RPN training loss of a batch: per image, sigmoid BCE over the
     sampled anchors and L1 over the positives' deltas, both divided by
-    the sample count; then the batch mean.
+    the sample count; then the mean over the global batch (the samples
+    of another process's images drawn and dropped).
 
     Args:
         rpn_outs: per level (cls (B, H, W, A), reg (B, H, W, 4A)).
@@ -181,20 +185,26 @@ def rpn_loss(generator, rpn_outs, anchors_per_level, gt_boxes, gt_valid,
     anchors = torch.cat(list(anchors_per_level), 0)
     valid = torch.ones(anchors.shape[0], dtype=torch.bool,
                        device=anchors.device)
+
+    @torch.no_grad()
+    def sample(i):
+        gb = gt_boxes[i]
+        assigned, _, _ = max_iou_assign(anchors, valid, gb, gt_valid[i], 0.7,
+                                        0.3, 0.3, True)
+        idx, is_pos, slot_valid = random_sample(generator, assigned,
+                                                num_samples, pos_fraction)
+        gt_idx = torch.clamp(assigned[idx] - 1, 0, gb.shape[0] - 1)
+        return idx, is_pos, slot_valid, coder.encode(anchors[idx], gb[gt_idx])
+
     cls_losses, reg_losses = [], []
-    for cls, reg, gb, gv in zip(cls_flat, reg_flat, gt_boxes, gt_valid):
-        with torch.no_grad():
-            assigned, _, _ = max_iou_assign(anchors, valid, gb, gv, 0.7, 0.3,
-                                            0.3, True)
-            idx, is_pos, slot_valid = random_sample(
-                generator, assigned, num_samples, pos_fraction)
-            gt_idx = torch.clamp(assigned[idx] - 1, 0, gb.shape[0] - 1)
-            reg_t = coder.encode(anchors[idx], gb[gt_idx])
+    for cls, reg, (idx, is_pos, slot_valid, reg_t) in zip(
+            cls_flat, reg_flat, for_each_global_row(b, sample)):
         n_total = torch.clamp(slot_valid.sum().to(torch.float32), min=1.0)
         cls_l = losses.sigmoid_ce_with_logits(cls[idx],
                                               is_pos.to(torch.float32))
         cls_losses.append((cls_l * slot_valid).sum() / n_total)
         reg_l = (reg[idx] - reg_t).abs().sum(-1)
         reg_losses.append((reg_l * is_pos).sum() / n_total)
-    return dict(loss_rpn_cls=torch.stack(cls_losses).mean(),
-                loss_rpn_bbox=torch.stack(reg_losses).mean())
+    n = global_count(b)
+    return dict(loss_rpn_cls=torch.stack(cls_losses).sum() / n,
+                loss_rpn_bbox=torch.stack(reg_losses).sum() / n)

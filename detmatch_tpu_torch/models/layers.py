@@ -15,9 +15,12 @@ given a bfloat16 input computes in float32, as flax promotes it.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel import global_rows, global_sum_grad, process_count
 
 
 def masked_bn(bn: nn.modules.batchnorm._BatchNorm, x, mask=None):
@@ -30,26 +33,15 @@ def masked_bn(bn: nn.modules.batchnorm._BatchNorm, x, mask=None):
     (0.01 throughout the model). Padded rows do not move the statistics.
     Rows where ``mask`` is False come out zero. Statistics and the
     normalisation are float32 whatever ``x``'s dtype; the result has
-    ``x``'s dtype.
+    ``x``'s dtype. Under several processes the statistics are over every
+    process's rows (:func:`global_moments`).
     """
     if bn.training:
         c = x.shape[-1]
         xf = x.reshape(-1, c).float()
-        if mask is None:
-            cnt = xf.shape[0]
-            mean = xf.mean(0)
-            var = ((xf - mean) ** 2).mean(0)
-            unbiased = var * (cnt / max(cnt - 1, 1))
-        else:
-            m = mask.reshape(-1, 1).to(torch.float32)
-            cnt = torch.clamp(m.sum(), min=1.0)
-            mean = (xf * m).sum(0) / cnt
-            var = ((xf - mean) ** 2 * m).sum(0) / cnt
-            unbiased = var * cnt / torch.clamp(cnt - 1.0, min=1.0)
-        with torch.no_grad():
-            bn.running_mean.mul_(1 - bn.momentum).add_(bn.momentum * mean)
-            bn.running_var.mul_(1 - bn.momentum).add_(bn.momentum * unbiased)
-            bn.num_batches_tracked.add_(1)
+        m = None if mask is None else mask.reshape(-1, 1).to(torch.float32)
+        mean, var, unbiased = global_moments(xf, (0,), m)
+        update_running_stats(bn, mean, unbiased)
     else:
         mean, var = bn.running_mean, bn.running_var
     y = (x.float() - mean) * torch.rsqrt(var + bn.eps) * bn.weight + bn.bias
@@ -58,10 +50,52 @@ def masked_bn(bn: nn.modules.batchnorm._BatchNorm, x, mask=None):
     return y.to(x.dtype)
 
 
+def global_moments(xf, dims, m=None):
+    """(mean, biased var, unbiased var) per channel of float32 ``xf`` over
+    the axes ``dims`` and over every process's rows where ``m`` (R, 1)
+    (a float 0/1 mask of the rows of (R, C) ``xf``; every row if None),
+    two-pass: the global count and sum give the mean, the global sum of
+    squared deviations the variance (the count clamped at 1).
+    Differentiable through both collectives; one process's own rows
+    without a process group."""
+    keep = [1 if d in dims else s for d, s in enumerate(xf.shape)]
+    if m is None:
+        s = xf.sum(dims)
+        cnt = xf.new_tensor(float(np.prod([xf.shape[d] for d in dims])))
+    else:
+        s = (xf * m).sum(dims)
+        cnt = m.sum()
+    sc = global_sum_grad(torch.cat([s, cnt.reshape(1)]))
+    cnt = torch.clamp(sc[-1].detach(), min=1.0)
+    mean = sc[:-1] / cnt
+    dev = (xf - mean.reshape(keep)) ** 2
+    var = global_sum_grad((dev if m is None else dev * m).sum(dims)) / cnt
+    return mean, var, var * cnt / torch.clamp(cnt - 1.0, min=1.0)
+
+
+def update_running_stats(bn, mean, unbiased):
+    """Move ``bn``'s running statistics toward a batch's (momentum
+    ``bn.momentum``), as torch's batch norm does."""
+    with torch.no_grad():
+        bn.running_mean.mul_(1 - bn.momentum).add_(bn.momentum * mean)
+        bn.running_var.mul_(1 - bn.momentum).add_(bn.momentum * unbiased)
+        bn.num_batches_tracked.add_(1)
+
+
 def batch_norm_2d(bn, x):
-    """A ``BatchNorm2d`` on an NCHW map of any dtype: torch's own batch
-    norm in float32, cast back to ``x``'s dtype."""
-    return bn(x.float()).to(x.dtype)
+    """A ``BatchNorm2d`` on an NCHW map of any dtype, in float32, cast
+    back to ``x``'s dtype: torch's own batch norm in one process; in
+    train mode under several processes, statistics over the global
+    (B, H, W) (:func:`global_moments`)."""
+    if not (bn.training and process_count() > 1):
+        return bn(x.float()).to(x.dtype)
+    xf = x.float()
+    mean, var, unbiased = global_moments(xf, (0, 2, 3))
+    update_running_stats(bn, mean, unbiased)
+    shape = (1, -1, 1, 1)
+    y = ((xf - mean.reshape(shape)) * torch.rsqrt(var + bn.eps).reshape(shape)
+         * bn.weight.reshape(shape) + bn.bias.reshape(shape))
+    return y.to(x.dtype)
 
 
 def _low(dtype):
@@ -93,13 +127,19 @@ def conv(layer, x, dtype=None):
                                                                    None]
 
 
-def dropout(x, p, generator):
+def dropout(x, p, generator, row_groups=1):
     """Inverted dropout with its mask drawn from ``generator`` (the JAX
     ``nn.Dropout``: keep with probability 1 - p, scale kept values by
-    1 / (1 - p)); the identity for p = 0."""
+    1 / (1 - p)); the identity for p = 0. The leading axis of ``x`` is the
+    batch (``row_groups`` parts, as ``parallel.global_rows``): the mask
+    is drawn at the global batch's shape and this process keeps its
+    rows."""
     if p == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    rows, total = global_rows(x.shape[0], row_groups)
+    u = torch.rand((total,) + tuple(x.shape[1:]), generator=generator,
+                   device=x.device)
+    keep = (u if total == x.shape[0] else u[rows]) >= p
     return torch.where(keep, x / (1.0 - p), 0.0)
 
 

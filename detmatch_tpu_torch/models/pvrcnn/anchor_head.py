@@ -18,6 +18,7 @@ from torch import nn
 from ...core import geometry, iou as iou_mod, losses
 from ...core.coders import ResidualCoder
 from ...ops.pointnet import gather_rows
+from ...parallel import global_count
 
 # the JAX head's default loss weights (``anchor_head.py:231-233``)
 LOSS_WEIGHTS = dict(cls_weight=1.0, loc_weight=2.0, dir_weight=0.2,
@@ -202,6 +203,7 @@ class AnchorHeadSingle(nn.Module):
                     rpn_loss_dir=dir_loss)
 
     def loss(self, preds, targets):
-        """Batch mean of :meth:`loss_per_sample`."""
-        return {k: v.mean() for k, v in
+        """Mean of :meth:`loss_per_sample` over the global batch (this
+        process's samples' sum over the global sample count)."""
+        return {k: v.sum() / global_count(v.shape[0]) for k, v in
                 self.loss_per_sample(preds, targets).items()}

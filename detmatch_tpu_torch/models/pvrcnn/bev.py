@@ -59,9 +59,10 @@ class BaseBEVBackbone(nn.Module):
 
     def forward(self, x):
         """(B, C, H, W) → (B, sum(num_upsample_filters), H, W). In train
-        mode BatchNorm2d takes batch statistics over (B, H, W): the dense
-        BEV has no padding, so torch's own batch norm is the JAX
-        ``MaskedBatchNorm`` without a mask."""
+        mode BatchNorm2d takes batch statistics over (B, H, W), global
+        under several processes (``layers.batch_norm_2d``): the dense BEV
+        has no padding, so this is the JAX ``MaskedBatchNorm`` without a
+        mask."""
         ups = []
         for block, deblock in zip(self.blocks, self.deblocks):
             x = self._run(block, x)
@@ -69,8 +70,6 @@ class BaseBEVBackbone(nn.Module):
         return torch.cat(ups, dim=1) if len(ups) > 1 else ups[0]
 
     def _run(self, seq, x):
-        if self.dtype is None:
-            return seq(x)
         for layer in seq:
             if isinstance(layer, (nn.Conv2d, nn.ConvTranspose2d)):
                 x = conv(layer, x, self.dtype)

@@ -13,6 +13,7 @@ import torch
 from torch import nn
 
 from ...core import geometry, losses
+from ...parallel import global_sum
 from ..layers import bn_pairs, mlp
 
 
@@ -61,6 +62,7 @@ class PointHeadSimple(nn.Module):
 
     @staticmethod
     def loss(logits, targets, weight=1.0):
-        """Focal loss normalised by the batch's positive count."""
+        """Focal loss normalised by the global batch's positive count."""
         numer, pos = PointHeadSimple.loss_terms(logits, targets)
-        return numer.sum() / torch.clamp(pos.sum(), min=1.0) * weight
+        return (numer.sum() / torch.clamp(global_sum(pos.sum()), min=1.0)
+                * weight)

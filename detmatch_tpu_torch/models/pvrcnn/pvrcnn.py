@@ -20,6 +20,7 @@ from torch import nn
 
 from ...core import nms as nms_mod
 from ...ops.cuda import KERNELS
+from ...parallel import global_sum
 from .anchor_head import AnchorHeadSingle
 from .backbone3d import VoxelBackbone8x, level_shapes
 from .bev import BaseBEVBackbone, height_compression
@@ -101,7 +102,7 @@ class PVRCNN(nn.Module):
             num_classes=num_classes, dtype=compute_dtype,
             **(roi_head_cfg or {}))
 
-    def forward(self, batch, train=None, generator=None):
+    def forward(self, batch, train=None, generator=None, row_groups=1):
         """Forward pass.
 
         Args:
@@ -111,6 +112,11 @@ class PVRCNN(nn.Module):
                 with it.
             generator: a ``torch.Generator`` on the model's device, the
                 source of the RoI picks and dropout masks (train only).
+            row_groups: the batch's parts, each this process's shard of
+                a global part: their number if equal, else their sizes
+                (the SSL student's labeled + unlabeled views); under
+                several processes it places the rows' draws in the global
+                batch (``parallel.global_rows``).
         Returns:
             The JAX model's outputs plus the intermediates ``backbone``
             (sparse levels), ``spatial_features`` (B, C*Z, H, W),
@@ -151,11 +157,12 @@ class PVRCNN(nn.Module):
             point_features_before_fusion=vsa["point_features_before_fusion"],
             proposals=proposals)
         out.update(second_stage_rois(proposals, batch.get("gt_boxes"), train,
-                                     generator, self.roi_head.target_cfg))
+                                     generator, self.roi_head.target_cfg,
+                                     row_groups))
         rois = out["rois"]
         rcnn_cls, rcnn_reg = self.roi_head(
             rois, vsa["keypoints"], vsa["kp_valid"], vsa["point_features"],
-            point_scores, self.ops, generator)
+            point_scores, self.ops, generator, row_groups)
         out.update(rcnn_cls=rcnn_cls, rcnn_reg=rcnn_reg,
                    batch_box_preds_rcnn=PVRCNNHead.decode_boxes(rois,
                                                                 rcnn_reg))
@@ -182,7 +189,8 @@ class PVRCNN(nn.Module):
         for each ``name -> (mask (B,) bool, weight)`` the terms over the
         masked samples are normalised as a forward over those samples
         alone would normalise them (per-sample means for the anchor head,
-        the group's positive counts for the point and RoI heads).
+        the group's positive counts for the point and RoI heads), the
+        counts taken over every process's samples (one collective).
 
         Returns:
             ``{f"{name}.{term}": scalar, ..., "loss": weighted total}``.
@@ -195,16 +203,20 @@ class PVRCNN(nn.Module):
                 out["keypoints"], out["kp_valid"], gt))
         rcnn_terms = roi_head_loss_terms(out["rcnn_cls"], out["rcnn_reg"],
                                          out["roi_targets"])
+        # per group: sample count, positive keypoints, each RoI term's
+        denoms = torch.clamp(global_sum(torch.stack([torch.stack(
+            [mask.to(torch.float32).sum(),
+             (pt_pos * mask.to(torch.float32)).sum()]
+            + [(de * mask.to(torch.float32)).sum()
+               for _, de in rcnn_terms.values()])
+            for mask, _ in groups.values()])), min=1.0)
         result, total = {}, 0.0
-        for name, (mask, weight) in groups.items():
+        for (name, (mask, weight)), den in zip(groups.items(), denoms):
             m = mask.to(torch.float32)
-            cnt = torch.clamp(m.sum(), min=1.0)
-            sub = {k: (v * m).sum() / cnt for k, v in rpn_per.items()}
-            sub["point_loss_cls"] = ((pt_numer * m).sum()
-                                     / torch.clamp((pt_pos * m).sum(),
-                                                   min=1.0))
-            for k, (nu, de) in rcnn_terms.items():
-                sub[k] = (nu * m).sum() / torch.clamp((de * m).sum(), min=1.0)
+            sub = {k: (v * m).sum() / den[0] for k, v in rpn_per.items()}
+            sub["point_loss_cls"] = (pt_numer * m).sum() / den[1]
+            for (k, (nu, _)), d in zip(rcnn_terms.items(), den[2:]):
+                sub[k] = (nu * m).sum() / d
             result.update({f"{name}.{k}": v for k, v in sub.items()})
             total = total + weight * sum(sub.values())
         result["loss"] = total

@@ -10,7 +10,10 @@ other; they also act as easy-background candidates in RoI sampling.
 
 RoI sampling draws from a ``torch.Generator`` (``_pick``): it cannot give
 ``jax.random``'s numbers, so the tests hand the JAX package's picks to
-the port and compare everything that follows from them.
+the port and compare everything that follows from them. Under several
+processes the picks and the dropout masks are drawn for every global
+sample, in global order, and each process keeps its own; the loss
+denominators are global (``parallel``).
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from ...core import geometry, iou as iou_mod, losses, nms as nms_mod
 from ...core.coders import ResidualCoder
 from ...ops.cuda import KERNELS
 from ...ops.cuda.ball_query import pack_table, sort_points_by_y
+from ...parallel import for_each_global_row, global_sum
 from ..layers import dropout, masked_bn, pointwise
 from .vsa import StackSAModuleMSG
 
@@ -120,7 +124,8 @@ def sample_rois_single(generator, rois, roi_labels, roi_scores, roi_full,
     """pcdet ProposalTargetLayer (sample_rois_for_rcnn + subsample_rois)
     for one sample, with a static ``roi_per_image`` output: same-class 3D
     IoU, fg picks without replacement (repeated draws past the fg count),
-    hard and easy bg with replacement, roi_iou soft class labels."""
+    hard and easy bg with replacement, roi_iou soft class labels. Its
+    draws depend on the shapes only (``parallel.for_each_global_row``)."""
     gt_cls = gt_boxes[:, 7].to(torch.int64)
     gt_valid = gt_cls > 0
     ious = iou_mod.iou3d(rois, gt_boxes[:, :7])  # (R, G)
@@ -197,16 +202,19 @@ def canonical_transform(targets):
     return torch.cat([local, gt[..., 3:6], heading[..., None]], dim=-1)
 
 
-def assign_roi_targets(generator, proposals, gt_boxes, cfg=None):
+def assign_roi_targets(generator, proposals, gt_boxes, cfg=None,
+                       row_groups=1):
     """RoI sampling and target assignment over the batch (samples in
-    order, each drawing from ``generator``); no gradient flows out."""
+    global order, each drawing from ``generator``; the picks of another
+    process's samples are drawn and dropped, ``row_groups`` as
+    ``parallel.for_each_global_row``); no gradient flows out."""
     cfg = cfg or default_target_cfg()
+    rois = proposals["rois"]
     with torch.no_grad():
-        per = [sample_rois_single(generator, r, rl, rs, rf, gb, cfg)
-               for r, rl, rs, rf, gb in zip(
-                   proposals["rois"], proposals["roi_labels"],
-                   proposals["roi_scores"], proposals["roi_scores_full"],
-                   gt_boxes)]
+        per = for_each_global_row(rois.shape[0], lambda i: sample_rois_single(
+            generator, rois[i], proposals["roi_labels"][i],
+            proposals["roi_scores"][i], proposals["roi_scores_full"][i],
+            gt_boxes[i], cfg), row_groups)
         targets = {k: torch.stack([p[k] for p in per]) for k in per[0]}
         targets["gt_of_rois_src"] = targets["gt_of_rois"]
         targets["gt_of_rois_ct"] = canonical_transform(targets)
@@ -214,14 +222,15 @@ def assign_roi_targets(generator, proposals, gt_boxes, cfg=None):
 
 
 def second_stage_rois(proposals, gt_boxes, train, generator,
-                      target_cfg=None):
+                      target_cfg=None, row_groups=1):
     """The RoIs a two-stage head refines: in train mode the sampled RoIs
     of :func:`assign_roi_targets` (``roi_targets`` holds their targets),
     else the proposals themselves. Returns the forward's ``rois``,
     ``roi_labels``, ``roi_scores_full`` (and ``roi_scores`` or
     ``roi_targets``)."""
     if train:
-        t = assign_roi_targets(generator, proposals, gt_boxes, target_cfg)
+        t = assign_roi_targets(generator, proposals, gt_boxes, target_cfg,
+                               row_groups)
         return dict(roi_targets=t, rois=t["rois"], roi_labels=t["roi_labels"],
                     roi_scores_full=t["roi_scores_full"])
     return dict(rois=proposals["rois"], roi_labels=proposals["roi_labels"],
@@ -266,10 +275,11 @@ def roi_head_loss_terms(rcnn_cls, rcnn_reg, targets):
 
 def roi_head_loss(rcnn_cls, rcnn_reg, targets):
     """BCE on the roi_iou soft labels + smooth-L1 reg + corner loss, each
-    normalised over the batch (``roi_head_template.py:140-230``)."""
+    normalised over the global batch (``roi_head_template.py:140-230``)."""
     terms = roi_head_loss_terms(rcnn_cls, rcnn_reg, targets)
-    return {k: numer.sum() / torch.clamp(denom.sum(), min=1.0)
-            for k, (numer, denom) in terms.items()}
+    denoms = global_sum(torch.stack([d.sum() for _, d in terms.values()]))
+    return {k: numer.sum() / torch.clamp(den, min=1.0)
+            for (k, (numer, _)), den in zip(terms.items(), denoms)}
 
 
 def _fc_layers(cin, channels, dropout_after, dp_ratio, eps=1e-5):
@@ -286,11 +296,12 @@ def _fc_layers(cin, channels, dropout_after, dp_ratio, eps=1e-5):
     return layers, cin
 
 
-def _apply_fc(seq, x, generator, dtype=None):
+def _apply_fc(seq, x, generator, dtype=None, row_groups=1):
     """A pcdet fc stack over the last axis of (B, N, C) ``x``: batch norm
     over all B*N rows, dropout (train mode only) with masks from
-    ``generator``. Its layers run in ``dtype`` but a closing output layer,
-    which computes in float32 (JAX's ``{cls,reg}_out`` have no dtype)."""
+    ``generator`` (``row_groups`` as ``layers.dropout``'s). Its layers run
+    in ``dtype`` but a closing output layer, which computes in float32
+    (JAX's ``{cls,reg}_out`` have no dtype)."""
     last = len(seq) - 1
     for i, layer in enumerate(seq):
         if isinstance(layer, nn.Conv1d):
@@ -300,7 +311,7 @@ def _apply_fc(seq, x, generator, dtype=None):
         elif isinstance(layer, nn.ReLU):
             x = torch.relu(x)
         elif isinstance(layer, nn.Dropout) and layer.training:
-            x = dropout(x, layer.p, generator)
+            x = dropout(x, layer.p, generator, row_groups)
     return x
 
 
@@ -334,13 +345,15 @@ class PVRCNNHead(nn.Module):
         nn.init.normal_(self.reg_layers[-1].weight, std=0.001)
 
     def forward(self, rois, keypoints, kp_valid, point_features,
-                point_cls_scores, ops=KERNELS, generator=None):
+                point_cls_scores, ops=KERNELS, generator=None,
+                row_groups=1):
         """Second-stage refinement.
 
         Args:
             rois (B, N, 7); keypoints (B, M, 3); kp_valid (B, M);
             point_features (B, M, C); point_cls_scores (B, M) sigmoid;
-            generator: the dropout masks' source in train mode.
+            generator: the dropout masks' source in train mode;
+            row_groups: the batch's parts (``parallel.global_rows``).
         Returns:
             (rcnn_cls (B, N, 1), rcnn_reg (B, N, 7)).
         """
@@ -363,8 +376,9 @@ class PVRCNNHead(nn.Module):
         c = pooled.shape[-1]
         x = pooled.reshape(b, n, self.grid_size ** 3, c).transpose(2, 3)
         shared = _apply_fc(self.shared_fc_layer, x.reshape(b, n, -1),
-                           generator, self.dtype)
-        return tuple(_apply_fc(seq, shared, generator, self.dtype)
+                           generator, self.dtype, row_groups)
+        return tuple(_apply_fc(seq, shared, generator, self.dtype,
+                               row_groups)
                      for seq in (self.cls_layers, self.reg_layers))
 
     decode_boxes = staticmethod(decode_roi_boxes)

@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel import global_count
+
 
 def make(boxes, scores, valid):
     return dict(boxes=boxes, scores=scores, valid=valid)
@@ -57,8 +59,11 @@ def average(bs1, bs2):
 
 
 def num_valid(bs):
-    """NumPreds: the mean number of valid boxes per frame."""
-    return bs["valid"].to(torch.float32).sum(-1).mean()
+    """NumPreds: the mean number of valid boxes per frame of the global
+    batch (this process's share: its frames' sum over the global frame
+    count)."""
+    v = bs["valid"].to(torch.float32)
+    return v.sum(-1).sum() / global_count(v.shape[0])
 
 
 def topk(bs, k):

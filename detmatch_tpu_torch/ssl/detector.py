@@ -310,9 +310,13 @@ class SSLDetector(nn.Module):
         """The 3D branch's losses through ONE concatenated (labeled +
         unlabeled) train forward of the student PV-RCNN, which updates
         its batch-norm statistics over the union batch. ``generator``
-        draws the RoI samples and dropout masks. Returns (total, logs)."""
+        draws the RoI samples and dropout masks, in the order of the
+        global concatenation (every process's labeled samples, then every
+        process's unlabeled ones). Returns (total, logs)."""
         cat, bl = self._concat_student_batch(batch, pseudo)
-        out = self.student["det3d"](cat, train=True, generator=generator)
+        n = cat["points"].shape[0]
+        out = self.student["det3d"](cat, train=True, generator=generator,
+                                    row_groups=(bl, n - bl))
         return self._stu3d_grouped_losses(out, cat, bl, batch, pseudo, it)
 
     def student_losses_3d(self, batch, pseudo, it, generator):

@@ -12,6 +12,7 @@ import torch.nn.functional as F
 from ..core import geometry, hungarian, iou as iou_mod, losses, nms as nms_mod
 from ..core import transforms
 from ..core.coders import xyxy_to_cxcywh
+from ..parallel import global_sum
 from . import boxset
 
 
@@ -156,8 +157,8 @@ def hungarian_consistency_loss(bs_in, bs_target, img_shape, cls_w=2.0,
     toward the teacher's 2D boxes. Focal loss of the student's scores
     against the teacher's top class, L1 of the boxes normalised by the
     image size (mean over the 4 coordinates), and 1 - GIoU; each a mean
-    over an image's matched pairs, then a mean over the images with at
-    least one pair.
+    over an image's matched pairs, then a mean over the global batch's
+    images with at least one pair.
 
     Args:
         img_shape: (B, 2) per-image (h, w) in the student's frame.
@@ -167,7 +168,7 @@ def hungarian_consistency_loss(bs_in, bs_target, img_shape, cls_w=2.0,
     pv = (bs_in["valid"] & bs_target["valid"]).to(torch.float32)
     n_pairs = pv.sum(1)
     img_has = (n_pairs > 0).to(torch.float32)
-    denom_img = torch.clamp(img_has.sum(), min=1.0)
+    denom_img = torch.clamp(global_sum(img_has.sum()), min=1.0)
     per_pair = torch.clamp(n_pairs, min=1.0)
 
     def reduce(per_slot):

@@ -4,14 +4,17 @@ Usage:
     python -m detmatch_tpu_torch.tools.train CONFIG [--work-dir DIR]
         [--resume-from CKPT_DIR] [--load-from-with-optimizer CKPT_DIR]
         [--seed N] [--max-iters N] [--cfg-options k=v ...]
-        [--autoscale-lr] [--device cuda|cpu]
+        [--autoscale-lr] [--device cuda|cpu] [--dist-coordinator HOST:PORT
+        --dist-num-processes N --dist-process-id R]
 
 The config's ``task`` picks the loop: "ssl" (DetMatch, the default),
 "pretrain_3d" (PV-RCNN) or "pretrain_2d" (Faster R-CNN), each called
 with the keyword values JAX's CLI passes; ``main`` returns what the loop
 returns. The models live on ``--device``: the card unless ``cpu`` is
-asked for. One process trains on one device; ``--dist-*`` (multi-process
-launch) is refused.
+asked for. One process trains on one device; several (``--dist-*`` or
+the ``DETMATCH_*`` environment, as ``tools/dist_train.py`` sets it) train
+data-parallel (``parallel``): over NCCL on the card, over gloo with
+``--device cpu``.
 """
 from __future__ import annotations
 
@@ -21,10 +24,7 @@ import os
 
 import numpy as np
 
-DIST_ENV = ("DETMATCH_COORDINATOR", "DETMATCH_NUM_PROCESSES",
-            "DETMATCH_PROCESS_ID")
-# devices one run trains on: a process drives one card
-DEVICES_IN_USE = 1
+from ..parallel import init_distributed, process_count, shutdown
 
 
 def parse_options(pairs):
@@ -38,18 +38,6 @@ def parse_options(pairs):
         except (ValueError, SyntaxError):
             out[k] = v
     return out
-
-
-def refuse_distributed(ap, args):
-    """Exit with an error if a multi-process launch is asked for, by
-    argument or by the ``DETMATCH_*`` environment."""
-    given = [f"--{k.replace('_', '-')}" for k in
-             ("dist_coordinator", "dist_num_processes", "dist_process_id")
-             if getattr(args, k) is not None]
-    given += [k for k in DIST_ENV if os.environ.get(k)]
-    if given:
-        ap.error(f"{', '.join(given)}: multi-process training is not "
-                 "ported yet (one process, one device)")
 
 
 def load_config(path, options):
@@ -71,19 +59,27 @@ def main(argv=None):
     ap.add_argument("--max-iters", type=int, default=None)
     ap.add_argument("--cfg-options", nargs="*", default=None)
     ap.add_argument("--dist-coordinator", default=None,
-                    help="refused: multi-process training is not ported")
-    ap.add_argument("--dist-num-processes", type=int, default=None,
-                    help="refused: multi-process training is not ported")
-    ap.add_argument("--dist-process-id", type=int, default=None,
-                    help="refused: multi-process training is not ported")
+                    help="host:port of process 0 (multi-process; or set "
+                         "DETMATCH_COORDINATOR / run tools.dist_train)")
+    ap.add_argument("--dist-num-processes", type=int, default=None)
+    ap.add_argument("--dist-process-id", type=int, default=None)
     ap.add_argument("--autoscale-lr", action="store_true",
-                    help="linear-scale learning rates by the devices in "
-                         "use over 8 (reference tools/train.py:124-132)")
+                    help="linear-scale learning rates by the processes "
+                         "(one device each) over 8 (reference "
+                         "tools/train.py:124-132)")
     ap.add_argument("--device", default="cuda",
                     help="torch device of the models (default cuda)")
     args = ap.parse_args(argv)
-    refuse_distributed(ap, args)
+    init_distributed(args.dist_coordinator, args.dist_num_processes,
+                     args.dist_process_id,
+                     backend="gloo" if args.device == "cpu" else None)
+    result = run(args)
+    shutdown()
+    return result
 
+
+def run(args):
+    """The loop of ``args``'s config, in this process."""
     cfg = load_config(args.config, args.cfg_options)
     work_dir = args.work_dir or cfg.get("work_dir") or os.path.join(
         "work_dirs", os.path.splitext(os.path.basename(args.config))[0])
@@ -92,7 +88,7 @@ def main(argv=None):
     if args.autoscale_lr:
         # linear scaling rule (arXiv:1706.02677): every rate scales by the
         # share of the reference's 8-device fleet in use
-        scale = DEVICES_IN_USE / 8.0
+        scale = process_count() / 8.0
         if "base_lr" in cfg:
             cfg["base_lr"] = cfg["base_lr"] * scale
         cfg["autoscale_lr_factor"] = scale

@@ -12,12 +12,19 @@
   weight decay .01 added after the Adam scaling) for the PV-RCNN, or SGD
   (weight decay 1e-4 added before the momentum-0.9 trace) for the Faster
   R-CNN; scaled by the linear-warmup step rate.
+
+Under several processes (``parallel``) each process's loss is its share
+of the global batch's loss, so the gradient is summed over the
+processes, in one flat buffer, before anything reads it: the skip, the
+clip and the update see the global gradient on every process.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+
+from ..parallel import all_reduce_grads
 
 CLIP_NORM = 10.0
 
@@ -91,7 +98,7 @@ def warmup_step_lr(base_lr, warmup_iters=500, warmup_ratio=0.001,
 class BranchOptimizer:
     """The JAX ``detmatch_branch_optimizers`` chain over one student
     branch: ``skip_nonfinite(chain(clip_by_global_norm(clip_norm),
-    adamw | sgd_momentum))``.
+    adamw | sgd_momentum))``, on the gradient summed over the processes.
 
     Every parameter takes part, a missing gradient counting as zero
     (the frozen ResNet stages get weight decay, as in optax). A step
@@ -172,7 +179,10 @@ class BranchOptimizer:
     @torch.no_grad()
     def step(self):
         """Apply one update from the parameters' ``.grad``; returns False
-        if it was skipped."""
+        if it was skipped. Under several processes the trainable
+        parameters' gradients are first summed over them (one flat
+        all-reduce) and the sums left in ``.grad``."""
+        all_reduce_grads(self.params)
         g = [p.grad if p.grad is not None else torch.zeros_like(p)
              for p in self.params]
         finite = torch.stack([torch.isfinite(x).all() for x in g]).all()

@@ -3,7 +3,8 @@
 log.json format that ``tools/analyze_logs.py`` and
 ``tools/average_runs.py`` read), echoed to stderr, and
 :class:`MultiLogger`, which fans one entry out to several sinks (the
-tensorboard sink is ``train/tensorboard.py``)."""
+tensorboard sink is ``train/tensorboard.py``), and the
+:class:`NullLogger` of the other processes of a multi-process run."""
 from __future__ import annotations
 
 import json
@@ -31,6 +32,20 @@ class JsonlLogger:
 
     def close(self):
         self._f.close()
+
+
+class NullLogger:
+    """A logger that writes nothing: the sink of every process but the
+    first in a multi-process run."""
+
+    def log(self, entry: dict):
+        pass
+
+    def log_image(self, tag, img, step):
+        pass
+
+    def close(self):
+        pass
 
 
 class MultiLogger:

@@ -16,7 +16,10 @@ config overrides they rest on, against the JAX package's
   and ``data.train`` through ``--cfg-options``; the RoI head narrowed as
   ``test_torch_port_checkpoints.py`` narrows it), a resume, and
   ``tools.test`` on the SSL checkpoint, ``--device cpu``;
-* ``--dist-*`` (by argument or environment) is refused.
+* the multi-process launch: ``--dist-num-processes 1`` runs in one
+  process, the ``DETMATCH_*`` environment and the ``--dist-*`` arguments
+  reach ``parallel.start_group``, and ``--autoscale-lr`` scales by the
+  process count over 8.
 """
 import filecmp
 import glob
@@ -375,29 +378,92 @@ def test_cli_pretrain_ssl_resume_test_on_cpu(infos_tree, tmp_path, capsys):
     assert json.load(open(tmp_path / "res.json")) == pytest.approx(res)
 
 
-# ---------------------------------------------------------- refusals, -m
+# ------------------------------------------------ multi-process launch, -m
 
-@pytest.mark.parametrize("extra,env", [
-    (["--dist-coordinator", "localhost:1234"], {}),
-    (["--dist-num-processes", "2", "--dist-process-id", "0"], {}),
-    ([], {"DETMATCH_COORDINATOR": "localhost:1234"})])
-def test_distributed_launch_is_refused(extra, env, monkeypatch, capsys):
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
-    with pytest.raises(SystemExit) as e:
-        ptrain.main([TINY, "--device", "cpu"] + extra)
-    assert e.value.code == 2
-    assert "multi-process training is not ported" in capsys.readouterr().err
+def _dist_env_cleared(monkeypatch):
+    for k in ("DETMATCH_COORDINATOR", "DETMATCH_NUM_PROCESSES",
+              "DETMATCH_PROCESS_ID"):
+        monkeypatch.delenv(k, raising=False)
+
+
+def test_one_process_launch_runs_single_process(monkeypatch, infos_tree):
+    """``--dist-num-processes 1`` (and a coordinator) is a one-process
+    run: no process group, the loop called once."""
+    from detmatch_tpu_torch import parallel
+    from detmatch_tpu_torch.apis import train_ssl as ptrain_ssl
+    _dist_env_cleared(monkeypatch)
+    rec = Recorder("done")
+    monkeypatch.setattr(ptrain_ssl, "train_ssl", rec)
+    assert ptrain.main([TINY, "--device", "cpu", "--dist-coordinator",
+                        "localhost:1234", "--dist-num-processes", "1",
+                        "--dist-process-id", "0", "--cfg-options"]
+                       + _cfg_options(infos_tree, "ssl")) == "done"
+    assert len(rec.calls) == 1
+    assert parallel.process_count() == 1
+    assert not torch_dist_initialized()
+
+
+def torch_dist_initialized():
+    import torch.distributed as dist
+    return dist.is_available() and dist.is_initialized()
+
+
+@pytest.mark.parametrize("by", ["environment", "arguments"])
+def test_launch_reaches_init_distributed(by, monkeypatch, tmp_path,
+                                        infos_tree):
+    """The ``DETMATCH_*`` environment (as ``tools.dist_train`` sets it)
+    or the ``--dist-*`` arguments reach ``parallel.start_group``, with
+    gloo for ``--device cpu``."""
+    from detmatch_tpu_torch.apis import train_ssl as ptrain_ssl
+    from detmatch_tpu_torch.parallel import distributed
+    _dist_env_cleared(monkeypatch)
+    address = f"file://{tmp_path}/store"
+    extra = []
+    if by == "environment":
+        monkeypatch.setenv("DETMATCH_COORDINATOR", address)
+        monkeypatch.setenv("DETMATCH_NUM_PROCESSES", "3")
+        monkeypatch.setenv("DETMATCH_PROCESS_ID", "2")
+    else:
+        extra = ["--dist-coordinator", address, "--dist-num-processes", "3",
+                 "--dist-process-id", "2"]
+    started = Recorder()
+    monkeypatch.setattr(distributed, "start_group", started)
+    monkeypatch.setattr(ptrain_ssl, "train_ssl", Recorder())
+    ptrain.main([TINY, "--device", "cpu"] + extra + ["--cfg-options"]
+                + _cfg_options(infos_tree, "ssl"))
+    (args, _), = started.calls
+    assert args[:4] == (address, 3, 2, "gloo")
+
+
+@pytest.mark.parametrize("world", [1, 2, 4])
+def test_autoscale_lr_scales_by_processes(world, monkeypatch, infos_tree):
+    """``--autoscale-lr``: every rate times the processes (one device
+    each) over 8 — the SSL loop's ``lr_scale`` and the pretraining
+    ``base_lr``."""
+    from detmatch_tpu_torch.apis import train_pretrain as ptrain_pre
+    from detmatch_tpu_torch.apis import train_ssl as ptrain_ssl
+    _dist_env_cleared(monkeypatch)
+    monkeypatch.setattr(ptrain, "process_count", lambda: world)
+    ssl, pre = Recorder(), Recorder()
+    monkeypatch.setattr(ptrain_ssl, "train_ssl", ssl)
+    monkeypatch.setattr(ptrain_pre, "train_pvrcnn", pre)
+    ptrain.main([TINY, "--device", "cpu", "--autoscale-lr", "--cfg-options"]
+                + _cfg_options(infos_tree, "ssl"))
+    assert ssl.calls[0][1]["lr_scale"] == world / 8
+    ptrain.main([TINY, "--device", "cpu", "--autoscale-lr", "--cfg-options"]
+                + _cfg_options(infos_tree, "pretrain_3d") + ["base_lr=0.004"])
+    assert pre.calls[0][1]["base_lr"] == pytest.approx(0.004 * world / 8)
 
 
 def test_tools_run_as_modules():
-    """``python -m detmatch_tpu_torch.tools.<name> --help`` for the four
-    tools, in one process that blocks the JAX package."""
+    """``python -m detmatch_tpu_torch.tools.<name> --help`` for the five
+    tools, in one process that blocks the JAX package; the launcher's
+    says that JAX's ``--local-devices`` has no counterpart."""
     code = ("import runpy, sys\n"
             "for m in ('jax', 'flax', 'detmatch_tpu'):\n"
             "    sys.modules[m] = None\n"
             "for name in ('train', 'test', 'create_data',\n"
-            "             'create_ssl_splits'):\n"
+            "             'create_ssl_splits', 'dist_train'):\n"
             "    sys.argv = [name, '--help']\n"
             "    try:\n"
             "        runpy.run_module('detmatch_tpu_torch.tools.' + name,\n"
@@ -407,4 +473,5 @@ def test_tools_run_as_modules():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.count("usage:") == 4
+    assert proc.stdout.count("usage:") == 5
+    assert "--local-devices has no counterpart" in proc.stdout

@@ -209,7 +209,7 @@ class DropoutMasks:
     def replay(self, monkeypatch):
         masks = iter(self.masks)
 
-        def dropout(x, p, generator):
+        def dropout(x, p, generator, row_groups=1):
             if p == 0.0:
                 return x
             mask = torch.from_numpy(np.array(next(masks)))
