@@ -1,7 +1,8 @@
 """Drive the PyTorch port's PV-RCNN inference and training, the
 DetMatch teacher phase, one whole DetMatch SSL iteration (fp32 and
-bf16), the command-line tools and the LiDAR zoo on a CUDA card, check its CUDA kernels
-against their plain PyTorch twins, and time them.
+bf16), the command-line tools, the demos and result tools, the LiDAR zoo
+and CaDDN on a CUDA card, check its CUDA kernels against their plain
+PyTorch twins, and time them.
 
 Run from the repository root, with one card visible:
 
@@ -143,7 +144,8 @@ Phases (any failure exits non-zero without printing the result line):
    clean 2D boxes and the consistency branch's surviving student boxes
    within 16 bf16 steps of fp32's
    (``tests/test_torch_port_bf16.py``), finite gradients; ms an SSL
-   iteration in turns (fp32, bf16, bf16, fp32) with its split, peak
+   iteration in turns (fp32, bf16; a warm-up iteration and a timed one
+   each) with its split, peak
    memory and 24 / 12 / 24 / 2 / 2 launches an iteration; one iteration
    of JAX's benchmark recipe (``detmatch_tpu/benchmarks.py:42-57``:
    train NMS 1,024 -> 128, caps (16000, 12000, 9000, 9000), bf16, 16,000
@@ -153,10 +155,22 @@ Phases (any failure exits non-zero without printing the result line):
    step each) and ``detmatch/split_0.py`` (2 iterations from both, then
    ``--resume-from`` to 3, a checkpoint and the three ``vis/`` PNGs an
    iteration), pointed at the tree through ``--cfg-options``;
-   ``tools.test`` on the SSL checkpoint in process and as ``python -m``:
+   ``tools.test`` on the SSL checkpoint in process (with
+   ``--out-kitti``) and as ``python -m``:
    each call's seconds and launches (K1-K3 in pretrain_3d and test, K1-K4
    in SSL), the logs, checkpoints, PNG shapes and the eight
-   ``{tea,stu}.{3d,2d}`` AP families;
+   ``{tea,stu}.{3d,2d}`` AP families; then on those checkpoints
+   (``demo_phases``) ``demo.pcd_demo`` (pretraining) and
+   ``demo.multi_modality_demo`` (SSL, teacher) on one validation frame,
+   each with K1 fwd, K2 and K3 launched and its detections equal to
+   ``detect`` / ``simple_test`` on the same frame (count and labels
+   exactly, boxes and scores within 1e-5); ``tools.misc.fuse_conv_bn``
+   on the pretraining checkpoint, ``detect`` at B=4 folded against
+   unfolded (the outputs before the proposal NMS within 2e-3, the
+   detections' share printed, both timed in turns);
+   ``publish_model`` (optimizer state dropped, content hash),
+   ``print_config``, ``visualize_results`` on ``tools.test``'s KITTI
+   results and ``browse_dataset``;
 13. the LiDAR zoo (``zoo_phases``): SECOND, SECOND-IoU, PointPillars,
    Voxel R-CNN, Part-A2 and PointRCNN through ``build_detector`` at
    JAX's default widths (pcdet's KITTI configs), on B=2 synthetic frames
@@ -178,7 +192,19 @@ Phases (any failure exits non-zero without printing the result line):
    proposals against it (99% matched; unpinned, information: random
    weights tie the scores densely), launches, ms a detect call (forward +
    post-processing) in 3 runs;
-14. data parallel (``dist_phases``, ``detmatch_tpu_torch/parallel``):
+14. CaDDN (``mono_phases``, ``configs/caddn/caddn_kitti.py`` at JAX's
+   defaults: a 280 x 376 x 25 grid, 80 LID bins, a 384 x 1280 canvas;
+   ``utils/synth_kitti.caddn_view``'s frames, 2D gt boxes projected from
+   the 3D ones, depth maps from the projected points): a B=1 eval forward
+   with ``randomize_``'s weights on the card against the CPU (depth
+   logits within 1e-4, box and class predictions within 1e-3 of their
+   largest magnitude; the post-processed detections' share printed),
+   its ms and peak memory; three AdamW steps at B=2 on one batch from
+   the model's own seeded initialisers (every loss term and gradient
+   finite, the loss falling), ms a step after a warm-up and peak
+   memory; ``demo.mono_demo`` on their checkpoint, its detections equal
+   to the model's own post-processing of the same image;
+15. data parallel (``dist_phases``, ``detmatch_tpu_torch/parallel``):
    two SSL iterations of ``train_ssl_batches`` at ``split_0.py``'s widths
    on a global batch of 4 + 4 frames, one process against two processes
    over gloo on the one card (2 + 2 frames each; process 1 starts from
@@ -194,7 +220,7 @@ Phases (any failure exits non-zero without printing the result line):
    and ms (gloo staged through the host); one process over NCCL against
    no process group (bit for bit, under deterministic algorithms), and
    NCCL refusing two processes on the one card;
-15. a JSON line of the kernels (per SSL iteration, with their bounds;
+16. a JSON line of the kernels (per SSL iteration, with their bounds;
    K6 and K8 over the replayed calls, with 0 launches on the model
    path), then the result line.
 """
@@ -1140,10 +1166,12 @@ def run():
         (base / "kitti").mkdir()
         cli_data(base / "kitti")
         tree_phases(card, base / "kitti", base / "work")
-        cli_phases(card, base / "kitti", base / "cli")
+        ckpts = cli_phases(card, base / "kitti", base / "cli")
+        demo_phases(card, base / "kitti", base / "demo", ckpts)
     finally:
         tmp.cleanup()
     zoo_phases(card, stats)
+    mono_phases(card)
     dist_phases(card)
 
     print(json.dumps({"kernels": [
@@ -2522,8 +2550,7 @@ def ssl_phases(card, stats):
         torch.cuda.empty_cache()
         resident = torch.cuda.memory_allocated() / 2 ** 30
         torch.cuda.reset_peak_memory_stats()
-        split = iteration_split(m, batch_np, spec, opts, gen(),
-                                reps=2 if label == "window" else 1)
+        split = iteration_split(m, batch_np, spec, opts, gen(), reps=1)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         it_ms = split.pop("iteration")
         print(f"  {label} path: {it_ms:.3f} ms/iteration = "
@@ -3252,7 +3279,7 @@ def tree_phases(card, root, work):
     try:
         li, ui = iter(lab_l), iter(unlab_l)
         rows = {"loader": [], "synthetic": []}
-        for it in range(3):
+        for it in range(2):
             for name in ("loader", "synthetic"):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -3459,7 +3486,7 @@ def bf16_phases(card):
     phase(f"bf16: ms an SSL iteration, in turns, on {card}")
     opts = {name: ssl_optimizers(model, SSL_B)
             for name, model in models.items()}
-    for turn, name in enumerate(("fp32", "bf16", "bf16", "fp32")):
+    for turn, name in enumerate(("fp32", "bf16")):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         cuda_ops.reset_launch_counts()
@@ -3613,7 +3640,8 @@ def cli_phases(card, root, work):
         tree_options(SSL_CONFIG, root)
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        res = timed("tools.test (in process)", test_cli.main, argv,
+        res = timed("tools.test (in process)", test_cli.main,
+                    argv + ["--out-kitti", str(work / "results")],
                     FWD_KERNELS)
     printed = buf.getvalue()
     print("\n".join(x for x in printed.splitlines()
@@ -3636,6 +3664,8 @@ def cli_phases(card, root, work):
         print(proc.stderr[-4000:])
         raise AssertionError("tools.test failed, an AP family is missing or "
                              "an AP is not finite")
+    return dict(pretrain_3d=pre["pretrain_3d"], ssl=ssl_work / "ckpt",
+                results=work / "results")
 
 
 # the LiDAR zoo (zoo_phases): each model at JAX's default widths, its
@@ -3942,6 +3972,361 @@ def zoo_phases(card, stats):
         if not ok:
             raise AssertionError(f"zoo: {name} failed a gate")
     return summary
+
+
+# ------------------------------------------------------------ CaDDN, demos
+
+CADDN_CONFIG = ROOT / "configs/caddn/caddn_kitti.py"
+CADDN_B, CADDN_STEPS, CADDN_LR = 2, 3, 1e-3
+# B=1 eval, card against CPU: the depth logits (the DDN's convs, cuDNN
+# against oneDNN) and the heads' box and class predictions, relative to
+# each tensor's largest magnitude; the heads' is wider: the softmax of the
+# depth logits and 30 BEV convs amplify the logits' float32 noise
+# (tests/test_torch_port_caddn.py: 1e-6 in the logits moves the frustum
+# by 1e-4)
+CADDN_LOGIT_RTOL, CADDN_HEAD_RTOL = 1e-4, 1e-3
+# a demo's detections against the API's on the same card and weights
+DEMO_RTOL = 1e-5
+# fuse_conv_bn: detect's dense outputs folded against unfolded
+# (tests/test_torch_port_misc_tools.py:DENSE_TOL)
+FUSE_RTOL = 2e-3
+
+
+def caddn_tensors(view, b=None):
+    return {k: torch.from_numpy(np.ascontiguousarray(v[:b])).to(DEVICE)
+            for k, v in view.items()}
+
+
+def same_detections(label, got, want):
+    """A demo's kept detections (numpy dicts with ``boxes``) against the
+    API's: the same count and labels, boxes and scores within DEMO_RTOL
+    of their largest magnitude."""
+    ok = len(got["boxes"]) == len(want["boxes"]) and all(
+        np.array_equal(got[k], want[k]) for k in got if "label" in k)
+    errs = {k: float(np.abs(got[k] - want[k]).max()
+                     / max(np.abs(want[k]).max(), 1e-12))
+            for k in got if ok and "label" not in k and len(want[k])}
+    ok &= all(e <= DEMO_RTOL for e in errs.values())
+    print(f"  {label}: {len(got['boxes'])} detections (the API's "
+          f"{len(want['boxes'])}), errors {errs} " + ("ok" if ok else "FAIL"))
+    return ok
+
+
+def mono_phases(card):
+    """CaDDN at JAX's defaults (``configs/caddn/caddn_kitti.py``): a B=1
+    eval forward on the card against the CPU, three AdamW steps at B=2 on
+    one synthetic batch (``utils/synth_kitti.caddn_view``) and the
+    monocular demo on their checkpoint."""
+    from detmatch_tpu_torch.apis.build import build_detector
+    from detmatch_tpu_torch.config import Config
+    from detmatch_tpu_torch.models.pvrcnn.second import (
+        second_post_processing)
+    from detmatch_tpu_torch.train.optim import clip_grad_norm_
+    from detmatch_tpu_torch.utils.synth_kitti import caddn_view
+
+    t_all = time.perf_counter()
+    cfg = Config.fromfile(str(CADDN_CONFIG))
+    view = caddn_view(np.random.RandomState(SEED), CADDN_B)
+    grid = cfg["model"]["detector_mono"]["grid_size"]
+    print(f"  grid {grid}, {int(np.prod(grid)):,} voxels; frustum "
+          f"80 x 96 x 320 x 64 fp32 = "
+          f"{80 * 96 * 320 * 64 * 4 / 2 ** 20:.1f} MiB and the sampled "
+          f"grid {int(np.prod(grid)) * 64 * 4 / 2 ** 20:.1f} MiB a sample; "
+          f"gt boxes a frame {(view['gt_boxes'][..., 7] > 0).sum(1)}, in "
+          f"the image {view['gt_boxes2d'].any(-1).sum(1)}; depth-map cells "
+          f"with a point {float((view['depth_maps'] > 0).mean()):.4f}")
+
+    phase(f"CaDDN: B=1 eval forward, the card against the CPU, on {card}")
+    model = build_detector(cfg, key="detector_mono")
+    randomize_(model, SEED)
+    b1 = caddn_tensors(view, 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        out = model(b1)
+        post = second_post_processing(out)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    cpu = build_detector(cfg, device="cpu", key="detector_mono")
+    cpu.load_state_dict(model.state_dict())
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        out_c = cpu({k: v.cpu() for k, v in b1.items()})
+        post_c = second_post_processing({k: out_c[k].to(DEVICE) for k in (
+            "batch_box_preds", "batch_cls_preds")})
+    cpu_s = time.perf_counter() - t0
+    ok = True
+    for name, tol in (("depth_logits", CADDN_LOGIT_RTOL),
+                      ("batch_box_preds", CADDN_HEAD_RTOL),
+                      ("batch_cls_preds", CADDN_HEAD_RTOL)):
+        err = rel_err(out[name].cpu(), out_c[name])
+        ok &= err <= tol
+        print(f"  {name} {tuple(out[name].shape)}: rel_err={err:.3e} "
+              f"(gate {tol:g}) {'ok' if err <= tol else 'FAIL'}")
+    share, total = match_share(to_cpu(post), to_cpu(post_c))
+    n_valid = int(post["valid"].sum())
+    finite = all(bool(torch.isfinite(v).all()) for v in out["head_preds"]
+                 .values())
+    ms = cuda_ms(lambda: second_post_processing(model(b1)), reps=2)
+    print(f"  detections {n_valid} (post-processed on the card: the CPU's "
+          f"outputs matched {share:.4f} of {total}, information); finite "
+          f"{finite}; CPU forward {cpu_s:.3f} s; eval B=1 {ms:.3f} ms "
+          f"(forward + post-processing); peak {peak:.3f} GiB [{card}]")
+    if not (ok and finite and n_valid > 0):
+        raise AssertionError("CaDDN: the card's eval forward disagrees with "
+                             "the CPU, or its detections are not finite")
+    del model, cpu, out, out_c, post, post_c
+
+    phase(f"CaDDN: B={CADDN_B} training, {CADDN_STEPS} AdamW steps on one "
+          f"batch, on {card}")
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        model = build_detector(cfg, key="detector_mono").train()
+    batch = caddn_tensors(view)
+    params = [p for p in model.parameters() if p.requires_grad]
+    opt = torch.optim.AdamW(params, lr=CADDN_LR, betas=(0.95, 0.99),
+                            weight_decay=0.01)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    terms, step_ms, finite = [], [], True
+    for _ in range(CADDN_STEPS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        opt.zero_grad(set_to_none=True)
+        losses = model.loss(model(batch), batch)
+        losses["loss"].backward()
+        clip_grad_norm_(params)
+        opt.step()
+        ev[1].record()
+        torch.cuda.synchronize()
+        step_ms.append(ev[0].elapsed_time(ev[1]))
+        terms.append({k: v.item() for k, v in losses.items()})
+        finite &= all(bool(torch.isfinite(p.grad).all()) for p in params
+                      if p.grad is not None)
+        del losses
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for i, t in enumerate(terms):
+        print(f"  step {i}: " + ", ".join(f"{k} {v:.6f}" for k, v in
+                                         t.items())
+              + f"; {step_ms[i]:.3f} ms")
+    finite &= all(np.isfinite(v) for t in terms for v in t.values())
+    falling = terms[-1]["loss"] < terms[0]["loss"]
+    print(f"  {float(np.mean(step_ms[1:])):.3f} ms a step (B={CADDN_B}, "
+          f"CUDA events, after a warm-up step); peak {peak:.3f} GiB; "
+          f"finite {finite}; loss falling {falling} [{card}]")
+    if not (finite and falling):
+        raise AssertionError("CaDDN: a loss term or gradient is not finite, "
+                             "or the loss did not fall")
+    tmp = tempfile.TemporaryDirectory(prefix="caddn_")
+    try:
+        caddn_demo(card, model, batch, view, Path(tmp.name))
+    finally:
+        tmp.cleanup()
+    print(f"  CaDDN phases {time.perf_counter() - t_all:.1f} s")
+
+
+def caddn_demo(card, model, batch, view, work):
+    """``demo.mono_demo`` on ``model``'s checkpoint and the first frame of
+    ``view``, against the model's own post-processing of it."""
+    from detmatch_tpu_torch.data.pipelines import load_bgr
+    from detmatch_tpu_torch.demo import mono_demo
+    from detmatch_tpu_torch.models.pvrcnn.second import (
+        second_post_processing)
+    from detmatch_tpu_torch.train import checkpoints
+    from detmatch_tpu_torch.utils.synth_kitti import calib_text
+    from detmatch_tpu_torch.utils.visualize import CAFFE_MEAN, write_png_bgr
+
+    ckpt = work / "ckpt"
+    checkpoints.save(str(ckpt), dict(model=model.state_dict()), CADDN_STEPS)
+
+    phase(f"CaDDN: demo.mono_demo on that checkpoint, on {card}")
+    img = np.clip(np.rint(view["images"][0] + CAFFE_MEAN), 0, 255)
+    write_png_bgr(str(work / "img.png"), img.astype(np.uint8))
+    (work / "calib.txt").write_text(calib_text())
+    t0 = time.perf_counter()
+    res = mono_demo.main([str(CADDN_CONFIG), str(ckpt), "--img",
+                          str(work / "img.png"), "--calib",
+                          str(work / "calib.txt"), "--out",
+                          str(work / "mono.png"), "--score-thr", "0.0"])
+    demo_s = time.perf_counter() - t0
+    model.eval()
+    own = dict(images=torch.from_numpy(
+        (load_bgr(str(work / "img.png")) - CAFFE_MEAN)[None]).to(DEVICE),
+        lidar2cam=batch["lidar2cam"][:1], cam2img=batch["cam2img"][:1])
+    with torch.inference_mode():
+        post = second_post_processing(model(own), score_thresh=0.0)
+    keep = post["valid"][0]
+    want = {k: post[k][0][keep].cpu().numpy() for k in ("boxes", "scores",
+                                                        "labels")}
+    ok = same_detections(f"mono_demo ({demo_s:.3f} s) against the phase's "
+                         "post-processing", res, want)
+    ok &= (work / "mono.png").stat().st_size > 0
+    if not ok:
+        raise AssertionError("mono_demo's detections differ from the "
+                             "phase's own")
+
+
+def demo_phases(card, root, work, ckpts):
+    """The LiDAR demos on the tree's pretraining and SSL checkpoints
+    (``cli_phases``), one validation frame each, against ``detect`` and
+    ``simple_test``; then the result tools: ``fuse_conv_bn`` (detect at
+    B=4 folded against unfolded, both timed), ``publish_model``,
+    ``print_config``, ``visualize_results`` on ``tools.test``'s KITTI
+    results and ``browse_dataset``."""
+    from detmatch_tpu_torch.apis.build import (build_detector, build_ssl,
+                                               build_voxelizer)
+    from detmatch_tpu_torch.apis.inference import detect
+    from detmatch_tpu_torch.config import Config
+    from detmatch_tpu_torch.data.pipelines import load_bgr
+    from detmatch_tpu_torch.demo import (multi_modality_demo, pcd_demo,
+                                         point_batch)
+    from detmatch_tpu_torch.ops import cuda as cuda_ops
+    from detmatch_tpu_torch.tools.misc import (browse_dataset, fuse_conv_bn,
+                                               print_config,
+                                               visualize_results)
+    from detmatch_tpu_torch.tools.model_converters import publish_model
+    from detmatch_tpu_torch.train import checkpoints
+    from detmatch_tpu_torch.utils.visualize import read_png
+
+    t_all = time.perf_counter()
+    work.mkdir(parents=True, exist_ok=True)
+    idx = (root / "ImageSets" / "val.txt").read_text().split()[0]
+    sub = root / "training"
+    frame = dict(pts=str(sub / "velodyne" / f"{idx}.bin"),
+                 img=str(sub / "image_2" / f"{idx}.png"),
+                 calib=str(sub / "calib" / f"{idx}.txt"))
+
+    def launched(label, fn, argv):
+        cuda_ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            out = fn(argv)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in cuda_ops.launch_counts().items() if v}
+        print(f"  {label}: {time.perf_counter() - t0:.3f} s; launches "
+              f"{launches} [{card}]")
+        if not all(launches.get(n, 0) > 0 for n in FWD_KERNELS):
+            raise AssertionError(f"{label}: a kernel of {FWD_KERNELS} was "
+                                 "not launched")
+        return out
+
+    phase(f"demos: pcd_demo and multi_modality_demo on frame {idx}, on "
+          f"{card}")
+    res = launched("demo.pcd_demo (pretraining checkpoint)", pcd_demo.main, [
+        str(PRETRAIN_3D), str(ckpts["pretrain_3d"]), "--pts", frame["pts"],
+        "--calib", frame["calib"], "--out", str(work / "pcd.png"),
+        "--score-thr", "0.0"])
+    cfg3 = Config.fromfile(str(PRETRAIN_3D))
+    model = build_detector(cfg3)
+    model.load_state_dict(checkpoints.restore_latest(
+        str(ckpts["pretrain_3d"]))[0]["model"])
+    _, p, v = point_batch(frame["pts"], DEVICE)
+    det = detect(model, p, v, build_voxelizer(cfg3))
+    keep = det["valid"][0] & (det["scores"][0] > 0.0)
+    ok = same_detections("pcd_demo against detect", res, {
+        k: det[k][0][keep].cpu().numpy() for k in res})
+    res = launched("demo.multi_modality_demo (SSL checkpoint, teacher)",
+                   multi_modality_demo.main, [
+                       str(SSL_CONFIG), str(ckpts["ssl"]), "--pts",
+                       frame["pts"], "--img", frame["img"], "--calib",
+                       frame["calib"], "--out", str(work / "mm.png"),
+                       "--score-thr", "0.0"])
+    cfg = Config.fromfile(str(SSL_CONFIG))
+    ssl = build_ssl(cfg)
+    ssl.load_state_dict(checkpoints.restore_latest(str(ckpts["ssl"]))[0][
+        "state"])
+    det = detect(ssl.teacher["det3d"], p, v, build_voxelizer(cfg))
+    keep = det["valid"][0] & (det["scores"][0] > 0.0)
+    canvas, shape, s = multi_modality_demo.caffe_canvas(
+        load_bgr(frame["img"]), ssl.teacher["det2d"].canvas)
+    with torch.inference_mode():
+        r2 = ssl.teacher["det2d"].simple_test(
+            torch.from_numpy(canvas).to(DEVICE),
+            torch.from_numpy(shape).to(DEVICE), score_thr=0.0)
+    k2 = r2["valid"][0] & (r2["scores"][0] > 0.0)
+    ok &= same_detections("multi_modality_demo 3D against detect", {
+        "boxes": res["boxes3d"], "scores": res["scores3d"]}, {
+        "boxes": det["boxes"][0][keep].cpu().numpy(),
+        "scores": det["scores"][0][keep].cpu().numpy()})
+    ok &= same_detections("multi_modality_demo 2D against simple_test", {
+        "boxes": res["boxes2d"], "scores": res["scores2d"],
+        "labels": res["labels2d"]}, {
+        "boxes": r2["boxes"][0][k2].cpu().numpy() / s,
+        "scores": r2["scores"][0][k2].cpu().numpy(),
+        "labels": r2["labels"][0][k2].cpu().numpy()})
+    shapes = [read_png(str(work / f)).shape for f in ("pcd.png", "mm.png")]
+    print(f"  pictures {shapes}")
+    if not ok:
+        raise AssertionError("a demo's detections differ from the API's")
+    del ssl
+
+    phase(f"tools: fuse_conv_bn, then detect at B=4 on {card}")
+    fused_dir = work / "fused"
+    with contextlib.redirect_stdout(sys.stderr):
+        n_pairs = fuse_conv_bn.main([str(ckpts["pretrain_3d"]),
+                                     str(fused_dir)])
+    spec = build_voxelizer(cfg3)
+    batch4 = make_batch(spec, 4)
+    states = {"unfused": {k: t.clone() for k, t in
+                          model.state_dict().items()},
+              "fused": checkpoints.restore_latest(str(fused_dir))[0][
+                  "model"]}
+    outs, dets, times = {}, {}, {k: [] for k in states}
+    with torch.inference_mode():
+        for name in ("unfused", "fused", "fused", "unfused"):
+            model.load_state_dict(states[name])
+            if name not in outs:
+                outs[name] = model(batch4)
+                dets[name] = detect(model, batch4["points"],
+                                    batch4["points_valid"], spec,
+                                    score_thresh=0.0)
+            times[name].append(cuda_ms(lambda: detect(
+                model, batch4["points"], batch4["points_valid"], spec,
+                score_thresh=0.0), reps=2))
+    ok = True
+    # the outputs before the proposal NMS (after it, 1e-4 noise in the
+    # scores can pick other RoIs: the detections' share is information)
+    for k in ("bev_features", "batch_cls_preds", "batch_box_preds",
+              "point_logits"):
+        err = rel_err(outs["fused"][k], outs["unfused"][k])
+        ok &= err <= FUSE_RTOL
+        print(f"  {k}: rel_err={err:.3e} (gate {FUSE_RTOL:g})")
+    share, total = match_share(dets["fused"], dets["unfused"])
+    print(f"  {n_pairs} conv + BN pairs folded; detections matched "
+          f"{share:.4f} of {total} (information); detect B=4 unfused "
+          + " / ".join(f"{x:.3f}" for x in times["unfused"])
+          + " ms, fused " + " / ".join(f"{x:.3f}" for x in times["fused"])
+          + f" ms (in turns) [{card}]")
+    if not ok or n_pairs == 0:
+        raise AssertionError("fuse_conv_bn: detect moved past its gate")
+    del model, states, outs, dets, batch4
+
+    phase("tools: publish_model, print_config, visualize_results, "
+          "browse_dataset")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        out, digest = publish_model.main([str(ckpts["ssl"]),
+                                          str(work / "published")])
+        text = print_config.main([str(SSL_CONFIG)])
+        opts = tree_options(SSL_CONFIG, root)
+        vis = visualize_results.main([
+            str(SSL_CONFIG), "--results", str(ckpts["results"] / "tea.3d"),
+            "--out-dir", str(work / "vis"), "--cfg-options"] + opts)
+        browse = browse_dataset.main([
+            str(SSL_CONFIG), "--out-dir", str(work / "browse"), "--n", "2",
+            "--cfg-options"] + opts)
+    kept, _ = checkpoints.restore_latest(out)
+    vis_shapes = sorted({read_png(x).shape for x in vis})
+    browse_shapes = sorted({read_png(x).shape for x in browse})
+    print(f"  publish_model -> {Path(out).name} (kept {sorted(kept)}); "
+          f"print_config {len(text.splitlines())} lines; visualize_results "
+          f"{len(vis)} PNGs {vis_shapes}; browse_dataset {len(browse)} PNGs "
+          f"{browse_shapes}; {time.perf_counter() - t0:.3f} s")
+    if ("opt_state" in kept or not out.endswith(digest)
+            or text != Config.fromfile(str(SSL_CONFIG)).dump()
+            or len(vis) != 2 * TREE_VAL or len(browse) != 4):
+        raise AssertionError("a result tool's output is off")
+    print(f"  demo and tool phases {time.perf_counter() - t_all:.1f} s")
 
 
 # ------------------------------------------------------------ data parallel

@@ -1,9 +1,9 @@
 """Builders: a config loaded with
 ``detmatch_tpu_torch.config.Config.fromfile`` → datasets and their
 pipelines, detectors, the SSL detector and the voxelizer (counterpart of
-``detmatch_tpu/apis/build.py``): PV-RCNN, Faster R-CNN and the LiDAR
-zoo of JAX's registry (SECOND, SECOND-IoU, PointPillars, Part-A2, Voxel
-R-CNN, PointRCNN); CaDDN is not ported.
+``detmatch_tpu/apis/build.py``): every detector of JAX's registry
+(PV-RCNN, Faster R-CNN, the LiDAR zoo: SECOND, SECOND-IoU, PointPillars,
+Part-A2, Voxel R-CNN, PointRCNN; and the camera-only CaDDN).
 Every model comes in eval mode on ``device``: the card unless the caller
 asks for another device (the CPU tests pass ``device="cpu"``); there is
 no fallback when no card is found. Datasets are host numpy."""
@@ -17,6 +17,7 @@ import torch
 
 from ..data import dbsampler, kitti, pipelines
 from ..models.frcnn.faster_rcnn import FasterRCNN
+from ..models.pvrcnn.caddn import CaDDN
 from ..models.pvrcnn.parta2 import PartA2
 from ..models.pvrcnn.pointpillars import PointPillars
 from ..models.pvrcnn.pointrcnn import PointRCNN
@@ -96,10 +97,10 @@ def build_dataset(cfg: Dict[str, Any], rng=None):
 DETECTORS = {"PVRCNN": PVRCNN, "SECOND": SECOND, "SECONDNetIoU": SECONDIoU,
              "PointPillar": PointPillars, "PartA2Net": PartA2,
              "PointRCNN": PointRCNN, "VoxelRCNN": VoxelRCNN,
-             "FasterRCNN": FasterRCNN}
-# in JAX's registry, not ported yet (ROADMAP queue 1)
-NOT_PORTED = {"CaDDN": "the camera-only CaDDN (ROADMAP queue 1, item 5)"}
-DEFAULT_TYPE = {"detector_3d": "PVRCNN", "detector_2d": "FasterRCNN"}
+             "CaDDN": CaDDN, "FasterRCNN": FasterRCNN}
+# ``detector_mono``: the monocular demo's CaDDN (JAX ``demo/mono_demo.py``)
+DEFAULT_TYPE = {"detector_3d": "PVRCNN", "detector_2d": "FasterRCNN",
+                "detector_mono": "CaDDN"}
 
 
 COMPUTE_DTYPES = {None: None, "float32": None, "bfloat16": torch.bfloat16}
@@ -121,9 +122,6 @@ def compute_dtype(name):
 def _make(cfg: Dict[str, Any], key: str):
     det = dict(cfg["model"].get(key, {}))
     kind = det.pop("type", DEFAULT_TYPE[key])
-    if kind in NOT_PORTED:
-        raise NotImplementedError(f"detector type {kind!r} is not ported: "
-                                  f"{NOT_PORTED[kind]}")
     if kind not in DETECTORS:
         raise KeyError(f"unknown detector type {kind!r}; expected one of "
                        f"{sorted(DETECTORS)}")
@@ -134,8 +132,9 @@ def _make(cfg: Dict[str, Any], key: str):
 
 def build_detector(cfg: Dict[str, Any], device="cuda", key="detector_3d"):
     """The detector of ``cfg['model'][key]`` (``detector_3d``, a PV-RCNN
-    by default or any 3D type of ``DETECTORS``, or ``detector_2d``, a
-    Faster R-CNN), eval mode, on ``device``."""
+    by default or any 3D type of ``DETECTORS``; ``detector_2d``, a
+    Faster R-CNN; ``detector_mono``, a CaDDN), eval mode, on
+    ``device``."""
     return _make(cfg, key).to(device).eval()
 
 

@@ -15,7 +15,8 @@ global batches (one loader, one seed) and keeps its rows, as JAX shards
 one loader's batch over its devices; the gradient is summed over the
 processes, the logged values are the global batch's, and process 0
 writes ``log.json`` and the checkpoints. Only the PV-RCNN and the Faster
-R-CNN have global loss denominators: another detector of the zoo raises.
+R-CNN have global loss denominators: another detector of the zoo, or
+CaDDN, raises.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ import torch
 
 from ..data.loader import Loader
 from ..models.frcnn.faster_rcnn import FasterRCNN
+from ..models.pvrcnn.caddn import CaDDN
 from ..models.pvrcnn.pvrcnn import PVRCNN
 from ..ops.voxelize import VoxelizerSpec, voxelize_mean
 from ..parallel import (all_reduce_grads, broadcast_state, is_primary,
@@ -69,6 +71,10 @@ def check_data_parallel(model, batch_size=None):
     n = process_count()
     if n == 1:
         return
+    if isinstance(model, CaDDN):
+        raise NotImplementedError(
+            f"CaDDN under {n} processes: ddn_loss's normaliser counts one "
+            "process's pixels; train CaDDN in one process")
     if type(model) not in (PVRCNN, FasterRCNN):
         raise NotImplementedError(
             f"{type(model).__name__} under {n} processes: its heads' loss "

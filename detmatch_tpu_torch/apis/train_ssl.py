@@ -85,13 +85,13 @@ def dump_vis(work_dir, step, batch, pseudo):
     V.write_png(name.format("bev"),
                 V.bev_canvas(pts, [m3["boxes"][m3["valid"]]]))
     img = V.denormalize_caffe(np.transpose(u["img"], (1, 2, 0)))
-    V.write_png(name.format("2d"), V.draw_boxes_2d(
-        img, m2["boxes"], valid=m2["valid"])[:, :, ::-1])
+    V.write_png_bgr(name.format("2d"), V.draw_boxes_2d(
+        img, m2["boxes"], valid=m2["valid"]))
     pair = V.matched_pair_canvas(
         img, m3["boxes"], m2["boxes"], m3["valid"] & m2["valid"],
         u["lidar2img"], u["img_shape"], scores3d=m3["scores"],
         scores2d=m2["scores"])
-    V.write_png(name.format("pairs"), pair[:, :, ::-1])
+    V.write_png_bgr(name.format("pairs"), pair)
 
 
 def _iteration(ssl, opts, vox_spec, batch_np, it, generator):
@@ -302,23 +302,16 @@ def train_ssl(ssl, vox_spec: VoxelizerSpec, lab_dataset, unlab_dataset,
     generator = torch.Generator(device=device).manual_seed(seed)
     start_iter = 0
     if resume_from:
-        step = checkpoints.latest_step(resume_from)
-        if step is None:
-            raise FileNotFoundError(f"no ckpt_* under {resume_from}")
-        restore_ssl_checkpoint(ssl, opts, generator,
-                               checkpoints.restore(resume_from, step))
-        start_iter = step
+        payload, start_iter = checkpoints.restore_latest(resume_from)
+        restore_ssl_checkpoint(ssl, opts, generator, payload)
     elif load_from_with_optimizer:
         payload, start_iter = checkpoints.load_from_with_optimizer(
             load_from_with_optimizer)
         restore_ssl_checkpoint(ssl, opts, generator, payload)
     elif load_from:
         for det_key, path in load_from.items():
-            step = checkpoints.latest_step(path)
-            if step is None:
-                raise FileNotFoundError(f"no ckpt_* under {path}")
             checkpoints.load_pretrained_into_ssl(
-                ssl, checkpoints.restore(path, step)["model"], det_key)
+                ssl, checkpoints.restore_latest(path)[0]["model"], det_key)
 
     def after_iter(n, opts, generator, logger):
         if not is_primary():

@@ -1,7 +1,7 @@
 """JAX model variables → the port's state dicts: PV-RCNN (pcdet names),
-the LiDAR zoo (``FROM_JAX``, by registry name, and the multi-group anchor
-head), Faster R-CNN (mmdet names) and the SSL detector's teacher and
-student.
+the LiDAR zoo and CaDDN (``FROM_JAX``, by registry name, and the
+multi-group anchor head), Faster R-CNN (mmdet names) and the SSL
+detector's teacher and student.
 
 :func:`from_jax_pvrcnn` is the exact inverse of
 ``tools/model_converters/import_torch_ckpt.py:convert_pvrcnn`` (pcdet
@@ -67,6 +67,13 @@ class _Writer:
         self.put(key + ".running_mean", s["mean"])
         self.put(key + ".running_var", s["var"])
         self.sd[key + ".num_batches_tracked"] = torch.tensor(0)
+
+    def frozen_bn(self, key, f):
+        """JAX ``FrozenBN`` constants → the port's ``FrozenBN`` buffers."""
+        for ours, theirs in (("weight", "scale"), ("bias", "bias"),
+                             ("running_mean", "mean"),
+                             ("running_var", "var")):
+            self.put(f"{key}.{ours}", f[theirs])
 
     def linear(self, key, p, shape_tail=()):
         """Dense (in, out) → Linear (out, in) / 1x1 conv (out, in, 1...)."""
@@ -372,11 +379,55 @@ def from_jax_anchor_head_multi(params, key="dense_head"):
     return w.sd
 
 
+def _resnet(w, pb, fb, key, blocks=(3, 4, 6, 3)):
+    """JAX ``ResNet50`` params ``pb`` and frozen constants ``fb`` → the
+    port's ``ResNet50`` under ``key`` (mmdet names)."""
+    w.conv2d(f"{key}.conv1", pb["conv1"])
+    w.frozen_bn(f"{key}.bn1", fb["bn1"])
+    for stage, n in enumerate(blocks):
+        for b in range(n):
+            ours, name = f"{key}.layer{stage + 1}.{b}", f"layer{stage + 1}_{b}"
+            for c in ("1", "2", "3"):
+                w.conv2d(f"{ours}.conv{c}", pb[name][f"conv{c}"])
+                w.frozen_bn(f"{ours}.bn{c}", fb[name][f"bn{c}"])
+            if "ds_conv" in pb[name]:
+                w.conv2d(f"{ours}.downsample.0", pb[name]["ds_conv"])
+                w.frozen_bn(f"{ours}.downsample.1", fb[name]["ds_bn"])
+
+
+def from_jax_caddn(params, batch_stats, frozen, cfg=None):
+    """(params, batch_stats, frozen) of the JAX ``CaDDN`` → the port's
+    state dict: the DDN's trunk as the Faster R-CNN's (``frozen`` its
+    FrozenBN constants), the ASPP head and the collapse under JAX's
+    names, the BEV (layer_nums (10, 10, 10); the collapse's Z-major
+    channels are JAX's order, so no permutation) and the anchor head.
+    ``cfg`` (the model's keyword config) is not needed: every width
+    comes with the arrays."""
+    w = _Writer()
+    pd, sd = params["ddn"], batch_stats["ddn"]
+    _resnet(w, pd["trunk"], frozen["ddn"]["trunk"], "ddn.trunk")
+    pa, sa = pd["aspp"], sd["aspp"]
+    for name in sorted(n for n in pa if not n.endswith("_bn")):
+        w.conv2d(f"ddn.aspp.{name}", pa[name])
+        w.bn(f"ddn.aspp.{name}_bn", pa[f"{name}_bn"], sa[f"{name}_bn"])
+    w.conv2d("ddn.depth_out", pd["depth_out"])
+    w.conv2d("ddn.channel_reduce", pd["channel_reduce"])
+    w.bn("ddn.channel_reduce_bn", pd["channel_reduce_bn"],
+         sd["channel_reduce_bn"])
+    w.conv2d("collapse.conv", params["collapse"]["conv"])
+    w.bn("collapse.bn", params["collapse"]["bn"], batch_stats["collapse"]["bn"])
+    _bev(w, params["backbone2d"], batch_stats["backbone2d"], (10, 10, 10))
+    _dense_head(w, params["dense_head"])
+    return w.sd
+
+
 FROM_JAX = {"PVRCNN": from_jax_pvrcnn, "SECOND": from_jax_second,
             "SECONDNetIoU": from_jax_second,
             "PointPillar": from_jax_pointpillars,
             "PartA2Net": from_jax_parta2, "VoxelRCNN": from_jax_voxelrcnn,
-            "PointRCNN": from_jax_pointrcnn}
+            "PointRCNN": from_jax_pointrcnn,
+            # (params, batch_stats, frozen, cfg): its trunk's FrozenBN
+            "CaDDN": from_jax_caddn}
 
 
 def from_jax_frcnn(params, frozen, cfg=None):
@@ -389,58 +440,27 @@ def from_jax_frcnn(params, frozen, cfg=None):
     Returns:
         OrderedDict of float32 tensors that ``FasterRCNN(**cfg)`` loads.
     """
-    sd = OrderedDict()
-
-    def put(key, arr):
-        sd[key] = torch.from_numpy(np.array(arr, np.float32, order="C"))
-
-    def conv(key, p):
-        put(key + ".weight", np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
-        if "bias" in p:
-            put(key + ".bias", p["bias"])
-
-    def frozen_bn(key, f):
-        for ours, theirs in (("weight", "scale"), ("bias", "bias"),
-                             ("running_mean", "mean"),
-                             ("running_var", "var")):
-            put(f"{key}.{ours}", f[theirs])
-
-    def linear(key, p, kernel=None):
-        k = np.asarray(p["kernel"]) if kernel is None else kernel
-        put(key + ".weight", k.T)
-        put(key + ".bias", p["bias"])
-
-    pb, fb = params["backbone"], frozen["backbone"]
-    conv("backbone.conv1", pb["conv1"])
-    frozen_bn("backbone.bn1", fb["bn1"])
+    w = _Writer()
     blocks = ((cfg or {}).get("backbone_cfg") or {}).get(
         "stage_blocks", (3, 4, 6, 3))
-    for stage, n in enumerate(blocks):
-        for b in range(n):
-            key, name = f"backbone.layer{stage + 1}.{b}", \
-                f"layer{stage + 1}_{b}"
-            for c in ("1", "2", "3"):
-                conv(f"{key}.conv{c}", pb[name][f"conv{c}"])
-                frozen_bn(f"{key}.bn{c}", fb[name][f"bn{c}"])
-            if "ds_conv" in pb[name]:
-                conv(f"{key}.downsample.0", pb[name]["ds_conv"])
-                frozen_bn(f"{key}.downsample.1", fb[name]["ds_bn"])
+    _resnet(w, params["backbone"], frozen["backbone"], "backbone", blocks)
     for i in range(4):
-        conv(f"neck.lateral_convs.{i}.conv", params["neck"][f"lateral{i}"])
-        conv(f"neck.fpn_convs.{i}.conv", params["neck"][f"fpn_conv{i}"])
+        w.conv2d(f"neck.lateral_convs.{i}.conv", params["neck"][f"lateral{i}"])
+        w.conv2d(f"neck.fpn_convs.{i}.conv", params["neck"][f"fpn_conv{i}"])
     for name in ("rpn_conv", "rpn_cls", "rpn_reg"):
-        conv(f"rpn_head.{name}", params["rpn_head"][name])
+        w.conv2d(f"rpn_head.{name}", params["rpn_head"][name])
     ph = params["bbox_head"]
     fc0 = np.asarray(ph["shared_fc0"]["kernel"])  # rows in (7, 7, C) order
     c = 256
     o = int(round(np.sqrt(fc0.shape[0] // c)))
     fc0 = fc0.reshape(o, o, c, -1).transpose(2, 0, 1, 3).reshape(
         fc0.shape[0], -1)
-    linear("roi_head.bbox_head.shared_fcs.0", ph["shared_fc0"], fc0)
-    linear("roi_head.bbox_head.shared_fcs.1", ph["shared_fc1"])
-    linear("roi_head.bbox_head.fc_cls", ph["fc_cls"])
-    linear("roi_head.bbox_head.fc_reg", ph["fc_reg"])
-    return sd
+    w.linear("roi_head.bbox_head.shared_fcs.0",
+             dict(ph["shared_fc0"], kernel=fc0))
+    for ours, theirs in (("shared_fcs.1", "shared_fc1"),
+                         ("fc_cls", "fc_cls"), ("fc_reg", "fc_reg")):
+        w.linear(f"roi_head.bbox_head.{ours}", ph[theirs])
+    return w.sd
 
 
 def from_jax_ssl(state, pv_cfg, fr_cfg):

@@ -50,15 +50,20 @@ class LoadPoints:
         return results
 
 
+def load_bgr(path):
+    """An image file → (H, W, 3) float32 BGR (caffe convention)."""
+    from PIL import Image
+    with Image.open(path) as im:
+        img = np.asarray(im.convert("RGB"), np.float32)
+    return img[:, :, ::-1].copy()  # RGB → BGR
+
+
 class LoadImage:
     """LoadImageFromFile — BGR uint8→float32 (caffe convention)."""
 
     def __call__(self, results):
-        from PIL import Image
-        with Image.open(results["img_filename"]) as im:
-            img = np.asarray(im.convert("RGB"), np.float32)
-        results["img"] = img[:, :, ::-1].copy()  # RGB → BGR
-        results["img_shape"] = np.array(img.shape[:2], np.int32)
+        results["img"] = load_bgr(results["img_filename"])
+        results["img_shape"] = np.array(results["img"].shape[:2], np.int32)
         return results
 
 

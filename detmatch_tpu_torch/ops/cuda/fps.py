@@ -4,6 +4,10 @@ PyTorch twin ``ops/pointnet.farthest_point_sample``.
 
 On a CPU tensor the wrapper runs the twin; on a CUDA tensor it launches
 the kernel or raises. The kernel reproduces the twin's indices exactly.
+Shape limit on the card: N up to ``MAX_POINTS`` = 16 CTAs x 128 threads
+x 24 points = 49,152 points a sample; past it the wrapper raises
+ValueError (no fallback). The widest model calls: the SSL clouds'
+18,000 points (VSA keypoints) and PointRCNN's 16,384.
 
 Host-side plan: :func:`fps_plan` picks, from (B, N), the cluster of CTAs
 that serves one sample and the points a thread keeps in registers;

@@ -22,6 +22,11 @@ the features or weights do not start on 16 bytes
 the wrapper allocates zero-padded scratch (``key_conv.rounded_shapes``)
 that a prologue fills. On a CPU tensor the wrapper runs the twin; on a
 CUDA tensor it launches the kernel or raises, with no fallback.
+
+Shape limits on the card (K1's tile): C and Co up to 128, C * Co up to
+16,384, K up to 27 taps, B * N and B * M below 2^31; past them
+:func:`check_args` raises ValueError. The rulebook path's widest conv is
+PV-RCNN's backbone at C, Co <= 64.
 ``gather_conv_plain`` runs the twin on any device (for verification).
 """
 from __future__ import annotations

@@ -9,6 +9,10 @@ the kernel or raises. The kernel reproduces the twin's matching exactly
 for finite costs. :func:`jv_plan` picks the kernel's design from K
 before the launch: one warp per problem, ``cols`` columns a lane, up to
 K = 128; one block per problem above.
+
+Shape limit on the card: K up to ``MAX_K`` = 1,024 (the block design's
+thread a column); past it the wrapper raises ValueError (no fallback).
+The model's calls (fusion matching, the consistency loss) take K = 128.
 """
 from __future__ import annotations
 

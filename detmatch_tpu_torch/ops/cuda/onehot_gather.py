@@ -23,6 +23,11 @@ stated order (``onehot_rows.segment_sum``; within a slot ascending m,
 chunks of ``onehot_rows.CHUNK`` pairs summed from 0, then the chunk sums
 in order), deterministic for any rulebook. The twin follows that order.
 
+Shape limits of S on the card: Co up to 256, or up to 1,024 where 4
+divides Co; K * N * Co below 2^31 and M * K below 2^30; past them the
+wrapper raises ValueError (no fallback). No model calls K6; its replay
+on the rulebook path's student convs takes Co <= 64.
+
 On a CPU tensor the wrappers run the twins; on a CUDA tensor they launch
 the kernels or raise, with no fallback.
 """

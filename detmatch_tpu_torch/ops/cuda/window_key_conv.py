@@ -22,8 +22,12 @@ as JAX's does: the backward kernel flags such a slot on the card and a
 pass that is always launched, and returns at once without the flag,
 recomputes those rows.
 
-Any C and Co up to ``MAX_CIN`` and ``MAX_COUT`` (C * Co up to
-``MAX_W``): the tiles copy 16-byte vectors, so where C or Co is not a
+Shape limits on the card: C and Co up to ``MAX_CIN`` = ``MAX_COUT`` =
+128 (C * Co up to ``MAX_W`` = 16,384) and up to ``MAX_TAPS`` = 27 taps;
+past them the wrappers raise ValueError (no fallback to the twin; the
+CPU twin takes any shape). The widest model convs: Part-A2's UNet merge
+convs at C = 128, Co = 64; PV-RCNN's backbone at C, Co <= 64.
+Any C and Co within them: the tiles copy 16-byte vectors, so where C or Co is not a
 multiple of 4, or the data do not start on 16 bytes (:func:`needs_pad`),
 the wrappers allocate zero-padded scratch that a prologue fills, and the
 kernels store C or Co of the padded columns.

@@ -56,10 +56,7 @@ def main(argv=None):
     ck = dict(cfg["data"].get("collate", {}))
     collate_fn = lambda s: collate_view(s, **ck)  # noqa: E731
     task = cfg.get("task", "ssl")
-    step = checkpoints.latest_step(args.checkpoint)
-    if step is None:
-        raise FileNotFoundError(f"no ckpt_* under {args.checkpoint}")
-    payload = checkpoints.restore(args.checkpoint, step)
+    payload, _ = checkpoints.restore_latest(args.checkpoint)
 
     def thr(specific):
         return specific if specific is not None else args.score_thr

@@ -94,14 +94,22 @@ def latest_step(path: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
+def restore_latest(path: str):
+    """(payload, step) of the newest ``ckpt_<step>`` under ``path``;
+    FileNotFoundError if there is none."""
+    step = latest_step(path)
+    if step is None:
+        raise FileNotFoundError(f"no ckpt_* under {path}")
+    return restore(path, step), step
+
+
 def load_from_with_optimizer(path: str, step: Optional[int] = None):
     """Bootstrapped resume (reference ``apis/ssl_train.py:157-166``): the
     payload of an SSL checkpoint (model and optimizer state) with the
     iteration count reset, to continue SSL training under a new schedule.
     Returns (payload, start_iter=0)."""
-    step = latest_step(path) if step is None else step
     if step is None:
-        raise FileNotFoundError(f"no ckpt_* under {path}")
+        return restore_latest(path)[0], 0
     return restore(path, step), 0
 
 

@@ -21,7 +21,7 @@ import os
 
 import numpy as np
 
-from .visualize import write_png
+from .visualize import CAFFE_MEAN, write_png
 
 LIDAR_HEIGHT = 1.73  # KITTI velodyne height above ground (m)
 
@@ -262,6 +262,13 @@ def _labels(boxes, names, image_shape):
     return lines, drawn
 
 
+def calib_text():
+    """:data:`CALIB` as a KITTI ``calib/<frame>.txt``."""
+    return "".join(
+        f"{k}: " + " ".join(f"{v:.6g}" for v in CALIB[k].ravel()) + "\n"
+        for k in ("P2", "R0_rect", "Tr_velo_to_cam"))
+
+
 def write_kitti_tree(root, n_frames, seed=0, image_shape=(375, 1242),
                      num_points=40000, n_azimuth=500):
     """Write ``n_frames`` synthetic frames under ``root/training``: the
@@ -278,9 +285,7 @@ def write_kitti_tree(root, n_frames, seed=0, image_shape=(375, 1242),
     for d in ("velodyne", "velodyne_reduced", "calib", "label_2",
               "image_2"):
         os.makedirs(os.path.join(sub, d), exist_ok=True)
-    calib_txt = "".join(
-        f"{k}: " + " ".join(f"{v:.6g}" for v in CALIB[k].ravel()) + "\n"
-        for k in ("P2", "R0_rect", "Tr_velo_to_cam"))
+    calib_txt = calib_text()
     ids = []
     for i in range(n_frames):
         idx = f"{i:06d}"
@@ -299,3 +304,67 @@ def write_kitti_tree(root, n_frames, seed=0, image_shape=(375, 1242),
             img[int(y1):int(y2), int(x1):int(x2)] = CLASS_COLOR[name]
         write_png(os.path.join(sub, "image_2", f"{idx}.png"), img)
     return ids
+
+
+# CaDDN's range (JAX ``caddn.py``: 2 - 46.8 m ahead, +-30.08 m aside)
+CADDN_PCR = (2.0, -30.08, -3.0, 46.8, 30.08, 1.0)
+CLASS_ID = {"Pedestrian": 1, "Cyclist": 2, "Car": 3}  # the anchors' order
+
+
+def caddn_view(rng, b, canvas=(384, 1280), num_points=18000, downsample=4):
+    """A monocular training batch for CaDDN as numpy arrays, ``b`` scenes
+    of :func:`lidar_scene_objects` in ``CADDN_PCR`` seen through
+    :data:`CALIB` on a ``canvas`` (h, w): images (B, H, W, 3) caffe BGR
+    (a gray ground with the objects' projections in their class colors,
+    the mean subtracted), lidar2cam (B, 4, 4) = R0_rect @ Tr_velo_to_cam,
+    cam2img (B, 3, 4) = P2, gt_boxes (B, G, 8) (1-based classes, zero
+    rows padding), gt_boxes2d (B, G, 4): each box's projection clipped to
+    the image (zero where it does not project), depth_maps (B, H / d,
+    W / d): the nearest scan point's camera depth in each
+    ``downsample``-pixel cell, 0 where none lands (a target out of
+    range)."""
+    rect = _pad44(CALIB["R0_rect"]) @ _pad44(CALIB["Tr_velo_to_cam"])
+    proj = _pad44(CALIB["P2"]) @ rect
+    h, w = canvas
+    hf, wf = -(-h // downsample), -(-w // downsample)
+    scenes = [lidar_scene_objects(rng, num_points, CADDN_PCR)
+              for _ in range(b)]
+    g = max(len(s[2]) for s in scenes)
+    images = np.empty((b, h, w, 3), np.float32)
+    gt = np.zeros((b, g, 8), np.float32)
+    gt2 = np.zeros((b, g, 4), np.float32)
+    depth = np.zeros((b, hf, wf), np.float32)
+    for i, (pts, valid, boxes, names) in enumerate(scenes):
+        n = len(boxes)
+        gt[i, :n, :7] = boxes
+        gt[i, :n, 7] = [CLASS_ID[x] for x in names]
+        img = rng.randint(40, 80, (h, w, 3)).astype(np.float32)
+        for j, box in enumerate(boxes.astype(np.float64)):
+            uvw = np.concatenate([_corners(box[None])[0], np.ones((8, 1))],
+                                 1) @ proj.T
+            if (uvw[:, 2] <= 0.1).any():
+                continue
+            uv = uvw[:, :2] / uvw[:, 2:3]
+            x1, y1 = np.maximum(uv.min(0), 0.0)
+            x2, y2 = np.minimum(uv.max(0), [w, h])
+            if x2 - x1 < 2 or y2 - y1 < 2:
+                continue
+            gt2[i, j] = x1, y1, x2, y2
+            img[int(y1):int(y2), int(x1):int(x2)] = CLASS_COLOR[names[j]][
+                ::-1]
+        images[i] = img - CAFFE_MEAN
+        p = np.concatenate([pts[valid, :3], np.ones((valid.sum(), 1))],
+                           1) @ proj.T
+        z = p[:, 2]
+        ok = z > 0.1
+        u = np.floor(p[ok, 0] / z[ok] / downsample).astype(np.int64)
+        v = np.floor(p[ok, 1] / z[ok] / downsample).astype(np.int64)
+        inside = (u >= 0) & (u < wf) & (v >= 0) & (v < hf)
+        cell = np.full(hf * wf, np.inf)
+        np.minimum.at(cell, v[inside] * wf + u[inside], z[ok][inside])
+        depth[i] = np.where(np.isfinite(cell), cell, 0.0).reshape(hf, wf)
+    return dict(images=images,
+                lidar2cam=np.tile(rect[None].astype(np.float32), (b, 1, 1)),
+                cam2img=np.tile(CALIB["P2"][None].astype(np.float32),
+                                (b, 1, 1)),
+                gt_boxes=gt, gt_boxes2d=gt2, depth_maps=depth)

@@ -203,7 +203,10 @@ def draw_boxes_2d(img_bgr, boxes, labels=None, scores=None, valid=None):
     return out
 
 
-def denormalize_caffe(img, mean=(103.530, 116.280, 123.675)):
+CAFFE_MEAN = np.array([103.530, 116.280, 123.675], np.float32)  # BGR
+
+
+def denormalize_caffe(img, mean=CAFFE_MEAN):
     """Invert the caffe normalization for display."""
     return np.clip(np.asarray(img) + np.asarray(mean), 0, 255
                    ).astype(np.uint8)
@@ -270,6 +273,12 @@ def write_png(path, img):
                 + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
                 + chunk(b"IDAT", zlib.compress(raw, 1))
                 + chunk(b"IEND", b""))
+
+
+def write_png_bgr(path, img):
+    """A BGR uint8 picture (cv2's order, as the JAX tools' ``cv2.imwrite``)
+    → an RGB PNG (:func:`write_png`)."""
+    write_png(path, np.asarray(img, np.uint8)[:, :, ::-1])
 
 
 def read_png(path):

@@ -1322,3 +1322,88 @@ def test_fps_on_roi_problems(dev, n, k):
     out = fps.fps_batched(xyz, valid, k)
     assert torch.equal(out, fps.fps_plain(xyz, valid, k))
     assert (out[::8] == 0).all()
+
+
+# The CUDA ops' shape limits (README, "The CUDA ops' shape limits"): at
+# each limit the kernel equals its twin; one past it the wrapper raises,
+# with no fallback to the twin.
+
+def _limit_rulebook(dev, c, co):
+    feats, keys, nk, w, band = _dense_case(dev, c, co)
+    return feats, keys, nk, w, band, spconv.rulebook_batched(keys, nk)
+
+
+@pytest.mark.parametrize("op", ["K1", "K7"])
+def test_sparse_conv_at_and_past_the_channel_limit(dev, op):
+    """K1 (window keys) and K7 (rulebook): C = Co = 128, C * Co = 16,384
+    (the widest model conv is the UNet's C = 128), within 1e-5 of the
+    twin; C or Co = 129 raises."""
+    feats, keys, nk, w, band, rb = _limit_rulebook(dev, 128, 128)
+    cuda_ops.reset_launch_counts()
+    if op == "K1":
+        def run(f, wt):
+            return window_key_conv.window_key_conv_batched(f, keys, nk, keys,
+                                                           wt, band)
+        ref = window_key_conv.window_key_conv_plain(feats, keys, nk, keys, w,
+                                                    band)
+    else:
+        def run(f, wt):
+            return gather_conv.gather_conv_fwd(f, rb, wt)
+        ref = gather_conv.gather_conv_plain(feats, rb, w)
+    out = run(feats, w)
+    torch.cuda.synchronize()
+    assert sum(cuda_ops.launch_counts().values()) == 1
+    _close(out, ref, 1e-5)
+    for c, co in ((129, 128), (128, 129)):
+        with pytest.raises(ValueError, match="128"):
+            run(torch.zeros(feats.shape[:2] + (c,), device=dev),
+                torch.zeros(27, c, co, device=dev))
+
+
+@pytest.mark.parametrize("co,past", [(255, 257), (1024, 1028)])
+def test_onehot_gather_scatter_at_and_past_its_width(dev, co, past):
+    """K6's S: Co up to 256 (255 the widest off the 4-wide vectors), up to
+    1,024 where 4 divides Co, exactly the twin's; 257 and 1,028 raise
+    (no model calls K6; its replay uses Co <= 64)."""
+    _, keys, nk, _, _, rb = _limit_rulebook(dev, 4, 4)
+    b, m, k = rb.shape
+    n = keys.shape[1]
+    flat = torch.where(rb >= 0, rb + n * torch.arange(
+        b, device=dev, dtype=torch.int32)[:, None, None], -1).reshape(-1, k)
+    g = torch.Generator().manual_seed(7)
+    dout = torch.randn(b * m, co, generator=g).to(dev)
+    s = onehot_gather.onehot_gather_scatter(dout, flat, b * n)
+    assert torch.equal(s, onehot_gather.onehot_gather_scatter_plain(
+        dout, flat, b * n))
+    with pytest.raises(ValueError, match="Co in"):
+        onehot_gather.onehot_gather_scatter(
+            torch.zeros(b * m, past, device=dev), flat, b * n)
+
+
+def test_fps_at_and_past_its_point_limit(dev):
+    """K3: N = 49,152 (PointRCNN's 16,384 and the SSL clouds' 18,000 are
+    the widest model calls) equals the twin; 49,153 raises."""
+    n = fps.MAX_POINTS
+    assert n == 49152
+    xyz = _cloud(dev, 1, n, 11)
+    valid = torch.ones(1, n, dtype=torch.bool, device=dev)
+    assert torch.equal(fps.fps_batched(xyz, valid, 512),
+                       fps.fps_plain(xyz, valid, 512))
+    with pytest.raises(ValueError, match="49152"):
+        fps.fps_batched(_cloud(dev, 1, n + 1, 12),
+                        torch.ones(1, n + 1, dtype=torch.bool, device=dev),
+                        512)
+
+
+def test_hungarian_at_and_past_its_column_limit(dev):
+    """K4: K = 1,024, every row valid (the model's calls take K = 128),
+    exactly the twin's assignment; K = 1,025 raises."""
+    k = hungarian.MAX_K
+    cost, rv = _jv_problem(1, k, [k], [k], seed=13)
+    got = hungarian.solve_masked_batched(cost.to(dev), rv.to(dev))
+    assert torch.equal(got.cpu(), hungarian.solve_masked_plain(cost, rv))
+    assert (got >= 0).all()
+    with pytest.raises(ValueError, match="K <= 1024"):
+        hungarian.solve_masked_batched(
+            torch.zeros(1, k + 1, k + 1, device=dev),
+            torch.ones(1, k + 1, dtype=torch.bool, device=dev))

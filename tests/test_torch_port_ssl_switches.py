@@ -11,7 +11,10 @@ setting enables, then the EMA. Its pseudo-labels, and JAX's random draws
 (``torch_port_ssl_fixture``), go into JAX's ``student_losses_3d_concat``
 and ``student_losses_2d`` for the same branches; every logged loss term
 agrees within 1e-4 of its value, and a disabled branch neither runs nor
-moves its parameters. The gradients of the whole iteration are held to
+moves its parameters. The PV-RCNN's RoI head is the narrower one of the
+checkpoint, CLI and loop-switch tests (``MICRO_ROI``: the default one's
+grid pooling costs ~30 s a student step on one CPU thread); the
+gradients of the whole iteration, at the default RoI head, are held to
 JAX in ``test_torch_port_ssl_step.py``.
 """
 import numpy as np
@@ -21,6 +24,7 @@ import torch_port_ssl_fixture as fx
 from torch_port_ssl_fixture import jax, one_torch_thread, rel, torch  # noqa: F401,E501
 
 from detmatch_tpu_torch.train import optim as poptim
+from test_torch_port_checkpoints import MICRO_ROI
 from detmatch_tpu_torch.train.ssl_step import (ema_step, student_2d_step,
                                                student_3d_step, teacher_step)
 
@@ -35,14 +39,20 @@ SWITCHES = {
 }
 
 
+def switch_cfg(**ssl_overrides):
+    cfg = fx.load_cfg(**ssl_overrides)
+    cfg["model"]["detector_3d"]["roi_head_cfg"] = MICRO_ROI
+    return cfg
+
+
 @pytest.fixture(scope="module")
 def setup():
     """Weights and batch (shared by every setting), and the JAX branch
     losses jitted once per (consistency, pseudo-label shape)."""
-    cfg = fx.load_cfg()
+    cfg = switch_cfg()
     batch = fx.views(1)
     vb = fx.j_voxelize_views(fx.jax_views(batch), fx.jax_spec(cfg))
-    jssl = fx.jax_ssl(fx.load_cfg(consistency=False))
+    jssl = fx.jax_ssl(switch_cfg(consistency=False))
     state = fx.make_state(jssl, vb)
     masks = fx.DropoutMasks()
     captured = {}
@@ -89,7 +99,7 @@ def test_iteration_under_switches(setup, name):
 def run_switch(setup, name):
     """One iteration under the setting ``name`` against JAX's losses."""
     sw = SWITCHES[name]
-    cfg = fx.load_cfg(**sw)
+    cfg = switch_cfg(**sw)
     model = fx.port_ssl(cfg, setup["state"])
     batch = fx.port_views(cfg, setup["batch"])
     model.train()

@@ -1,7 +1,10 @@
 """``train_ssl_batches`` (``train_ssl``'s loop on collated batches) end
-to end on the CPU, on ``configs/tests/ssl_tiny.py``
-(the ConfThr switch settings against JAX are
-``test_torch_port_ssl_switches.py``; the two files run on two workers).
+to end on the CPU, on ``configs/tests/ssl_tiny.py`` with the narrower
+RoI head of the checkpoint and CLI tests (``MICRO_ROI``: the default
+one's grid pooling costs ~30 s an iteration on one CPU thread; it is
+held to JAX in ``test_torch_port_ssl_step.py``) (the ConfThr switch
+settings against JAX are ``test_torch_port_ssl_switches.py``; the two
+files run on two workers).
 """
 import json
 
@@ -13,6 +16,7 @@ from torch_port_ssl_fixture import one_torch_thread, torch  # noqa: F401
 
 from detmatch_tpu_torch.apis.build import build_ssl, build_voxelizer
 from detmatch_tpu_torch.apis.train_ssl import train_ssl_batches
+from test_torch_port_checkpoints import MICRO_ROI
 
 
 def test_train_ssl_runs_on_cpu(tmp_path):
@@ -20,6 +24,7 @@ def test_train_ssl_runs_on_cpu(tmp_path):
     the JAX loop's keys, every value is finite, and the student and the
     teacher both move."""
     cfg = fx.load_cfg(cost_thr=50.0)
+    cfg["model"]["detector_3d"]["roi_head_cfg"] = MICRO_ROI
     model = build_ssl(cfg, device="cpu")
     rng = np.random.RandomState(2)
 

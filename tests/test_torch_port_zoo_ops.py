@@ -274,9 +274,14 @@ def test_registry_builds_zoo_on_device(kind):
 
 
 def test_registry_refuses_caddn_and_unknown():
-    with pytest.raises(NotImplementedError, match="CaDDN"):
-        build_detector({"model": {"detector_3d": dict(type="CaDDN")}},
-                       device="cpu")
+    """CaDDN, once refused, now builds (as ``detector_3d`` under its
+    registry name, and as the monocular demo's ``detector_mono`` by
+    default) on the CPU in eval mode; an unknown name still raises."""
+    for key, det in (("detector_3d", dict(type="CaDDN")),
+                     ("detector_mono", {})):
+        model = build_detector({"model": {key: det}}, device="cpu", key=key)
+        assert isinstance(model, DETECTORS["CaDDN"]) and not model.training
+        assert all(p.device.type == "cpu" for p in model.parameters())
     with pytest.raises(KeyError):
         build_detector({"model": {"detector_3d": dict(type="Nope")}},
                        device="cpu")
