@@ -98,7 +98,9 @@ Phases (any failure exits non-zero without printing the result line):
    timed against its twin and against the one PyTorch call that computes
    it (the table's and the rounded rows' preparation excluded), with the
    share of K8's stable sort and K6's path per call; CUDA-event timings
-   of the iteration and its split on the three conv paths, peak memory,
+   of the iteration and its split on the window path (the key and
+   rulebook paths': ``tools/port_probes/ssl_iteration_ab.py``), peak
+   memory,
    and each kernel per iteration beside its bound; per student conv,
    K1's matched pairs, forward and backward ms beside their bounds and
    the backward's passes (profiler kernel times); per ball-query call
@@ -184,14 +186,14 @@ Phases (any failure exits non-zero without printing the result line):
    plain paths on the kernel path's proposals with the same RoI picks
    and dropout masks (losses and BN statistics within 1e-4; gradients
    within 1e-3 with the sparse convs' kernel forward values and twin
-   backward), one optimizer step (``train/optim.py``), ms a step in 3
+   backward), one optimizer step (``train/optim.py``), ms a step in 2
    runs after a warm-up and peak memory, each kernel's ms against its
    twin and bound; then ``randomize_``'s weights in eval mode at B=1 and
    B=4: the dense outputs of the kernel path against the plain path
    within 1e-4, the two-stage models' detections on the kernel path's
    proposals against it (99% matched; unpinned, information: random
    weights tie the scores densely), launches, ms a detect call (forward +
-   post-processing) in 3 runs;
+   post-processing) in 2 runs;
 14. CaDDN (``mono_phases``, ``configs/caddn/caddn_kitti.py`` at JAX's
    defaults: a 280 x 376 x 25 grid, 80 LID bins, a 384 x 1280 canvas;
    ``utils/synth_kitti.caddn_view``'s frames, 2D gt boxes projected from
@@ -220,7 +222,19 @@ Phases (any failure exits non-zero without printing the result line):
    and ms (gloo staged through the host); one process over NCCL against
    no process group (bit for bit, under deterministic algorithms), and
    NCCL refusing two processes on the one card;
-16. a JSON line of the kernels (per SSL iteration, with their bounds;
+16. the study tools of ``tools/misc`` (``study_phases``): the learning
+   study (``learning_study.run_study``) with both arms for 24 iterations
+   on a fresh tree of its 12 + 24 + 8 scenes, 4 recalibration passes and
+   its three evaluations on the 8 val frames (every logged loss finite,
+   every AP finite and in [0, 100], K1 fwd / bwd, K2, K3, K4 launched in
+   each arm; ms an iteration, peak memory), then a rerun on the same
+   tree (restored at 24, no iteration trained, the three evaluations
+   returned from its cache unchanged); the data-parallel noise study
+   (``dp_noise_study.study``) at the tiny width over 2 gloo processes on
+   the card against one process (every integer and boolean output of
+   the forward equal, every gradient leaf within JAX's ``1e-3 + 1e-2 *
+   max|leaf|``) and against float64 on the plain paths;
+17. a JSON line of the kernels (per SSL iteration, with their bounds;
    K6 and K8 over the replayed calls, with 0 launches on the model
    path), then the result line.
 """
@@ -228,6 +242,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -1173,6 +1188,7 @@ def run():
     zoo_phases(card, stats)
     mono_phases(card)
     dist_phases(card)
+    study_phases(card)
 
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=meta["source"],
@@ -2542,26 +2558,27 @@ def ssl_phases(card, stats):
     jv = [(c[1][0].shape[-1], int((c[1][1]).sum())) for c in calls
           if c[0] == "solve_masked_batched"]
     del calls, bwd_cases, kcalls, key_bwd, k4_calls, rb_calls
-    for label, mdl in (("window", model), ("key", key_model),
-                       ("rulebook", rb_model)):
-        m = copy.deepcopy(mdl).train()
-        opts = detmatch_branch_optimizers(m, 0.04, 0.16)
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        resident = torch.cuda.memory_allocated() / 2 ** 30
-        torch.cuda.reset_peak_memory_stats()
-        split = iteration_split(m, batch_np, spec, opts, gen(), reps=1)
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        it_ms = split.pop("iteration")
-        print(f"  {label} path: {it_ms:.3f} ms/iteration = "
-              f"{1000.0 / it_ms:.4f} iterations/s = "
-              f"{1000.0 * 2 * SSL_B / it_ms:.4f} samples/s, peak memory "
-              f"{peak:.3f} GiB ({resident:.3f} GiB resident before the "
-              f"iteration: this script's models, batch and pins) [{card}]")
-        print("    split: " + ", ".join(f"{k} {v:.3f} ms"
-                                        for k, v in split.items())
-              + f" [{card}]")
-        del m, opts
+    # the window path only: the key and rulebook paths' iterations are
+    # gated above, and tools/port_probes/ssl_iteration_ab.py times them
+    del key_model, rb_model
+    m = copy.deepcopy(model).train()
+    opts = detmatch_branch_optimizers(m, 0.04, 0.16)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    split = iteration_split(m, batch_np, spec, opts, gen(), reps=1)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    it_ms = split.pop("iteration")
+    print(f"  window path: {it_ms:.3f} ms/iteration = "
+          f"{1000.0 / it_ms:.4f} iterations/s = "
+          f"{1000.0 * 2 * SSL_B / it_ms:.4f} samples/s, peak memory "
+          f"{peak:.3f} GiB ({resident:.3f} GiB resident before the "
+          f"iteration: this script's models, batch and pins) [{card}]")
+    print("    split: " + ", ".join(f"{k} {v:.3f} ms"
+                                    for k, v in split.items())
+          + f" [{card}]")
+    del m, opts
     for name, c in SSL_LAUNCHES.items():
         per[name]["launches"] = ssl_launches[name]
         print(f"  {name}: {describe(per[name])} per SSL iteration, {c} calls "
@@ -3682,7 +3699,7 @@ ZOO = (("SECOND", "voxel", dict(window_key_conv_batched=12)),
 ZOO_KERNELS = ("window_key_conv_batched", "window_key_conv_bwd",
                "ball_query_batched", "fps_batched")
 ZOO_EVAL_B = (1, 4)
-ZOO_REPS = 3
+ZOO_REPS = 2  # timed runs after the warm-up
 # pcdet pointpillar.yaml: 0.16 m pillars over (0, -39.68) - (69.12, 39.68),
 # 12,000 pillars of 32 points; pointrcnn.yaml: 16,384 points a frame
 PILLAR_SPEC = dict(point_cloud_range=(0, -39.68, -3, 69.12, 39.68, 1),
@@ -4353,8 +4370,13 @@ DIST_STAT_RTOL = 1e-4
 # of their largest entry, one process against itself on the H100, and
 # two processes against one by up to 1.4e-2 in L2 (a batch norm's bias,
 # a sum over 10^4 rows); every planted fault of
-# tools/port_probes/dist_faults.py moves some tensor by 1.2 or more
-DIST_GRAD_RTOL = 5e-2
+# tools/port_probes/dist_faults.py moves some tensor by 1.2 or more but
+# the finest: one positive keypoint too many in the 3D denominators
+# moves the point head's and the VSA's gradients by 4.1e-2 (and
+# point_loss_cls by 2.9e-2, past the logs' gate). 3e-2 catches it on
+# the gradients too and stays 2.1x over the largest of float32's order
+# noise seen on the H100 (1.4e-2; 6.4e-3 beside the planted fault)
+DIST_GRAD_RTOL = 3e-2
 # the move of the students' and the EMA teacher's weights over an
 # iteration, L2 over the norm of one process's move (``step_err``):
 # float32's order of sums reaches 2.2e-2 through AdamW's sign-like first
@@ -5103,6 +5125,106 @@ def dist_phases(card):
         if not refused:
             print("\n".join(o[-2000:] for o in outs))
             raise AssertionError("NCCL took two processes on one card")
+
+
+# ------------------------------------------------------------ studies
+
+# the short learning study: a few dozen iterations an arm (inside the
+# warm-up of max(50, iters // 10), so no "loss falls" gate), a few
+# recalibration passes, the three evaluations on the 8 val frames
+STUDY_ITERS = 24
+STUDY_RECAL = 4
+STUDY_ARMS = ("labonly", "ssl")
+NOISE_WORLD = 2
+
+
+def study_phases(card):
+    """The two study tools of ``tools/misc`` at a small size: the
+    learning study's both arms for STUDY_ITERS iterations (window path),
+    its recalibration and its three evaluations on a fresh tree, then a
+    rerun on the same tree; the data-parallel noise study at the tiny
+    width over NOISE_WORLD gloo processes on the card."""
+    from detmatch_tpu_torch.tools.misc import dp_noise_study
+    from detmatch_tpu_torch.tools.misc import learning_study as ls
+    from detmatch_tpu_torch.train import checkpoints
+    phase(f"learning study, short: both arms for {STUDY_ITERS} iterations, "
+          f"{STUDY_RECAL} recalibration passes, three evaluations on the "
+          f"8 val frames, on {card}")
+    with tempfile.TemporaryDirectory(prefix="study_") as tmp:
+        root = tmp + "/"
+        t0 = time.perf_counter()
+        report, _ = ls.run_study(root, STUDY_ITERS, DEVICE, keep=True,
+                                 recal_passes=STUDY_RECAL)
+        first_s = time.perf_counter() - t0
+        run = report["run"]
+        losses = [x for arm in STUDY_ARMS
+                  for _, x in report[f"curve_{arm}"]]
+        finite = (len(losses) == len(STUDY_ARMS) * STUDY_ITERS
+                  and bool(np.isfinite(losses).all()))
+        aps = {f"{k}.{m}": v for k in ("ap_init", "ap_labonly", "ap_ssl")
+               for m, v in report[k].items() if "mAP" in m}
+        aps_ok = all(np.isfinite(v) and 0.0 <= v <= 100.0
+                     for v in aps.values())
+        launched = {arm: all(run[arm]["launches"][n] > 0
+                             for n in ls.STUDY_KERNELS)
+                    for arm in STUDY_ARMS}
+        for arm in STUDY_ARMS:
+            r = run[arm]
+            print(f"  {arm}: {r['iterations_run']} iterations, "
+                  f"{r['ms_per_iter_median']:.3f} ms an iteration (median "
+                  f"of the logged ones after the first), training "
+                  f"{r['train_s']:.1f} s, recalibration {r['recal_s']:.1f} "
+                  f"s, evaluation {r['eval_s']:.1f} s, peak "
+                  f"{gib(r['peak_gib'])}; launches {r['launches']} [{card}]")
+        print(f"  every logged loss finite ({len(losses)}): {finite}; "
+              f"run A's first / last quartile {report['loss_first_quartile']:.4f}"
+              f" / {report['loss_last_quartile']:.4f} (information: the "
+              "warm-up covers these iterations)")
+        print(f"  every AP finite and in [0, 100] ({len(aps)}): {aps_ok}; 3D "
+              f"mAP moderate {run['map_3d_moderate']}; num_dets "
+              f"{run['num_dets']}; the check {run['learning_check']} "
+              "(information at this length)")
+        print(f"  K1 fwd, K1 bwd, K2, K3, K4 launched in each arm: {launched}")
+
+        phase("learning study, short: the rerun on the same tree")
+        t0 = time.perf_counter()
+        again, _ = ls.run_study(root, STUDY_ITERS, DEVICE, keep=True,
+                                recal_passes=STUDY_RECAL)
+        second_s = time.perf_counter() - t0
+        steps = {arm: checkpoints.latest_step(os.path.join(
+            root, f"run_{arm}", "ckpt")) for arm in STUDY_ARMS}
+        resumed = all(steps[a] == STUDY_ITERS
+                      and again["run"][a]["iterations_run"] == 0
+                      for a in STUDY_ARMS)
+        cached = all(again[k] == report[k] for k in (
+            "ap_init", "ap_labonly", "ap_ssl", "curve_labonly", "curve_ssl"))
+        print(f"  restored at {steps} (max_iters {STUDY_ITERS}), no "
+              f"iteration trained: {resumed}; the three evaluations "
+              f"returned from evals.json unchanged: {cached}")
+        print(f"  the study {first_s:.1f} s, its rerun {second_s:.1f} s "
+              f"[{card}]")
+    if not (finite and aps_ok and all(launched.values()) and resumed
+            and cached):
+        raise AssertionError("the short learning study failed a gate")
+
+    phase(f"data-parallel noise study: the tiny PV-RCNN on 8 frames, one "
+          f"process, {NOISE_WORLD} processes over gloo on one card, float64 "
+          f"on the plain paths, on {card}")
+    t0 = time.perf_counter()
+    res = dp_noise_study.study(None, 8, 128, NOISE_WORLD, DEVICE,
+                               log=lambda line: print("  " + line))
+    eq = all(res["discrete_equal"].values())
+    print(f"  discrete outputs equal ({len(res['discrete_equal'])}): {eq}; "
+          f"every leaf within {dp_noise_study.ATOL:g} + "
+          f"{dp_noise_study.RTOL:g} * max|leaf|: "
+          f"{res['gN_within_jax_tolerance']}; g64 in float64: "
+          f"{res['g64_float64']}; the largest L2 over the norm: g1 against "
+          f"g{NOISE_WORLD} {res['max_l2_g1_gN']:.3e}, against g64 "
+          f"{res['max_l2_g1_g64']:.3e}; {time.perf_counter() - t0:.1f} s "
+          f"[{card}]")
+    if not (eq and res["gN_within_jax_tolerance"] and res["g64_float64"]):
+        raise AssertionError("the noise study's processes differ from one "
+                             "process past JAX's tolerance")
 
 
 def gib(x):

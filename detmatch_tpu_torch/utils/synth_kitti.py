@@ -368,3 +368,159 @@ def caddn_view(rng, b, canvas=(384, 1280), num_points=18000, downsample=4):
                 cam2img=np.tile(CALIB["P2"][None].astype(np.float32),
                                 (b, 1, 1)),
                 gt_boxes=gt, gt_boxes2d=gt2, depth_maps=depth)
+
+
+# ---------------------------------------------------------------------------
+# Randomized scenes for the learning study (counterpart of
+# ``tests/kitti_fixture.py:make_kitti_random``)
+# ---------------------------------------------------------------------------
+
+RANDOM_CALIB_TXT = """P0: 707.0 0.0 604.0 0.0 0.0 707.0 180.0 0.0 0.0 0.0 1.0 0.0
+P1: 707.0 0.0 604.0 0.0 0.0 707.0 180.0 0.0 0.0 0.0 1.0 0.0
+P2: 707.0 0.0 604.0 45.75 0.0 707.0 180.0 -0.345 0.0 0.0 1.0 0.005
+P3: 707.0 0.0 604.0 0.0 0.0 707.0 180.0 0.0 0.0 0.0 1.0 0.0
+R0_rect: 0.9999 0.0098 -0.0074 -0.0099 0.9999 -0.0043 0.0074 0.0044 1.0
+Tr_velo_to_cam: 0.0075 -0.9999 -0.0006 -0.0040 0.0148 0.0007 -0.9998 -0.0767 0.9998 0.0075 0.0148 -0.2717
+Tr_imu_to_velo: 1.0 0.0 0.0 0.0 0.0 1.0 0.0 0.0 0.0 0.0 1.0 0.0
+"""
+RANDOM_CLASS_DIMS = {  # (l, w, h), LiDAR frame
+    "Car": (3.9, 1.6, 1.56),
+    "Pedestrian": (0.8, 0.6, 1.73),
+    "Cyclist": (1.76, 0.6, 1.73),
+}
+RANDOM_CLASS_COLOR = {  # drawn into image_2 so the 2D branch has signal
+    "Car": (220, 40, 40),
+    "Pedestrian": (40, 220, 40),
+    "Cyclist": (40, 40, 220),
+}
+
+
+def _random_calib_mats():
+    vals = {}
+    for line in RANDOM_CALIB_TXT.strip().splitlines():
+        k, v = line.split(":", 1)
+        vals[k] = np.array(v.split(), np.float32)
+    P2 = vals["P2"].reshape(3, 4)
+    R0 = np.eye(4, dtype=np.float32)
+    R0[:3, :3] = vals["R0_rect"].reshape(3, 3)
+    Tr = np.eye(4, dtype=np.float32)
+    Tr[:3, :4] = vals["Tr_velo_to_cam"].reshape(3, 4)
+    return P2, R0, Tr
+
+
+def make_kitti_random(root, n_frames, seed=0, split="train",
+                      n_points=2500, x_range=(4.0, 14.0),
+                      max_objects=3, start_idx=0,
+                      classes=("Car", "Pedestrian", "Cyclist"),
+                      yaw_range=(-np.pi, np.pi)):
+    """Write ``n_frames`` randomized scenes under ``root`` and the split
+    file ``root/<split>.txt``; returns its path.
+
+    Each scene: 1 to ``max_objects`` objects at random non-overlapping BEV
+    positions inside ``configs/tests/ssl_tiny.py``'s point-cloud range, a
+    cloud of ``n_points`` uniform background points and 180 uniform points
+    inside each box, and a 375 x 1242 image of dark noise with a
+    class-colored rectangle at each object's projected 2D box. Labels come
+    from the 3D boxes through the calibration (``data/np_geometry.py``),
+    the inverse of what ``data/kitti.py`` applies on load.
+
+    The same arguments give the same tree as the JAX package's test
+    fixture ``tests/kitti_fixture.py:make_kitti_random``: the same ``rng``
+    calls in the same order, so velodyne files equal byte for byte,
+    labels and calibration text equal, and images equal pixel for pixel
+    (written by ``utils.visualize.write_png``, not PIL, so the PNG bytes
+    differ).
+    """
+    from ..data.np_geometry import (boxes_lidar_to_camera,
+                                    boxes_to_corners_3d, rotate_points_z)
+
+    rng = np.random.RandomState(seed)
+    P2, R0, Tr = _random_calib_mats()
+    r0_v2c = (R0 @ Tr).astype(np.float32)
+    P2_4 = np.eye(4, dtype=np.float32)
+    P2_4[:3] = P2
+    proj = (P2_4 @ R0 @ Tr).astype(np.float32)  # LiDAR -> pixels
+
+    sub = os.path.join(root, "training")
+    for d in ("velodyne", "velodyne_reduced", "calib", "label_2",
+              "image_2"):
+        os.makedirs(os.path.join(sub, d), exist_ok=True)
+
+    idxs = []
+    for fi in range(n_frames):
+        idx = f"{start_idx + fi:06d}"
+        idxs.append(idx)
+        names, boxes = [], []
+        for _ in range(rng.randint(1, max_objects + 1)):
+            name = classes[rng.randint(len(classes))]
+            l, w, h = RANDOM_CLASS_DIMS[name]
+            for _try in range(30):
+                x = rng.uniform(*x_range)
+                # |cam x| / z below ~0.55: the object projects into the
+                # image
+                y = rng.uniform(-1, 1) * min(5.0, 0.5 * x)
+                cand = np.array([x, y, -1.0, l, w, h,
+                                 rng.uniform(*yaw_range)], np.float32)
+                if all(np.linalg.norm(cand[:2] - b[:2]) >
+                       0.7 * (max(l, w) + max(b[3], b[4]))
+                       for b in boxes):
+                    boxes.append(cand)
+                    names.append(name)
+                    break
+        boxes = np.stack(boxes).astype(np.float32)
+
+        corners = boxes_to_corners_3d(boxes)  # (N, 8, 3)
+        uvw = np.concatenate(
+            [corners, np.ones_like(corners[..., :1])], -1) @ proj.T
+        uv = uvw[..., :2] / np.maximum(uvw[..., 2:3], 1e-3)
+        bb2d = np.concatenate([np.clip(uv.min(axis=1), 0, [1242, 375]),
+                               np.clip(uv.max(axis=1), 0, [1242, 375])],
+                              axis=1)
+
+        cam = boxes_lidar_to_camera(boxes, r0_v2c)
+        lines = []
+        for n, c2, c3 in zip(names, bb2d, cam):
+            x, y, z, l, h, w, ry = c3
+            alpha = float(ry - np.arctan2(x, z))
+            lines.append(
+                f"{n} 0.00 0 {alpha:.2f} "
+                f"{c2[0]:.2f} {c2[1]:.2f} {c2[2]:.2f} {c2[3]:.2f} "
+                f"{h:.2f} {w:.2f} {l:.2f} "
+                f"{x:.2f} {y:.2f} {z:.2f} {ry:.2f}")
+        with open(os.path.join(sub, "label_2", f"{idx}.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+        with open(os.path.join(sub, "calib", f"{idx}.txt"), "w") as f:
+            f.write(RANDOM_CALIB_TXT)
+
+        bg = np.concatenate([
+            rng.rand(n_points, 1) * 15.5 + 0.2,   # x
+            rng.rand(n_points, 1) * 15.5 - 7.8,   # y
+            rng.rand(n_points, 1) * 2.0 - 1.9,    # z (ground band)
+            rng.rand(n_points, 1) * 0.3,          # low reflectance
+        ], axis=1).astype(np.float32)
+        obj_pts = []
+        for b in boxes:
+            m = 180
+            local = (rng.rand(m, 3).astype(np.float32) - 0.5) * b[3:6]
+            world = rotate_points_z(local, b[6]) + b[:3]
+            refl = rng.rand(m, 1).astype(np.float32) * 0.5 + 0.5
+            obj_pts.append(np.concatenate([world, refl], 1))
+        pts = np.concatenate([bg] + obj_pts).astype(np.float32)
+        for d in ("velodyne", "velodyne_reduced"):
+            pts.tofile(os.path.join(sub, d, f"{idx}.bin"))
+
+        img = (rng.rand(375, 1242, 3) * 60).astype(np.uint8)
+        for n, c2 in zip(names, bb2d):
+            u1, v1, u2, v2 = c2.astype(int)
+            if u2 > u1 and v2 > v1:
+                col = np.array(RANDOM_CLASS_COLOR[n], np.uint8)
+                img[v1:v2, u1:u2] = (
+                    col[None, None]
+                    + rng.randn(v2 - v1, u2 - u1, 3) * 10
+                ).clip(0, 255).astype(np.uint8)
+        write_png(os.path.join(sub, "image_2", f"{idx}.png"), img)
+
+    split_path = os.path.join(root, f"{split}.txt")
+    with open(split_path, "w") as f:
+        f.write("\n".join(idxs) + "\n")
+    return split_path

@@ -17,7 +17,7 @@
   so that float32 noise does not compound through AdamW's sign-like
   first steps. The gates are the card phase's
   (``chip_smoke.DIST_GATES``): every logged value within 1e-4
-  (relative), every gradient and AdamW first moment within 5e-2 of its
+  (relative), every gradient and AdamW first moment within 3e-2 of its
   norm (L2); over each iteration, the move of the students' parameters
   and of the EMA teacher within 0.1 of the one process's move (L2, per
   tensor, past one float32 spacing an entry; the PV-RCNN's weights

@@ -183,7 +183,7 @@ def port(ref):
     opt3d, opt2d = poptim.detmatch_branch_optimizers(model, LR_3D, LR_2D,
                                                      WARMUP)
     gen = torch.Generator()
-    with pytest.MonkeyPatch.context() as mp:
+    with pytest.MonkeyPatch.context() as mp, fx.port_threads():
         mp.setattr(fx.proi, "_pick", fx.roi_picks(ref["key"], 2 * fx.B))
         ref["masks"].replay(mp)
         out["logs3"] = student_3d_step(model, opt3d, batch, pseudo, IT, gen)

@@ -46,14 +46,16 @@ def switch_cfg(**ssl_overrides):
 
 
 @pytest.fixture(scope="module")
-def setup():
+def setup(tmp_path_factory):
     """Weights and batch (shared by every setting), and the JAX branch
-    losses jitted once per (consistency, pseudo-label shape)."""
+    losses jitted once per (consistency, pseudo-label shape). The JAX
+    state is made once a session for this module and
+    ``test_torch_port_ssl_switches_fusion.py`` (``fx.shared_state``)."""
     cfg = switch_cfg()
     batch = fx.views(1)
     vb = fx.j_voxelize_views(fx.jax_views(batch), fx.jax_spec(cfg))
     jssl = fx.jax_ssl(switch_cfg(consistency=False))
-    state = fx.make_state(jssl, vb)
+    state = fx.shared_state(jssl, vb, "switches", tmp_path_factory)
     masks = fx.DropoutMasks()
     captured = {}
 

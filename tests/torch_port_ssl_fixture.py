@@ -25,8 +25,11 @@ parity tests against JAX, runs each such module's tests with one PyTorch
 thread. The tests
 run in several worker processes at once (``pytest -n``), and PyTorch's
 default of one thread per core in each of them oversubscribes the cores;
-the tiny models gain nothing from more threads.
+the tiny models gain nothing from more threads. The few steps that cost
+tens of seconds on one thread (the default RoI head's grid pooling, the
+zoo's train passes) run inside ``port_threads`` (4 threads).
 """
+import contextlib
 import os
 import sys
 import types
@@ -75,6 +78,25 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(before)
+
+
+# threads for the port's heaviest CPU steps (a train step through the
+# default RoI head's grid pooling, the zoo's two train passes): on an
+# 8-core x86 host, 4 run the SSL student step of
+# test_torch_port_ssl_step.py in 11 s instead of 30, every checked error
+# as at one thread
+PORT_THREADS = 4
+
+
+@contextlib.contextmanager
+def port_threads(n=PORT_THREADS):
+    """``n`` PyTorch threads inside the block, then the module's one."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
 
 
 def load_cfg(**ssl_overrides):
@@ -170,6 +192,38 @@ def make_state(jssl, vb, seed=0):
     fc = stu["det2d"]["params"]["bbox_head"]["fc_cls"]
     fc["bias"] = (0.5 * rng.randn(*fc["bias"].shape)).astype(np.float32)
     return dict(student=stu, teacher=jax.tree.map(np.copy, stu))
+
+
+def shared_state(jssl, vb, name, tmp_path_factory, seed=0, wait_s=600):
+    """:func:`make_state` once per test session for the modules that call
+    it with the same ``name`` (the same model widths and batch shapes):
+    the first computes it and leaves it under the session's temporary
+    root, which every ``pytest -n`` worker shares; the others wait for
+    that file and load it."""
+    import pickle
+    import time
+    base = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        base = base.parent  # the session's root, above the workers' own
+    path = base / f"jax_ssl_state_{name}_{seed}.pkl"
+    try:
+        fd = os.open(str(path) + ".lock", os.O_CREAT | os.O_EXCL)
+    except FileExistsError:
+        t0 = time.monotonic()
+        while not path.exists() and time.monotonic() - t0 < wait_s:
+            time.sleep(0.5)
+        if path.exists():
+            with open(path, "rb") as f:
+                stu = pickle.load(f)
+            return dict(student=stu, teacher=jax.tree.map(np.copy, stu))
+        return make_state(jssl, vb, seed)
+    os.close(fd)
+    state = make_state(jssl, vb, seed)
+    tmp = str(path) + f".{os.getpid()}"
+    with open(tmp, "wb") as f:
+        pickle.dump(state["student"], f)  # the teacher is its copy
+    os.replace(tmp, path)
+    return state
 
 
 def port_ssl(cfg, state):

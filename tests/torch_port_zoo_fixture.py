@@ -305,10 +305,12 @@ def run_port(kind, cfg, ref, batch, post_fn, train=True):
     res = dict(model=model, eval=ev, post=post)
     if not train:
         return res
-    _, f_losses, grads = _train_step(port_model(kind, cfg, ref), batch,
-                                     ref["frozen"], frozen=True)
-    out, losses, _ = _train_step(model, batch, dict(
-        ref, proposals=ref["train_out"].get("proposals")), frozen=False)
+    with fx.port_threads():
+        _, f_losses, grads = _train_step(port_model(kind, cfg, ref), batch,
+                                         ref["frozen"], frozen=True)
+        out, losses, _ = _train_step(model, batch, dict(
+            ref, proposals=ref["train_out"].get("proposals")),
+            frozen=False)
     res.update(frozen=dict(losses=f_losses, grads=grads), train_out=out,
                losses=losses)
     return res

@@ -5,7 +5,8 @@ beside them.
 
 Run from the repository root, with one card visible:
 
-    python3 tools/port_probes/dist_faults.py [OUT_JSON]
+    python3 tools/port_probes/dist_faults.py [OUT_JSON] [--faults A,B]
+        [--no-alternatives]
 
 One process runs ``chip_smoke.dist_reference`` (4 + 4 frames, two SSL
 iterations, the student's noise-sensitive decisions recorded as pins),
@@ -48,6 +49,24 @@ import chip_smoke as cs  # noqa: E402
 # processes' all-reduce gives them)
 ALTERNATIVES = ("the same run again", "cuDNN's deterministic algorithms",
                 "batch-norm sums in two halves")
+
+
+def _denominator_off(column):
+    """The fault that adds one to ``column`` of ``PVRCNN.loss_grouped``'s
+    global denominators."""
+    return (
+        "import torch\n"
+        "from detmatch_tpu_torch.models.pvrcnn import pvrcnn\n"
+        "_global_sum = pvrcnn.global_sum\n"
+        "def _off(x):\n"
+        "    y = _global_sum(x)\n"
+        "    if y.dim() != 2:\n"
+        "        return y\n"
+        f"    return y + (torch.arange(y.shape[1], device=y.device) == "
+        f"{column})\n"
+        "pvrcnn.global_sum = _off")
+
+
 # what each planted fault replaces, in both processes
 FAULTS = {
     "as ported": "",
@@ -69,6 +88,11 @@ FAULTS = {
     "EMA teacher not updated": (
         "from detmatch_tpu_torch.train import ssl_step\n"
         "ssl_step.ema_update = lambda *a, **k: None"),
+    # finer: one global denominator of PVRCNN.loss_grouped one off (its
+    # (groups, terms) stack: column 0 each group's sample count, column
+    # 1 its positive keypoints), in both processes alike
+    "3D sample count one row off": _denominator_off(0),
+    "3D positive keypoint count one off": _denominator_off(1),
 }
 
 
@@ -138,10 +162,12 @@ def alternative(name):
         layers.global_moments = moments
 
 
-def main(cfg=None, out=None, faults=FAULTS, prelude=""):
+def main(cfg=None, out=None, faults=FAULTS, prelude="",
+         alternatives=ALTERNATIVES):
     """``cfg``: the SSL config (default ``chip_smoke.SSL_CONFIG``);
     ``prelude``: Python source that every process runs before its fault
-    (the CPU tests shrink the run with it)."""
+    (the CPU tests shrink the run with it); ``faults`` and
+    ``alternatives``: the runs to make (default all)."""
     from detmatch_tpu_torch.config import Config
     out = Path(out or ROOT / "chiprun_out" / "dist_faults.json")
     if cs.DEVICE == "cuda":
@@ -163,7 +189,7 @@ def main(cfg=None, out=None, faults=FAULTS, prelude=""):
         ref, pins, _ = cs.dist_reference(cfg, work, card)
         print(f"one process in {time.perf_counter() - t0:.1f} s")
         result["alternatives"] = {}
-        for name in ALTERNATIVES:
+        for name in alternatives:
             with cs.several_process_bn(), alternative(name):
                 res = cs.dist_ssl_run(cfg, cs.dist_batches(cfg), pins,
                                       work / name.replace(" ", "_"),
@@ -199,4 +225,16 @@ def main(cfg=None, out=None, faults=FAULTS, prelude=""):
 
 
 if __name__ == "__main__":
-    main(out=sys.argv[1] if len(sys.argv) > 1 else None)
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("out", nargs="?", default=None)
+    ap.add_argument("--faults", default=None,
+                    help="comma-separated names of FAULTS to run (default "
+                         "all)")
+    ap.add_argument("--no-alternatives", action="store_true",
+                    help="skip the one-process runs of ALTERNATIVES")
+    args = ap.parse_args()
+    chosen = FAULTS if args.faults is None else {
+        k: FAULTS[k] for k in args.faults.split(",")}
+    main(out=args.out, faults=chosen,
+         alternatives=() if args.no_alternatives else ALTERNATIVES)
