@@ -234,7 +234,15 @@ Phases (any failure exits non-zero without printing the result line):
    the card against one process (every integer and boolean output of
    the forward equal, every gradient leaf within JAX's ``1e-3 + 1e-2 *
    max|leaf|``) and against float64 on the plain paths;
-17. a JSON line of the kernels (per SSL iteration, with their bounds;
+17. the checkpoint importer (``import_phases``,
+   ``tools/model_converters/import_torch_ckpt.py``): a seeded PV-RCNN and
+   Faster R-CNN at ``split_0.py``'s widths saved as pcdet and mmdet
+   checkpoints (with the extra keys such files carry), imported and
+   loaded through ``train_ssl``'s ``load_from`` into an SSL detector on
+   the card (student and teacher equal to the sources bit for bit); one
+   ``detect`` frame and one teacher phase equal to the source models'
+   exactly, K1 fwd, K2, K3 and K4 launched; seconds printed;
+18. a JSON line of the kernels (per SSL iteration, with their bounds;
    K6 and K8 over the replayed calls, with 0 launches on the model
    path), then the result line.
 """
@@ -1189,6 +1197,7 @@ def run():
     mono_phases(card)
     dist_phases(card)
     study_phases(card)
+    import_phases(card)
 
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=meta["source"],
@@ -5225,6 +5234,155 @@ def study_phases(card):
     if not (eq and res["gN_within_jax_tolerance"] and res["g64_float64"]):
         raise AssertionError("the noise study's processes differ from one "
                              "process past JAX's tolerance")
+
+
+IMPORT_B = 1  # frames of the import phase's detect and teacher phase
+
+
+def import_phases(card):
+    """The checkpoint importer (``tools/model_converters/
+    import_torch_ckpt.py``): a seeded PV-RCNN and Faster R-CNN at
+    ``split_0.py``'s widths saved as pcdet and mmdet save them (pcdet's
+    ``model_state`` with ``global_step`` beside ``optimizer_state``,
+    ``epoch``, ``it`` and ``version``; mmdet's ``state_dict`` with every
+    batch norm's ``num_batches_tracked`` beside ``meta`` and
+    ``optimizer``), each imported by the tool and loaded through
+    ``train_ssl``'s ``load_from`` into an ``SSLDetector`` on the card:
+    its student and teacher equal the sources bit for bit; one ``detect``
+    frame of the student and one teacher phase equal the source models'
+    exactly, with K1 fwd, K2, K3 and K4 launched; seconds printed."""
+    from detmatch_tpu_torch.apis.build import (build_detector, build_ssl,
+                                               build_voxelizer)
+    from detmatch_tpu_torch.apis.inference import detect
+    from detmatch_tpu_torch.apis.train_ssl import train_ssl
+    from detmatch_tpu_torch.config import Config
+    from detmatch_tpu_torch.ops import cuda as cuda_ops
+    from detmatch_tpu_torch.tools.model_converters import (
+        import_torch_ckpt as imp)
+    from detmatch_tpu_torch.train import checkpoints
+    from detmatch_tpu_torch.train.ssl_step import (to_device_views,
+                                                   voxelize_views)
+    from detmatch_tpu_torch.utils.synth_kitti import ssl_view
+
+    phase("import: pcdet and mmdet checkpoints through import_torch_ckpt "
+          "and load_from")
+    t_all = time.perf_counter()
+    cfg = Config.fromfile(str(SSL_CONFIG))
+    spec = build_voxelizer(cfg)
+    src = {}
+    for det, key, seed in (("det3d", "detector_3d", SEED + 11),
+                           ("det2d", "detector_2d", SEED + 12)):
+        src[det] = build_detector(cfg, device=DEVICE, key=key)
+        randomize_(src[det], seed)
+    sd3 = {k: v.cpu() for k, v in src["det3d"].state_dict().items()}
+    sd2 = {k: v.cpu() for k, v in src["det2d"].state_dict().items()}
+    bn2 = {k.rsplit(".", 1)[0] + ".num_batches_tracked": torch.tensor(0)
+           for k in sd2 if k.startswith("backbone") and
+           k.endswith("running_mean")}
+    with tempfile.TemporaryDirectory(prefix="import_ckpt_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        torch.save(dict(epoch=80, it=7400, version="pcdet+0.3.0+0000000",
+                        model_state=dict(sd3, global_step=torch.tensor(
+                            [7400])),
+                        optimizer_state=dict(state={}, param_groups=[])),
+                   tmp / "pv_rcnn.pth")
+        torch.save(dict(meta=dict(mmdet_version="2.14.0", epoch=12,
+                                  CLASSES=("Car", "Pedestrian", "Cyclist")),
+                        state_dict=dict(sd2, **bn2),
+                        optimizer=dict(state={}, param_groups=[])),
+                   tmp / "faster_rcnn_r50.pth")
+        save_s = time.perf_counter() - t0
+        out, times = {}, {}
+        for det, kind, name in (("det3d", "pvrcnn", "pv_rcnn.pth"),
+                                ("det2d", "frcnn", "faster_rcnn_r50.pth")):
+            out[det] = str(tmp / f"imported_{kind}")
+            t0 = time.perf_counter()
+            _, dropped = imp.import_checkpoint(
+                kind, str(tmp / name), out[det], str(SSL_CONFIG),
+                log=lambda m: None)
+            times[kind] = time.perf_counter() - t0
+            print(f"  {kind}: dropped {len(dropped)} keys "
+                  f"({', '.join(dropped[:2])}, ...)")
+            want = {"global_step"} if kind == "pvrcnn" else set(bn2)
+            if set(dropped) != want:
+                raise AssertionError(f"{kind}: dropped {dropped}")
+        t0 = time.perf_counter()
+        ssl = build_ssl(cfg)  # the card
+        ssl, _, hist = train_ssl(ssl, spec, [0], [0], lambda s: s,
+                                 str(tmp / "ssl"), 0, batch_size=1,
+                                 load_from=out)
+        load_s = time.perf_counter() - t0
+        ssl.eval()  # train_ssl leaves the student in train mode
+        if hist:
+            raise AssertionError("train_ssl ran an iteration")
+        for det, want in (("det3d", sd3), ("det2d", sd2)):
+            stored = checkpoints.restore_latest(out[det])[0]["model"]
+            for half in ("student", "teacher"):
+                got = getattr(ssl, half)[det].state_dict()
+                if got.keys() != want.keys() or stored.keys() != want.keys():
+                    raise AssertionError(f"{half}.{det}: other keys")
+                bad = [k for k in want
+                       if not torch.equal(got[k].cpu(), want[k])
+                       or not torch.equal(stored[k], want[k])]
+                if bad:
+                    raise AssertionError(f"{half}.{det} differs: {bad[:4]}")
+    print(f"  import: pvrcnn {times['pvrcnn']:.2f} s, frcnn "
+          f"{times['frcnn']:.2f} s (writing the two .pth {save_s:.2f} s); "
+          f"load_from into the SSL detector {load_s:.2f} s; student and "
+          "teacher equal to the sources bit for bit")
+
+    phase("import: detect and the teacher phase against the source models")
+    ref = build_ssl(cfg)
+    for half in (ref.student, ref.teacher):
+        half["det3d"].load_state_dict(src["det3d"].state_dict())
+        half["det2d"].load_state_dict(src["det2d"].state_dict())
+    frame = make_batch(spec, IMPORT_B)
+    rng = np.random.RandomState(SEED + 13)
+    canvas = tuple(cfg["model"]["detector_2d"]["canvas"])
+    points = cfg["data"]["collate"]["max_points"]
+    views = voxelize_views(to_device_views(dict(unlab=dict(
+        tea=ssl_view(rng, IMPORT_B, points, canvas),
+        stu=ssl_view(rng, IMPORT_B, points, canvas))), DEVICE), spec)
+    for view in views["unlab"].values():
+        view["aug3d"], view["aug2d"] = aug_records(
+            rng, IMPORT_B, canvas, view["ori_shape"][0].tolist())
+    res = {}
+    for name, det, m in (("imported", ssl.student["det3d"], ssl),
+                         ("source", src["det3d"], ref)):
+        with torch.inference_mode():
+            cuda_ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            d = detect(det, frame["points"], frame["points_valid"], spec,
+                       score_thresh=0.0)
+            pseudo = m.teacher_pseudo_labels(views)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = cuda_ops.launch_counts()
+        res[name] = (d, pseudo)
+        print(f"  {name}: detect + teacher phase {secs:.3f} s; launches "
+              f"{ {k: v for k, v in launches.items() if v} } [{card}]")
+        if not all(launches[n] > 0 for n in TEACHER_KERNELS):
+            raise AssertionError(f"{name}: a kernel of {TEACHER_KERNELS} "
+                                 "was not launched")
+    (d_i, p_i), (d_s, p_s) = res["imported"], res["source"]
+    pairs = [(f"detect.{k}", d_i[k], d_s[k]) for k in d_s
+             if isinstance(d_s[k], torch.Tensor)]
+    pairs += [(f"{s}.{k}", p_i[s][k], p_s[s][k])
+              for s in ("m3d_stu", "m2d_stu", "m2d_clean") for k in p_s[s]]
+    pairs.append(("num_tea_hung", p_i["logs"]["metrics.num_tea_hung"],
+                  p_s["logs"]["metrics.num_tea_hung"]))
+    bad = [n for n, a, b in pairs if not torch.equal(a, b)]
+    n3d = d_i["valid"].sum(1).tolist()
+    finite = all(bool(torch.isfinite(a).all()) for _, a, _ in pairs
+                 if a.is_floating_point())
+    print(f"  {len(pairs) - len(bad)} of {len(pairs)} outputs equal exactly "
+          f"(detections a frame {n3d}, finite={finite}); phase "
+          f"{time.perf_counter() - t_all:.1f} s [{card}]")
+    if bad or not finite or min(n3d) == 0:
+        raise AssertionError(f"the imported models differ from the sources "
+                             f"on {bad[:6]} or give no finite detections")
+    del ssl, ref, src
 
 
 def gib(x):

@@ -28,6 +28,11 @@ convs (kh, kw, in, out) → (out, in, kh, kw), Dense (in, out) → Linear
 (out, in), FrozenBN's {scale, bias, mean, var} → weight, bias,
 running_mean, running_var, and the first shared FC's input rows from the
 JAX (7, 7, C) flatten back to mmdet's (C, 7, 7).
+
+:func:`to_jax_pvrcnn`, :func:`to_jax_frcnn` and :func:`to_jax_ssl` are the
+exact inverses of ``from_jax_pvrcnn``, ``from_jax_frcnn`` and
+``from_jax_ssl`` (numpy only): they carry the port's weights to the JAX
+package, so that a state of the port can be replayed through JAX.
 """
 from __future__ import annotations
 
@@ -477,3 +482,253 @@ def from_jax_ssl(state, pv_cfg, fr_cfg):
                                    fr_cfg).items():
             sd[f"{half}.det2d.{k}"] = t
     return sd
+
+
+# ---- the port's state dicts → JAX variables (the inverses) ----
+
+class _Reader:
+    """Builds JAX variable trees from a port state dict, applying each
+    layout bridge of :class:`_Writer` backwards (numpy only)."""
+
+    def __init__(self, sd):
+        self.sd = {k: (v.detach().cpu().numpy() if hasattr(v, "detach")
+                       else np.asarray(v)) for k, v in sd.items()}
+
+    def get(self, key):
+        return self.sd[key]
+
+    def has(self, key):
+        return key in self.sd
+
+    def count(self, prefix, stride):
+        """How many layers ``{prefix}.{stride*k + 1}`` hold a batch norm's
+        running mean (k = 0, 1, ...)."""
+        n = 0
+        while f"{prefix}.{stride * n + 1}.running_mean" in self.sd:
+            n += 1
+        return n
+
+    def bn(self, key):
+        return (dict(scale=self.get(key + ".weight"),
+                     bias=self.get(key + ".bias")),
+                dict(mean=self.get(key + ".running_mean"),
+                     var=self.get(key + ".running_var")))
+
+    def frozen_bn(self, key):
+        return {theirs: self.get(f"{key}.{ours}") for ours, theirs in (
+            ("weight", "scale"), ("bias", "bias"), ("running_mean", "mean"),
+            ("running_var", "var"))}
+
+    def _with_bias(self, key, out):
+        if self.has(key + ".bias"):
+            out["bias"] = self.get(key + ".bias")
+        return out
+
+    def linear(self, key):
+        """Linear (out, in) / 1x1 conv (out, in, 1...) → Dense (in, out)."""
+        w = self.get(key + ".weight")
+        return self._with_bias(key, dict(
+            kernel=np.ascontiguousarray(w.reshape(w.shape[0], -1).T)))
+
+    def conv2d(self, key):
+        return self._with_bias(key, dict(kernel=np.ascontiguousarray(
+            self.get(key + ".weight").transpose(2, 3, 1, 0))))
+
+    def spconv(self, key, p3, s3, name):
+        w = self.get(key + ".0.weight")
+        p3[name + "_w"] = np.ascontiguousarray(
+            w.reshape((-1,) + w.shape[-2:]))
+        p3[name + "_bn"], s3[name + "_bn"] = self.bn(key + ".1")
+
+    def mlp(self, key, stride=3):
+        """``{key}.{stride*k}`` / ``{key}.{stride*k+1}`` → JAX ``MLP``
+        ``dense{k}`` / ``bn{k}`` (params, batch_stats)."""
+        p, s = {}, {}
+        for kk in range(self.count(key, stride)):
+            p[f"dense{kk}"] = self.linear(f"{key}.{stride * kk}")
+            p[f"bn{kk}"], s[f"bn{kk}"] = self.bn(f"{key}.{stride * kk + 1}")
+        return p, s
+
+
+def _voxel_backbone_jax(r):
+    p3, s3 = {}, {}
+    r.spconv("backbone_3d.conv_input", p3, s3, "conv_input")
+    r.spconv("backbone_3d.conv1.0", p3, s3, "conv1_0")
+    for lvl in (2, 3, 4):
+        r.spconv(f"backbone_3d.conv{lvl}.0", p3, s3, f"conv{lvl}_down")
+        for j in (0, 1):
+            r.spconv(f"backbone_3d.conv{lvl}.{j + 1}", p3, s3,
+                     f"conv{lvl}_{j}")
+    r.spconv("backbone_3d.conv_out", p3, s3, "conv_out")
+    return p3, s3
+
+
+def _bev_jax(r, layer_nums, hc=None):
+    """The inverse of :func:`_bev`."""
+    p2, s2 = {}, {}
+    for i, n_layers in enumerate(layer_nums):
+        conv = r.conv2d(f"backbone_2d.blocks.{i}.1")
+        if i == 0 and hc is not None:
+            conv["kernel"] = np.ascontiguousarray(
+                conv["kernel"].transpose(2, 0, 1, 3)[hc].transpose(1, 2, 0, 3))
+        bp, bs = r.bn(f"backbone_2d.blocks.{i}.2")
+        p2[f"block{i}_0"], s2[f"block{i}_0"] = dict(conv=conv, bn=bp), dict(
+            bn=bs)
+        for j in range(n_layers):
+            idx = 4 + 3 * j
+            bp, bs = r.bn(f"backbone_2d.blocks.{i}.{idx + 1}")
+            p2[f"block{i}_{j + 1}"] = dict(
+                conv=r.conv2d(f"backbone_2d.blocks.{i}.{idx}"), bn=bp)
+            s2[f"block{i}_{j + 1}"] = dict(bn=bs)
+        k = r.get(f"backbone_2d.deblocks.{i}.0.weight")
+        bp, bs = r.bn(f"backbone_2d.deblocks.{i}.1")
+        p2[f"deblock{i}"] = dict(conv=dict(kernel=np.ascontiguousarray(
+            k.transpose(2, 3, 0, 1)[::-1, ::-1])), bn=bp)
+        s2[f"deblock{i}"] = dict(bn=bs)
+    return p2, s2
+
+
+def to_jax_pvrcnn(sd, cfg):
+    """The port's PV-RCNN state dict → (params, batch_stats) of the JAX
+    ``PVRCNN``: the exact inverse of :func:`from_jax_pvrcnn` (numpy
+    arrays; ``cfg`` the model's keyword config)."""
+    r = _Reader(sd)
+    params, stats = {}, {}
+    params["backbone3d"], stats["backbone3d"] = _voxel_backbone_jax(r)
+    hc_z, hc_c = _hc(cfg, (cfg.get("backbone3d_cfg") or {}).get(
+        "out_channels", 128))
+    hc = _hc_perm(hc_z, hc_c)
+    params["backbone2d"], stats["backbone2d"] = _bev_jax(
+        r, (cfg.get("bev_cfg") or {}).get("layer_nums", (5, 5)), hc)
+    params["dense_head"] = {ours: r.conv2d(f"dense_head.{ref}")
+                            for ours, ref in (("conv_cls", "conv_cls"),
+                                              ("conv_box", "conv_box"),
+                                              ("conv_dir", "conv_dir_cls"))}
+
+    pp, sp = {}, {}
+
+    def sa_branch(key, name):
+        pp[name], sp[name] = {}, {}
+        g = 0
+        while r.has(f"{key}.mlps.{g}.1.running_mean"):
+            pp[name][f"mlp{g}"], sp[name][f"mlp{g}"] = r.mlp(
+                f"{key}.mlps.{g}")
+            g += 1
+
+    sa_branch("pfe.SA_rawpoints", "sa_raw_points")
+    for li in range(4):
+        sa_branch(f"pfe.SA_layers.{li}", f"sa_x_conv{li + 1}")
+    n_bev = hc_z * hc_c
+    fusion = r.linear("pfe.vsa_point_feature_fusion.0")["kernel"]
+    pp["fusion"] = dict(kernel=np.concatenate([fusion[:n_bev][hc],
+                                               fusion[n_bev:]]))
+    pp["fusion_bn"], sp["fusion_bn"] = r.bn("pfe.vsa_point_feature_fusion.1")
+    params["pfe"], stats["pfe"] = pp, sp
+
+    mlp_p, mlp_s = r.mlp("point_head.cls_layers")
+    k0 = mlp_p["dense0"]["kernel"]
+    mlp_p["dense0"] = dict(mlp_p["dense0"], kernel=np.concatenate(
+        [k0[:n_bev][hc], k0[n_bev:]]))
+    n_fc = len(mlp_s)
+    params["point_head"] = dict(
+        cls_mlp=mlp_p, cls_out=r.linear(f"point_head.cls_layers.{3 * n_fc}"))
+    stats["point_head"] = dict(cls_mlp=mlp_s)
+
+    pr, sr = {}, {}
+    g = 0
+    while r.has(f"roi_head.roi_grid_pool_layer.mlps.{g}.1.running_mean"):
+        pr[f"pool_mlp{g}"], sr[f"pool_mlp{g}"] = r.mlp(
+            f"roi_head.roi_grid_pool_layer.mlps.{g}")
+        g += 1
+    g3 = (cfg.get("roi_head_cfg") or {}).get("grid_size", 6) ** 3
+    _roi_fcs_jax(r, pr, sr, "roi_head", g3=g3)
+    params["roi_head"], stats["roi_head"] = pr, sr
+    return params, stats
+
+
+def _roi_fcs_jax(r, pr, sr, key, heads=(("cls", "cls_layers"),
+                                        ("reg", "reg_layers")), g3=None):
+    """The inverse of :func:`_roi_fcs`; ``g3`` (the RoI grid's G^3) undoes
+    the shared fc's (C, G^3) input order."""
+    idx = kk = 0
+    while r.has(f"{key}.shared_fc_layer.{idx + 1}.running_mean"):
+        pr[f"shared_fc{kk}"] = r.linear(f"{key}.shared_fc_layer.{idx}")
+        pr[f"shared_bn{kk}"], sr[f"shared_bn{kk}"] = r.bn(
+            f"{key}.shared_fc_layer.{idx + 1}")
+        kk += 1
+        idx += 4 if r.has(f"{key}.shared_fc_layer.{idx + 4}.weight") else 3
+    if g3 is not None:
+        fc0 = pr["shared_fc0"]["kernel"]
+        cin = fc0.shape[0] // g3
+        perm = np.asarray([ci * g3 + gi for gi in range(g3)
+                           for ci in range(cin)], np.int64)
+        pr["shared_fc0"] = dict(pr["shared_fc0"], kernel=fc0[perm])
+    for name, ref in heads:
+        idx = kk = 0
+        while r.has(f"{key}.{ref}.{idx + 1}.running_mean"):
+            pr[f"{name}_fc{kk}"] = r.linear(f"{key}.{ref}.{idx}")
+            pr[f"{name}_bn{kk}"], sr[f"{name}_bn{kk}"] = r.bn(
+                f"{key}.{ref}.{idx + 1}")
+            idx += 4 if kk == 0 else 3
+            kk += 1
+        pr[f"{name}_out"] = r.linear(f"{key}.{ref}.{idx}")
+
+
+def _resnet_jax(r, key, blocks=(3, 4, 6, 3)):
+    """The inverse of :func:`_resnet`: (params, frozen)."""
+    pb, fb = dict(conv1=r.conv2d(f"{key}.conv1")), dict(
+        bn1=r.frozen_bn(f"{key}.bn1"))
+    for stage, n in enumerate(blocks):
+        for b in range(n):
+            ours, name = f"{key}.layer{stage + 1}.{b}", f"layer{stage + 1}_{b}"
+            pb[name], fb[name] = {}, {}
+            for c in ("1", "2", "3"):
+                pb[name][f"conv{c}"] = r.conv2d(f"{ours}.conv{c}")
+                fb[name][f"bn{c}"] = r.frozen_bn(f"{ours}.bn{c}")
+            if r.has(f"{ours}.downsample.0.weight"):
+                pb[name]["ds_conv"] = r.conv2d(f"{ours}.downsample.0")
+                fb[name]["ds_bn"] = r.frozen_bn(f"{ours}.downsample.1")
+    return pb, fb
+
+
+def to_jax_frcnn(sd, cfg=None):
+    """The port's Faster R-CNN state dict → (params, frozen) of the JAX
+    ``FasterRCNN``: the exact inverse of :func:`from_jax_frcnn`."""
+    r = _Reader(sd)
+    blocks = ((cfg or {}).get("backbone_cfg") or {}).get(
+        "stage_blocks", (3, 4, 6, 3))
+    pb, fb = _resnet_jax(r, "backbone", blocks)
+    params = dict(backbone=pb, neck={}, rpn_head={}, bbox_head={})
+    for i in range(4):
+        params["neck"][f"lateral{i}"] = r.conv2d(f"neck.lateral_convs.{i}.conv")
+        params["neck"][f"fpn_conv{i}"] = r.conv2d(f"neck.fpn_convs.{i}.conv")
+    for name in ("rpn_conv", "rpn_cls", "rpn_reg"):
+        params["rpn_head"][name] = r.conv2d(f"rpn_head.{name}")
+    ph = params["bbox_head"]
+    fc0 = r.linear("roi_head.bbox_head.shared_fcs.0")
+    k = fc0["kernel"]  # rows in mmdet's (C, 7, 7) order
+    c = 256
+    o = int(round(np.sqrt(k.shape[0] // c)))
+    ph["shared_fc0"] = dict(fc0, kernel=np.ascontiguousarray(
+        k.reshape(c, o, o, -1).transpose(1, 2, 0, 3).reshape(k.shape[0], -1)))
+    for ours, theirs in (("shared_fcs.1", "shared_fc1"),
+                         ("fc_cls", "fc_cls"), ("fc_reg", "fc_reg")):
+        ph[theirs] = r.linear(f"roi_head.bbox_head.{ours}")
+    return params, dict(backbone=fb)
+
+
+def to_jax_ssl(sd, pv_cfg, fr_cfg):
+    """The port's ``SSLDetector`` state dict → the JAX SSL state
+    ``{"student"|"teacher": {"det3d": {"params", "batch_stats"},
+    "det2d": {"params", "frozen"}}}``: the inverse of :func:`from_jax_ssl`."""
+    state = {}
+    for half in ("student", "teacher"):
+        def part(det):
+            pre = f"{half}.{det}."
+            return {k[len(pre):]: v for k, v in sd.items()
+                    if k.startswith(pre)}
+        p3, s3 = to_jax_pvrcnn(part("det3d"), pv_cfg)
+        p2, f2 = to_jax_frcnn(part("det2d"), fr_cfg)
+        state[half] = dict(det3d=dict(params=p3, batch_stats=s3),
+                           det2d=dict(params=p2, frozen=f2))
+    return state

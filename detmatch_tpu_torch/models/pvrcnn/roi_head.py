@@ -261,7 +261,14 @@ def roi_head_loss_terms(rcnn_cls, rcnn_reg, targets):
                                          code_weights=(1.0,) * 7)
     reg_numer = (reg_loss.sum(dim=-1) * fg).sum(dim=1)
 
-    decoded = decode_roi_boxes(rois, rcnn_reg)
+    # the corner loss decodes the foreground RoIs only, as pcdet's
+    # ``get_box_reg_layer_loss`` does (it decodes ``rcnn_reg[fg_mask]``):
+    # a background RoI's regression takes no loss, and a size channel past
+    # log(FLT_MAX) ~ 88.72 decodes to an infinite box whose masked corner
+    # term is 0 * inf = NaN (JAX's ``roi_head.py:274-280`` multiplies the
+    # mask in after the decode)
+    decoded = decode_roi_boxes(rois, torch.where(
+        targets["reg_valid_mask"][..., None], rcnn_reg, 0.0))
     b, n = decoded.shape[:2]
     corner = losses.corner_loss_lidar(
         decoded.reshape(-1, 7),
