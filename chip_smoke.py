@@ -12,7 +12,12 @@ Phases (any failure exits non-zero without printing the result line):
 1. device — a CUDA card is required; prints its nvidia-smi name and
    power limit;
 2. precision — TF32 off for matmuls and cuDNN convs;
-3. build — compiles ``detmatch_tpu_torch/csrc/*.cu`` (timed);
+3. build — compiles ``detmatch_tpu_torch/csrc/*.cu`` (timed); then the
+   initialisers: a seeded ``configs/detmatch/001/detmatch/split_0.py``
+   SSL detector built for the card equals the same seed's CPU build bit
+   for bit (every draw on the host's generator; JAX's initialisers in
+   distribution, ``tests/test_torch_port_init.py``), with each build's
+   seconds;
 4. kernels — every sparse-conv, FPS and ball-query call of the main path
    (B=4 synthetic KITTI frames of 16,384 points, 16,000-voxel cap, the
    first of them alone, and a B=3 batch with uneven valid counts), kernel
@@ -167,8 +172,10 @@ Phases (any failure exits non-zero without printing the result line):
    each with K1 fwd, K2 and K3 launched and its detections equal to
    ``detect`` / ``simple_test`` on the same frame (count and labels
    exactly, boxes and scores within 1e-5); ``tools.misc.fuse_conv_bn``
-   on the pretraining checkpoint, ``detect`` at B=4 folded against
-   unfolded (the outputs before the proposal NMS within 2e-3, the
+   on the pretraining checkpoint (its direction classifier's biases
+   spread, seeded, so that no anchor's direction logits tie), ``detect``
+   at B=4 folded against unfolded (the outputs before the proposal NMS
+   within 2e-3, the
    detections' share printed, both timed in turns);
    ``publish_model`` (optimizer state dropped, content hash),
    ``print_config``, ``visualize_results`` on ``tools.test``'s KITTI
@@ -1066,6 +1073,8 @@ def run():
         if "registers" in line or "spill" in line:
             print("  " + line.strip())
 
+    init_phase(card)
+
     cfg = Config.fromfile(str(CONFIG))
     spec = build_voxelizer(cfg)
     model = build_detector(cfg, device=DEVICE)
@@ -1213,6 +1222,36 @@ def run():
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def init_phase(card):
+    """A seeded ``split_0.py`` SSL detector built for the card against
+    the same seed's CPU build: every tensor bit-equal (the initialisers
+    draw on the host's generator, then ``build_ssl`` moves the model)."""
+    from detmatch_tpu_torch.apis.build import build_ssl
+    from detmatch_tpu_torch.config import Config
+    phase("initialisers: the card's seeded build against the CPU's")
+    cfg = Config.fromfile(str(SSL_CONFIG))
+    states, secs = {}, {}
+    for device in (DEVICE, "cpu"):
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(SEED)
+            t0 = time.perf_counter()
+            model = build_ssl(cfg, device=device)
+            if device != "cpu":
+                torch.cuda.synchronize()
+            secs[device] = time.perf_counter() - t0
+        states[device] = {k: v.cpu() for k, v in model.state_dict().items()}
+        del model
+    differ = [k for k, v in states["cpu"].items()
+              if not torch.equal(v, states[DEVICE][k])]
+    print(f"  split_0.py SSL detector, seed {SEED}: {len(differ)} of "
+          f"{len(states['cpu'])} tensors differ between the card's and the "
+          f"CPU's build; build_ssl {secs[DEVICE]:.3f} s (card), "
+          f"{secs['cpu']:.3f} s (CPU) [{card}]")
+    if differ:
+        raise AssertionError(f"the card's seeded build differs from the "
+                             f"CPU's: {differ[:5]}")
 
 
 def conv_edge_cases():
@@ -4287,10 +4326,22 @@ def demo_phases(card, root, work, ckpts):
     del ssl
 
     phase(f"tools: fuse_conv_bn, then detect at B=4 on {card}")
-    fused_dir = work / "fused"
+    # the input pinned: the direction classifier's biases spread, seeded.
+    # At JAX's zero bias an anchor's two direction logits tie over
+    # near-empty BEV cells, and the fold's float32 rounding flips the
+    # decoded heading there by pi (pi over the boxes' largest entry,
+    # ~4.5e-2, against the gate's 2e-3)
+    payload, step = checkpoints.restore_latest(str(ckpts["pretrain_3d"]))
+    sd = payload["model"]
+    bias = sd["dense_head.conv_dir_cls.bias"]
+    g = torch.Generator().manual_seed(SEED)
+    sd["dense_head.conv_dir_cls.bias"] = 0.5 * torch.randn(
+        bias.shape, generator=g).to(bias)
+    model.load_state_dict(sd)
+    pinned_dir, fused_dir = work / "pinned", work / "fused"
+    checkpoints.save(str(pinned_dir), dict(payload, model=sd), step)
     with contextlib.redirect_stdout(sys.stderr):
-        n_pairs = fuse_conv_bn.main([str(ckpts["pretrain_3d"]),
-                                     str(fused_dir)])
+        n_pairs = fuse_conv_bn.main([str(pinned_dir), str(fused_dir)])
     spec = build_voxelizer(cfg3)
     batch4 = make_batch(spec, 4)
     states = {"unfused": {k: t.clone() for k, t in

@@ -22,6 +22,7 @@ from torch import nn
 
 from ...ops.roialign import multilevel_roi_align
 from ...parallel import for_each_global_row
+from ..init import init_like_jax
 from .resnet import FPN, ResNet50
 from .roi_head2d import (Shared2FCBBoxHead, decode_rcnn, multiclass_nms_2d,
                          rcnn_loss, sample_rcnn_targets)
@@ -70,6 +71,7 @@ class FasterRCNN(nn.Module):
             a = grid_anchors(int(np.ceil(h / s)), int(np.ceil(w / s)), s)
             self.register_buffer(f"anchors{lvl}", torch.from_numpy(a),
                                  persistent=False)
+        init_like_jax(self)
 
     @property
     def anchors(self):

@@ -16,6 +16,7 @@ from torch import nn
 from ...core import losses, nms as nms_mod
 from ...core.coders import DeltaXYWHCoder
 from ...parallel import global_sum
+from ..init import PRIOR_BIAS
 from ..layers import linear
 from . import rpn
 
@@ -37,6 +38,12 @@ class Shared2FCBBoxHead(nn.Module):
             nn.Linear(fc_dim, fc_dim)])
         self.fc_cls = nn.Linear(fc_dim, num_classes + 1)
         self.fc_reg = nn.Linear(fc_dim, num_classes * 4)
+
+    def init_explicit(self):
+        """JAX's prior class bias and N(0, 0.001) box weights
+        (``roi_head2d.py:44,47`` there)."""
+        nn.init.constant_(self.fc_cls.bias, PRIOR_BIAS)
+        nn.init.normal_(self.fc_reg.weight, std=0.001)
 
     def forward(self, roi_feats):
         """(R, C, 7, 7) → (cls (R, C+1), reg (R, 4C)); the shared FCs in

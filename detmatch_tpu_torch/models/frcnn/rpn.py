@@ -23,6 +23,7 @@ from torch import nn
 from ...core import iou as iou_mod, losses, nms as nms_mod
 from ...core.coders import DeltaXYWHCoder
 from ...parallel import for_each_global_row, global_count
+from ..init import PRIOR_BIAS
 from ..layers import conv
 
 
@@ -59,6 +60,10 @@ class RPNHead(nn.Module):
         self.rpn_conv = nn.Conv2d(in_channels, feat_channels, 3, padding=1)
         self.rpn_cls = nn.Conv2d(feat_channels, num_base_anchors, 1)
         self.rpn_reg = nn.Conv2d(feat_channels, num_base_anchors * 4, 1)
+
+    def init_explicit(self):
+        """JAX's prior objectness bias (``rpn.py:123`` there)."""
+        nn.init.constant_(self.rpn_cls.bias, PRIOR_BIAS)
 
     def forward(self, feats):
         """NCHW levels → per level (cls (B, H, W, A), reg (B, H, W, 4A)),

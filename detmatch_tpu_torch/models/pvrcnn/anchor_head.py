@@ -19,6 +19,7 @@ from ...core import geometry, iou as iou_mod, losses
 from ...core.coders import ResidualCoder
 from ...ops.pointnet import gather_rows
 from ...parallel import global_count
+from ..init import PRIOR_BIAS
 
 # the JAX head's default loss weights (``anchor_head.py:231-233``)
 LOSS_WEIGHTS = dict(cls_weight=1.0, loc_weight=2.0, dir_weight=0.2,
@@ -122,7 +123,11 @@ class AnchorHeadSingle(nn.Module):
         self.conv_box = nn.Conv2d(input_channels, na * self.coder.code_size,
                                   1)
         self.conv_dir_cls = nn.Conv2d(input_channels, na * num_dir_bins, 1)
-        nn.init.constant_(self.conv_cls.bias, -np.log((1 - 0.01) / 0.01))
+
+    def init_explicit(self):
+        """JAX's prior class bias and N(0, 0.001) box weights
+        (``anchor_head.py:180,184`` there)."""
+        nn.init.constant_(self.conv_cls.bias, PRIOR_BIAS)
         nn.init.normal_(self.conv_box.weight, std=0.001)
 
     def forward(self, bev_features):

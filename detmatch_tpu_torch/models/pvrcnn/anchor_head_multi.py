@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..init import init_like_jax
 from .anchor_head import AnchorHeadSingle
 
 NEG_LOGIT = -1e9
@@ -47,9 +48,15 @@ class AnchorHeadMulti(AnchorHeadSingle):
                                    na * self.coder.code_size, 1),
                 conv_dir_cls=nn.Conv2d(shared_conv_channels,
                                        na * self.num_dir_bins, 1)))
+            self.rpn_heads.append(head)
+        init_like_jax(self)  # no detector of the port holds this head
+
+    def init_explicit(self):
+        """JAX's class bias -4.595 and N(0, 0.001) box weights a group
+        (``anchor_head_multi.py:45,48`` there)."""
+        for head in self.rpn_heads:
             nn.init.constant_(head.conv_cls.bias, -4.595)
             nn.init.normal_(head.conv_box.weight, std=0.001)
-            self.rpn_heads.append(head)
 
     def forward(self, bev_features):
         """(B, C, H, W) → flat per-anchor predictions, as

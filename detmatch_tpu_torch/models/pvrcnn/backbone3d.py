@@ -27,6 +27,7 @@ from torch import nn
 from ...ops import spconv
 from ...ops.cuda import KERNELS
 from ...ops.voxelize import INVALID_KEY
+from ..init import he_normal_
 from ..layers import masked_bn
 
 
@@ -38,7 +39,7 @@ class SparseConv3d(nn.Module):
         super().__init__()
         ks = spconv._triple(kernel_size)
         self.weight = nn.Parameter(torch.empty(*ks, cin, cout))
-        nn.init.normal_(self.weight, std=math.sqrt(2.0 / (np.prod(ks) * cin)))
+        he_normal_(self.weight, math.prod(ks) * cin)
 
     def taps(self):
         """(K, Cin, Cout) view of the weight, K = kz*ky*kx row-major."""

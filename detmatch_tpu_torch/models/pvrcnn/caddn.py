@@ -35,6 +35,7 @@ from torch import nn
 
 from ...parallel import process_count
 from ..frcnn.resnet import ResNet50
+from ..init import init_like_jax
 from ..layers import batch_norm_2d
 from .anchor_head import AnchorHeadSingle
 from .bev import BaseBEVBackbone, _bn2d
@@ -190,6 +191,7 @@ class CaDDN(nn.Module):
             point_cloud_range=point_cloud_range, grid_size=grid_size)
         self.register_buffer("voxel_centers", self._voxel_centers(),
                              persistent=False)
+        init_like_jax(self)
 
     def _voxel_centers(self):
         """Homogeneous voxel centres (Y, X, Z, 4), float32 as JAX's."""

@@ -24,6 +24,7 @@ from torch import nn
 
 from ...core import geometry, losses
 from ...ops.roiaware_pool import roiaware_pool_capped
+from ..init import init_like_jax
 from ..layers import bn_pairs, masked_bn, mlp
 from .roi_head import (decode_roi_boxes, proposal_layer, roi_head_loss,
                        second_stage_rois)
@@ -197,6 +198,7 @@ class PartA2(AnchorDetector):
         self.point_head = PointIntraPartOffsetHead(c1b,
                                                    num_classes=num_classes)
         self.roi_head = PartA2Head(c1b, **(roi_head_cfg or {}))
+        init_like_jax(self)
 
     def forward(self, batch, train=None, generator=None):
         train = check_mode(self, train, generator)

@@ -25,6 +25,7 @@ from torch import nn
 from ...ops import spconv
 from ...ops.cuda import KERNELS
 from ...ops.voxelize import INVALID_KEY
+from ..init import init_like_jax
 from ..layers import masked_bn
 from .anchor_head import AnchorHeadSingle
 from .bev import BaseBEVBackbone
@@ -117,6 +118,7 @@ class PointPillars(nn.Module):
             self.backbone_2d.num_bev_features, num_classes=num_classes,
             anchor_configs=cfgs, point_cloud_range=point_cloud_range,
             grid_size=grid_size)
+        init_like_jax(self)
 
     def forward(self, batch, train=None, generator=None):
         """``batch["pillars"]``: ``voxelize_mean`` of the points with the

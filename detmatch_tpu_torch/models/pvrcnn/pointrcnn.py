@@ -26,6 +26,7 @@ from ...core.coders import PointResidualCoder
 from ...ops import pointnet
 from ...ops.cuda import KERNELS
 from ...ops.roipoint_pool import roipoint_pool
+from ..init import init_like_jax
 from ..layers import bn_pairs, mlp
 from .parta2 import (apply_fc_stack, fc_stack, focal_cls_loss, mlp_stack,
                      point_box_targets)
@@ -163,6 +164,10 @@ class PointRCNNHead(nn.Module):
             c = sa.out_channels
         self.cls_layers = fc_stack(c, cls_fc, 1)
         self.reg_layers = fc_stack(c, reg_fc, 7)
+
+    def init_explicit(self):
+        """JAX's N(0, 0.001) weights of the box regressor's output
+        layer (the class output keeps flax's LeCun default)."""
         nn.init.normal_(self.reg_layers[-1].weight, std=0.001)
 
     def forward(self, rois, points, points_valid, point_features,
@@ -222,6 +227,7 @@ class PointRCNN(nn.Module):
         self.point_head = PointHeadBox(c, num_classes=num_classes,
                                        **(point_head_cfg or {}))
         self.roi_head = PointRCNNHead(c, **(roi_head_cfg or {}))
+        init_like_jax(self)
 
     def forward(self, batch, train=None, generator=None):
         train = check_mode(self, train, generator)

@@ -21,6 +21,7 @@ from torch import nn
 from ...core import nms as nms_mod
 from ...ops.cuda import KERNELS
 from ...parallel import global_sum
+from ..init import init_like_jax
 from .anchor_head import AnchorHeadSingle
 from .backbone3d import VoxelBackbone8x, level_shapes
 from .bev import BaseBEVBackbone, height_compression
@@ -101,6 +102,7 @@ class PVRCNN(nn.Module):
             self.pfe.vsa_point_feature_fusion[0].out_features,
             num_classes=num_classes, dtype=compute_dtype,
             **(roi_head_cfg or {}))
+        init_like_jax(self)
 
     def forward(self, batch, train=None, generator=None, row_groups=1):
         """Forward pass.

@@ -349,6 +349,10 @@ class PVRCNNHead(nn.Module):
             layers, cin = _fc_layers(c, fcs, lambda k: k == 0, dp_ratio)
             layers.append(nn.Conv1d(cin, out, 1, bias=True))
             setattr(self, name, nn.Sequential(*layers))
+
+    def init_explicit(self):
+        """JAX's N(0, 0.001) weights of the box regressor's output
+        layer (the class output keeps flax's LeCun default)."""
         nn.init.normal_(self.reg_layers[-1].weight, std=0.001)
 
     def forward(self, rois, keypoints, kp_valid, point_features,

@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 from ...ops.cuda import KERNELS
+from ..init import init_like_jax
 from .anchor_head import AnchorHeadSingle
 from .backbone3d import VoxelBackbone8x, level_shapes
 from .bev import BaseBEVBackbone, height_compression
@@ -103,6 +104,10 @@ class SECOND(AnchorDetector):
     """One-stage SECOND; the forward's ``train`` as PV-RCNN's (batch
     norm follows the module mode)."""
 
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        init_like_jax(self)
+
     def forward(self, batch, train=None, generator=None):
         check_mode(self, train, generator, needs_generator=False)
         return self.rpn(batch)
@@ -181,6 +186,7 @@ class SECONDIoU(AnchorDetector):
             self.backbone_2d.num_bev_features,
             point_cloud_range=point_cloud_range, voxel_size=voxel_size,
             **(roi_head_cfg or {}))
+        init_like_jax(self)
 
     def forward(self, batch, train=None, generator=None):
         train = check_mode(self, train, generator)

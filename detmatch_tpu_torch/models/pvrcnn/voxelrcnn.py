@@ -19,6 +19,7 @@ from torch import nn
 from ...ops import pointnet
 from ...ops.cuda import KERNELS
 from ...ops.cuda.ball_query import pack_table, sort_points_by_y
+from ..init import init_like_jax
 from ..layers import bn_pairs
 from .roi_head import (_apply_fc, _fc_layers, decode_roi_boxes,
                        proposal_layer, roi_grid_points, roi_head_loss,
@@ -47,6 +48,10 @@ class FCHeads(nn.Module):
                                       eps=1e-3)
             layers.append(nn.Conv1d(cin_, out, 1, bias=True))
             setattr(self, name, nn.Sequential(*layers))
+
+    def init_explicit(self):
+        """JAX's N(0, 0.001) weights of the box regressor's output
+        layer (the class output keeps flax's LeCun default)."""
         nn.init.normal_(self.reg_layers[-1].weight, std=0.001)
 
     def forward(self, x, generator=None):
@@ -120,6 +125,7 @@ class VoxelRCNN(AnchorDetector):
             dict(x_conv1=chans[1], x_conv2=chans[2], x_conv3=chans[3],
                  x_conv4=chans[4]), voxel_size=voxel_size,
             point_cloud_range=point_cloud_range, **(roi_head_cfg or {}))
+        init_like_jax(self)
 
     def forward(self, batch, train=None, generator=None):
         """Outputs as PV-RCNN's (``rcnn_cls``, ``rcnn_reg``,
